@@ -1,0 +1,212 @@
+"""Single-garment SKIT dataset, test phase (``vts_tpu/data/singleskit.py``).
+
+One garment = sketch S + visual I + object mask M + touch records.  A test
+sample is the center crop (``crop_size``) made a multiple of 256, with
+every touch ROI propagated analytically; each surviving record gives up to
+``sample_bbox_per_patch`` 32² squares centered in its contact-center mask
+(the middle candidates, deterministically), resampled to ``batch_size_G2``
+patches with a validity mask.  Samples are fixed-shape numpy NHWC float32.
+
+``synthetic://`` dataroots are built in memory (:mod:`.synthetic`); an
+on-disk dataroot is decoded with PIL, imported only then.  The training
+phase (zoom, random crops, weighted resampling, the disk cache) comes with
+the training port.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from . import coords as C
+from .npz import TouchRecord, list_images, list_touch_npz, load_touch_npz
+from .transforms import crop_img, make_power_2_img, to_array
+
+AUG_KEYS = (
+    "H", "W", "crop_pos_x", "crop_pos_y", "crop_size_h", "crop_size_w",
+    "patch_crop_size", "resize_ratio", "resize_ratio_h", "resize_ratio_w",
+    "scale_factor_h", "scale_factor_w",
+)
+
+
+def pack_aug_params(aug: Dict[str, float]) -> np.ndarray:
+    return np.array([aug[k] for k in AUG_KEYS], np.float32)
+
+
+def _resolve_padded_size(dataroot: str, default: int = 1800) -> Optional[int]:
+    """Global padding is encoded in the dataroot name ('..._padded_1800_x1')."""
+    if "padded" in dataroot:
+        try:
+            return int(dataroot.split("padded_")[1].split("/")[0].split("_")[0])
+        except (IndexError, ValueError):
+            return default
+    return None
+
+
+def _read_image(path: str, gray: bool) -> np.ndarray:
+    from PIL import Image, ImageOps
+    img = Image.open(path)
+    return np.asarray(ImageOps.grayscale(img) if gray else img.convert("RGB"))
+
+
+class SingleSkitDataset:
+    """Map-style dataset of fixed-shape test sample dicts (numpy, NHWC)."""
+
+    def __init__(self, opt):
+        if opt.isTrain:
+            raise NotImplementedError("the training phase of singleskit is not ported yet")
+        if "zoom" in opt.preprocess:
+            raise NotImplementedError("zoom preprocessing is not ported yet")
+        self.opt = opt
+        self.data_len = int(opt.data_len)
+        self.patch_crop_size = 32
+        self.mult = int(opt.T_resolution_multiplier)
+        self.seed = int(opt.seed)
+        self.M_img = None
+        if opt.dataroot.startswith("synthetic://"):
+            from .synthetic import materialize_synthetic
+            g = materialize_synthetic(opt.dataroot, opt)
+            self.name = f"{g.name}_sketch"
+            self.padded_size = g.padded_size
+            self.S_img, self.I_img = g.sketch, g.image
+            if opt.use_bg_mask:
+                self.M_img = g.mask
+            self.records = g.records["testT"]
+        else:
+            root = opt.dataroot
+            self.padded_size = _resolve_padded_size(root)
+            sub = lambda d: os.path.join(root, d)
+            s_paths = list_images(sub(opt.subdir_S))
+            if len(s_paths) != 1:
+                raise ValueError(f"SingleSkit expects exactly one sketch, got {s_paths}")
+            self.name = os.path.splitext(os.path.basename(s_paths[0]))[0]
+            self.S_img = _read_image(s_paths[0], gray=opt.sketch_nc == 1)
+            if opt.use_bg_mask:
+                self.M_img = _read_image(list_images(sub(opt.subdir_M))[0], gray=True)
+            self.I_img = _read_image(list_images(sub(opt.subdir_I))[0], gray=False)
+            self.records = [load_touch_npz(p) for p in list_touch_npz(sub(opt.subdir_T))]
+
+    def __len__(self) -> int:
+        return self.data_len
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        sample = self.build_sample(index)
+        sample["sample_idx"] = np.int64(index)
+        return sample
+
+    def build_sample(self, index: int) -> Dict[str, np.ndarray]:
+        opt = self.opt
+        rng = np.random.default_rng((self.seed << 20) ^ index)
+        center_crop = "crop" not in opt.preprocess
+        S2, rr, cx, cy = crop_img(self.S_img, opt.crop_size, opt.crop_size,
+                                  center_w=opt.center_w, center_h=opt.center_h,
+                                  center_crop=center_crop, rng=rng)
+        I2 = crop_img(self.I_img, opt.crop_size, opt.crop_size, rr, cx, cy)[0]
+        M2 = crop_img(self.M_img, opt.crop_size, opt.crop_size, rr, cx, cy)[0] \
+            if self.M_img is not None else None
+        S3, rw, rh = make_power_2_img(S2, 256)
+        I3 = make_power_2_img(I2, 256)[0]
+        M3 = make_power_2_img(M2, 256)[0] if M2 is not None else None
+        aug = {
+            "H": float(self.S_img.shape[0]), "W": float(self.S_img.shape[1]),
+            "scale_factor_h": 1.0, "scale_factor_w": 1.0,
+            "crop_size_h": float(opt.crop_size), "crop_size_w": float(opt.crop_size),
+            "resize_ratio": float(rr), "crop_pos_x": float(cx), "crop_pos_y": float(cy),
+            "resize_ratio_w": float(rw), "resize_ratio_h": float(rh),
+            "patch_crop_size": float(self.patch_crop_size),
+        }
+        sample: Dict[str, np.ndarray] = {
+            "S": to_array(S3, normalize=True),
+            "augmentation_params": pack_aug_params(aug),
+            "I": to_array(I3, normalize=True),
+        }
+        if M3 is not None:
+            sample["M"] = (to_array(M3, normalize=False) > 0.5).astype(np.float32)
+        if self.records:
+            sample.update(self._extract_patches(self.records, aug, M3, rng,
+                                                k_out=int(opt.batch_size_G2) or 64))
+        return sample
+
+    def _extract_patches(self, records: List[TouchRecord], aug: Dict, M3,
+                         rng: np.random.Generator, k_out: int) -> Dict[str, np.ndarray]:
+        """Propagate ROIs, take each record's middle contact squares, resample
+        to k_out with a validity mask (reference singleskit_dataset.py:434-1128)."""
+        from scipy.ndimage import maximum_filter
+        opt = self.opt
+        mult = self.mult
+        pc = self.patch_crop_size
+        pct = pc * mult
+        m3_arr = np.asarray(M3, np.float32)
+        if m3_arr.max() > 1:
+            m3_arr = m3_arr / 255.0
+        imgs, coords_list, masks, full_rois = [], [], [], []
+        for rec in records:
+            roi = C.ROI(rec.roi_x, rec.roi_y, rec.roi_h, rec.roi_w)
+            if self.padded_size is not None:
+                roi = C.pad_roi(roi, org_w=opt.center_w, org_h=opt.center_h,
+                                padded_size=self.padded_size)
+            valid, roi = C.crop_roi(roi, aug["crop_size_h"], aug["crop_size_w"],
+                                    aug["resize_ratio"], aug["crop_pos_x"], aug["crop_pos_y"])
+            if not valid:
+                continue
+            roi = C.make_power_2_roi(roi, aug["resize_ratio_w"], aug["resize_ratio_h"])
+            roi_i = C.ROI(*(int(round(v)) for v in roi))
+            if m3_arr[roi_i.y:roi_i.y + roi_i.h, roi_i.x:roi_i.x + roi_i.w].sum() == 0:
+                continue
+            full_rois.append([roi_i.x, roi_i.y, roi_i.h, roi_i.w])
+            th, tw = rec.gx.shape
+            m_aligned = m3_arr[roi_i.y:roi_i.y + th // mult, roi_i.x:roi_i.x + tw // mult]
+            if mult != 1:
+                m_aligned = np.kron(m_aligned, np.ones((mult, mult), np.float32))
+            m_aligned = m_aligned[:th, :tw]
+            combined = (rec.touch_mask[:m_aligned.shape[0], :m_aligned.shape[1]]
+                        * m_aligned >= 1.0)
+            window_hit = maximum_filter(combined.astype(np.uint8), size=pct,
+                                        mode="constant", cval=0)
+            cys, cxs = np.nonzero(rec.touch_center_mask[:combined.shape[0],
+                                                        :combined.shape[1]] > 0)
+            y0s = cys - pct // 2
+            x0s = cxs - pct // 2
+            ok = ((y0s >= 0) & (x0s >= 0) & (y0s + pct <= th) & (x0s + pct <= tw)
+                  & (window_hit[cys, cxs] > 0))
+            cand_x = x0s[ok]
+            cand_y = y0s[ok]
+            if cand_x.size == 0:
+                continue
+            n_pick = min(cand_x.size, int(opt.sample_bbox_per_patch))
+            start = cand_x.size // 2
+            for pidx in range(start, min(start + n_pick, cand_x.size)):
+                x0, y0 = int(cand_x[pidx]), int(cand_y[pidx])
+                merged = rec.touch_mask[y0:y0 + pct, x0:x0 + pct] \
+                    * m_aligned[y0:y0 + pct, x0:x0 + pct]
+                gxy = np.stack([rec.gx[y0:y0 + pct, x0:x0 + pct],
+                                rec.gy[y0:y0 + pct, x0:x0 + pct]], axis=-1)
+                imgs.append(gxy.astype(np.float32))
+                coords_list.append(C.pack_patch_coords(
+                    C.ROI(roi_i.x, roi_i.y, roi_i.h, roi_i.w), pc, 1.0,
+                    x0 // mult, y0 // mult))
+                masks.append(merged.astype(np.float32)[..., None])
+
+        total = len(imgs)
+        out = {
+            "T_images": np.zeros((k_out, pct, pct, 2), np.float32),
+            "T_coords": np.zeros((k_out, C.N_COORD_FIELDS), np.float32),
+            "I_masks": np.zeros((k_out, pct, pct, 1), np.float32),
+            "T_valid": np.zeros((k_out,), np.float32),
+            "full_T_coords": np.asarray(full_rois, np.float32).reshape(-1, 4)
+            if full_rois else np.zeros((0, 4), np.float32),
+        }
+        if total == 0:
+            return out
+        if total >= k_out:
+            sel = rng.choice(total, size=k_out, replace=False)
+        else:
+            sel = np.concatenate([np.arange(total),
+                                  rng.choice(total, size=k_out - total, replace=True)])
+        out["T_images"] = np.stack([imgs[i] for i in sel]).astype(np.float32)
+        out["T_coords"] = np.stack([coords_list[i] for i in sel]).astype(np.float32)
+        out["I_masks"] = np.stack([masks[i] for i in sel]).astype(np.float32)
+        out["T_valid"] = np.ones((k_out,), np.float32)
+        return out

@@ -1,0 +1,134 @@
+"""U-Net building blocks (``vts_tpu/networks/blocks.py``), NHWC at every
+``forward``; the convs run on NCHW views of the same memory.
+
+Layouts: ``Conv4x4`` holds a torch OIHW weight; ``ConvT4x4`` holds the
+(in, out, kh, kw) weight of ``ConvTranspose2d(k=4, s=2, p=1)`` — the
+reference's flax ``ConvTranspose(padding=2)`` kernel spatially flipped and
+io-transposed (:mod:`vts_torch.utils.convert_jax`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def _to_nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _to_nhwc(y):
+    return y.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
+def make_initializer(init_type: str, init_gain: float):
+    """Reference models/networks.py:191-230 with the reference's flax fan
+    convention (receptive field × in / × out).  Returns ``init(tensor,
+    fan_in, fan_out, generator)`` filling the tensor in place."""
+    def normal(std):
+        def init(t, fan_in, fan_out, gen):
+            with torch.no_grad():
+                t.normal_(0.0, std(fan_in, fan_out), generator=gen)
+        return init
+
+    if init_type == "normal":
+        return normal(lambda fi, fo: init_gain)
+    if init_type == "xavier":
+        return normal(lambda fi, fo: init_gain * math.sqrt(2.0 / (fi + fo)))
+    if init_type == "kaiming":
+        return normal(lambda fi, fo: math.sqrt(2.0 / fi))
+    raise NotImplementedError(f"initialization method {init_type!r} is not ported yet")
+
+
+class InstanceNorm(nn.Module):
+    """Affine-free instance norm over (H, W) of NHWC, eps 1e-5, with the
+    reference's ONE-pass fp32 statistics: var = E[x²] − E[x]², clamped at 0
+    (``F.instance_norm`` takes two passes and rounds differently)."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x):
+        xf = x.float()
+        mean = torch.mean(xf, dim=(1, 2), keepdim=True)
+        var = torch.mean(xf * xf, dim=(1, 2), keepdim=True) - mean * mean
+        scale = torch.rsqrt(torch.clamp_min(var, 0.0) + self.eps)
+        return (x - mean.to(x.dtype)) * scale.to(x.dtype)
+
+
+class Conv4x4(nn.Module):
+    """4×4 conv, stride 2, pad 1."""
+
+    def __init__(self, in_c: int, out_c: int, use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_c, in_c, 4, 4))
+        self.bias = nn.Parameter(torch.zeros(out_c)) if use_bias else None
+
+    def reset_parameters(self, init, gen):
+        o, i, kh, kw = self.weight.shape
+        init(self.weight, i * kh * kw, o * kh * kw, gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return _to_nhwc(F.conv2d(_to_nchw(x), self.weight, self.bias, stride=2, padding=1))
+
+
+class ConvT4x4(nn.Module):
+    """4×4 transposed conv, stride 2 → exact 2× upsample."""
+
+    def __init__(self, in_c: int, out_c: int, use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(in_c, out_c, 4, 4))
+        self.bias = nn.Parameter(torch.zeros(out_c)) if use_bias else None
+
+    def reset_parameters(self, init, gen):
+        i, o, kh, kw = self.weight.shape
+        init(self.weight, i * kh * kw, o * kh * kw, gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return _to_nhwc(F.conv_transpose2d(_to_nchw(x), self.weight, self.bias,
+                                           stride=2, padding=1))
+
+
+class Down(nn.Module):
+    """[LeakyReLU(0.2)] + Conv4x4(s2) + [norm]; outermost: conv only;
+    innermost: no norm."""
+
+    def __init__(self, in_c: int, out_c: int, innermost: bool = False,
+                 outermost: bool = False, use_bias: bool = True):
+        super().__init__()
+        self.outermost = outermost
+        self.conv = Conv4x4(in_c, out_c, use_bias)
+        self.norm = None if (outermost or innermost) else InstanceNorm()
+
+    def forward(self, x):
+        if not self.outermost:
+            x = F.leaky_relu(x, 0.2)
+        x = self.conv(x)
+        return x if self.norm is None else self.norm(x)
+
+
+class Up(nn.Module):
+    """[cat(x, skip)] + ReLU + ConvT4x4(s2) + norm, or + Tanh at the
+    outermost level (which takes no skip, like the innermost)."""
+
+    def __init__(self, in_c: int, out_c: int, innermost: bool = False,
+                 outermost: bool = False, use_bias: bool = True):
+        super().__init__()
+        self.outermost = outermost
+        self.takes_skip = not (outermost or innermost)
+        self.convt = ConvT4x4(in_c, out_c, True if outermost else use_bias)
+        self.norm = None if outermost else InstanceNorm()
+
+    def forward(self, x, skip=None):
+        if self.takes_skip and skip is not None:
+            x = torch.cat([x, skip], dim=-1)
+        x = self.convt(torch.relu(x))
+        return torch.tanh(x) if self.outermost else self.norm(x)

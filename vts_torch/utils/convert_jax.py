@@ -1,0 +1,111 @@
+"""Weights across the two packages: ``vts_tpu`` param trees (numpy, flax
+layout) ↔ ``vts_torch`` state dicts.
+
+Layout rules (the inverse of ``vts_tpu/utils/convert_torch.py:9-11``):
+  conv:  flax HWIO (kh, kw, in, out)  ↔ torch OIHW        = transpose(3, 2, 0, 1)
+  convT: flax ConvTranspose(padding 2) kernel (kh, kw, in, out), applied
+         unflipped to the stride-dilated input ↔ torch ConvTranspose2d(p=1)
+         weight (in, out, kh, kw) = the kernel spatially flipped, then
+         transpose(2, 3, 0, 1)
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _conv_to_torch(k):
+    return _t(np.asarray(k).transpose(3, 2, 0, 1))
+
+
+def _conv_from_torch(w):
+    return np.ascontiguousarray(_np(w).transpose(2, 3, 1, 0))
+
+
+def _convt_to_torch(k):
+    return _t(np.asarray(k)[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
+def _convt_from_torch(w):
+    return np.ascontiguousarray(_np(w).transpose(2, 3, 0, 1)[::-1, ::-1])
+
+
+# ---------------------------------------------------------------- U-Net ---
+
+def unet_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """flax ``CustomUNet`` params tree → :class:`vts_torch.networks.unet_custom.CustomUNet`
+    state dict."""
+    sd = OrderedDict()
+    for name, sub in params.items():
+        if name.startswith("down"):
+            leaf = sub["Conv4x4_0"]["Conv_0"]
+            sd[f"down.{name}.conv.weight"] = _conv_to_torch(leaf["kernel"])
+            if "bias" in leaf:
+                sd[f"down.{name}.conv.bias"] = _t(leaf["bias"])
+        elif name.startswith("up"):
+            leaf = sub["ConvT4x4_0"]["ConvTranspose_0"]
+            sd[f"up.{name}.convt.weight"] = _convt_to_torch(leaf["kernel"])
+            if "bias" in leaf:
+                sd[f"up.{name}.convt.bias"] = _t(leaf["bias"])
+        else:
+            raise KeyError(f"unexpected CustomUNet param group {name!r}")
+    return sd
+
+
+def torch_to_unet_params(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """Inverse of :func:`unet_params_to_torch` (what the checkpoint writer stores)."""
+    params: Dict = {}
+    for key, t in state_dict.items():
+        group, name, conv, kind = key.split(".")
+        if group == "down":
+            leaf = params.setdefault(name, {}).setdefault("Conv4x4_0", {}).setdefault("Conv_0", {})
+            leaf["kernel" if kind == "weight" else "bias"] = (
+                _conv_from_torch(t) if kind == "weight" else _np(t).copy())
+        else:
+            leaf = params.setdefault(name, {}).setdefault("ConvT4x4_0", {}).setdefault(
+                "ConvTranspose_0", {})
+            leaf["kernel" if kind == "weight" else "bias"] = (
+                _convt_from_torch(t) if kind == "weight" else _np(t).copy())
+    return params
+
+
+# ---------------------------------------------------------------- LPIPS ---
+
+def lpips_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """``{"conv": [{"w", "b"}]*13, "lin": [..]*5}`` → :class:`vts_torch.losses.lpips.LPIPS`
+    state dict."""
+    sd = OrderedDict()
+    for i, p in enumerate(params["conv"]):
+        sd[f"conv{i}_weight"] = _conv_to_torch(p["w"])
+        sd[f"conv{i}_bias"] = _t(p["b"])
+    for i, lin in enumerate(params["lin"]):
+        sd[f"lin{i}"] = _t(np.asarray(lin).reshape(-1))
+    return sd
+
+
+# ------------------------------------------------------------ Inception ---
+
+_BN_FIELDS = ("scale", "bias", "mean", "var")
+
+
+def inception_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """``{name: {"w", "scale", "bias", "mean", "var"}}`` →
+    :class:`vts_torch.metrics.inception.InceptionBlock0` state dict."""
+    sd = OrderedDict()
+    for name, p in params.items():
+        sd[f"{name}_weight"] = _conv_to_torch(p["w"])
+        for f in _BN_FIELDS:
+            sd[f"{name}_{f}"] = _t(p[f])
+    return sd
