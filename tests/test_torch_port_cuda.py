@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels — forward and backward — against their plain
+versions, on the card.
 
 Needs an NVIDIA GPU with nvcc (the kernels are built at first use); every
 test here is marked ``cuda`` and skips without a card.  Run on the GPU
@@ -26,9 +27,11 @@ def cuda():
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 24, 64, 128), (1, 13, 7, 3, 5),
-                                   (3, 37, 29, 128, 128), (2, 9, 40, 64, 64)])
+                                   (3, 37, 29, 128, 128), (2, 9, 40, 64, 64),
+                                   (33000, 2, 2, 3, 128)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_conv3x3_kernel_matches_plain(cuda, shape, relu):
+    """The last shape has N·(Co/64) past the grid's z limit: launched in chunks."""
     n, h, w, c, co = shape
     g = torch.Generator(device="cpu").manual_seed(sum(shape))
     x = torch.randn(n, h, w, c, generator=g).to(cuda)
@@ -68,6 +71,81 @@ def test_gather_kernel_matches_plain(cuda, mode, dtype):
     assert torch.equal(got, k2.gather_patches_plain(img, ox, oy, 32, mode=mode))
 
 
+@pytest.mark.parametrize("shape", [(2, 16, 24, 64, 128), (1, 13, 7, 3, 5),
+                                   (3, 37, 29, 128, 128), (128, 16, 16, 128, 64),
+                                   (33000, 2, 2, 128, 8)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv3x3_dx_kernel_matches_plain(cuda, shape, relu):
+    """K1 dx against its plain version (and the autograd path launches it):
+    |Δ| ≤ 1e-4·max|ref| + 1e-5.  The last shape has N·(C/64) past the grid's
+    z limit: launched in chunks."""
+    n, h, w, c, co = shape
+    g = torch.Generator(device="cpu").manual_seed(sum(shape) + 1)
+    x = torch.randn(n, h, w, c, generator=g).to(cuda)
+    wt = (torch.randn(3, 3, c, co, generator=g) * 0.1).to(cuda)
+    b = torch.randn(co, generator=g).to(cuda)
+    gy = torch.randn(n, h, w, co, generator=g).to(cuda)
+    y = k1.conv3x3_bias_relu(x, wt, b, relu=relu)
+    before = k1.conv3x3_dx.launches
+    got = k1.conv3x3_dx(gy, y, wt, relu=relu)
+    torch.cuda.synchronize()
+    assert k1.conv3x3_dx.launches == before + 1
+    want = k1.conv3x3_dx_plain(gy, y, wt, relu=relu)
+    tol = 1e-4 * want.abs().max().item() + 1e-5
+    assert (got - want).abs().max().item() <= tol
+    xg = x.clone().requires_grad_()
+    (gx,) = torch.autograd.grad(k1.conv3x3_bias_relu(xg, wt, b, relu=relu), xg, gy)
+    assert k1.conv3x3_dx.launches == before + 2
+    assert (gx - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("mode", ["gather", "slice"])
+@pytest.mark.parametrize("n", [1, 2])
+def test_scatter_kernel_matches_plain(cuda, mode, n):
+    """K2 backward against index_put_(accumulate=True), with overlapping and
+    out-of-bounds windows: |Δ| ≤ 1e-6·max S + 1e-7, S the per-pixel sum of
+    the added |terms| (atomics add in a varying order, and the rounding of a
+    sum scales with its terms: a window clamped 20 pixels past a corner adds
+    21² terms to the corner pixel, which largely cancel)."""
+    g = torch.Generator(device="cpu").manual_seed(n)
+    ox = torch.randint(-20, 90, (n, 17), generator=g)
+    oy = torch.randint(-20, 70, (n, 17), generator=g)
+    ox[:, :5], oy[:, :5] = 30, 20
+    grad = torch.randn(n * 17, 32, 32, 2, generator=g).to(cuda)
+    ox, oy = ox.to(cuda, torch.int32), oy.to(cuda, torch.int32)
+    before = k2.scatter_patches.launches
+    got = k2.scatter_patches(grad, ox, oy, (n, 70, 90, 2), mode=mode)
+    torch.cuda.synchronize()
+    assert k2.scatter_patches.launches == before + 1
+    want = k2.scatter_patches_plain(grad, ox, oy, (n, 70, 90, 2), mode=mode)
+    terms = k2.scatter_patches_plain(grad.abs(), ox, oy, (n, 70, 90, 2), mode=mode)
+    tol = 1e-6 * terms.max().item() + 1e-7
+    assert (got - want).abs().max().item() <= tol
+    img = torch.zeros(n, 70, 90, 2, device=cuda, requires_grad=True)
+    (gi,) = torch.autograd.grad(k2.gather_patches(img, ox, oy, 32, mode=mode), img, grad)
+    assert k2.scatter_patches.launches == before + 2
+    assert (gi - want).abs().max().item() <= tol
+
+
+def test_discriminator_input_grad_matches_cpu(cuda):
+    """The G-loss pass differentiates D w.r.t. its input through the pyramid's
+    average pool (F.avg_pool2d's CUDA backward is wrong for the NHWC view,
+    hence the port's own pool): CUDA vs CPU within 1e-5 of the max |g|."""
+    from vts_torch.networks.blocks import make_initializer
+    from vts_torch.networks.discriminators import MultiscaleDiscriminator, reset_parameters
+    d = MultiscaleDiscriminator(4, ndf=4, n_layers=3, num_D=3)
+    reset_parameters(d, make_initializer("xavier", 0.5), torch.Generator().manual_seed(0))
+    x = torch.randn(1, 128, 128, 4, generator=torch.Generator().manual_seed(1))
+    x[:, :40] = 0.0
+    grads = []
+    for dev in ("cpu", cuda):
+        xi = x.to(dev).requires_grad_()
+        out = d.to(dev)(xi, update_stats=False)
+        (g,) = torch.autograd.grad(sum(o[-1].mean() for o in out), xi)
+        grads.append(g.cpu())
+    assert (grads[0] - grads[1]).abs().max() <= 1e-5 * grads[0].abs().max()
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     x = torch.randn(1, 8, 8, 4, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
@@ -76,3 +154,11 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         k2.gather_patches(torch.randn(8, 8, 2, device=cuda), torch.zeros(3, dtype=torch.int32),
                           torch.zeros(3, dtype=torch.int32), 4)
+    with pytest.raises(TypeError):
+        k1.conv3x3_dx(torch.randn(1, 8, 8, 4, device=cuda, dtype=torch.bfloat16),
+                      torch.randn(1, 8, 8, 4, device=cuda, dtype=torch.bfloat16),
+                      torch.randn(3, 3, 4, 4, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        k2.scatter_patches(torch.randn(2, 4, 4, 2, device=cuda, dtype=torch.float64),
+                           torch.zeros(2, dtype=torch.int32, device=cuda),
+                           torch.zeros(2, dtype=torch.int32, device=cuda), (1, 8, 8, 2))

@@ -1,7 +1,8 @@
 """(h) The slice end to end on the CPU: the port's synthetic test batch equals
 the JAX ``create_dataset`` batch exactly, and ``vts_tpu.test.test`` and
 ``vts_torch.test.test --device cpu`` on one JAX-written checkpoint give the
-same 8 metrics.  (i) ``vts_torch`` imports without JAX and without vts_tpu."""
+same 8 metrics.  (i) ``vts_torch``, its test and train entry points and the
+training modules import without JAX and without vts_tpu."""
 
 import os
 import subprocess
@@ -82,8 +83,11 @@ def test_port_imports_without_jax_or_vts_tpu():
     vts_tpu module is loaded."""
     code = ("import sys; sys.modules['jax'] = None; sys.modules['flax'] = None; "
             "sys.modules['optax'] = None; "
-            "import vts_torch, vts_torch.test; "
+            "import vts_torch, vts_torch.test, vts_torch.train; "
             "import vts_torch.kernels.build, vts_torch.utils.convert_jax; "
+            "import vts_torch.models.base, vts_torch.networks.discriminators; "
+            "import vts_torch.losses.gan, vts_torch.losses.gan_masked, vts_torch.ops.diffaug; "
+            "import vts_torch.utils.profiler, vts_torch.utils.visualizer; "
             "bad = [m for m in sys.modules if m.startswith('vts_tpu') "
             "or m.split('.')[0] in ('jax', 'flax', 'optax') and sys.modules[m] is not None]; "
             "assert not bad, bad; print('ok')")

@@ -1,3 +1,3 @@
-from .options import TestOptions
+"""Option parsing for the port."""
 
-__all__ = ["TestOptions"]
+from .options import TestOptions, TrainOptions  # noqa: F401

@@ -1,25 +1,42 @@
 // K1: 3x3 / stride 1 / pad 1 convolution + bias (+ ReLU) over NHWC, fp32
-// accumulation.  fp32 and bf16 storage.
+// accumulation, fp32 and bf16 storage; and its input gradient (dx), fp32.
 //
 // Replaces vts_tpu/ops/pallas_conv.py::_pallas_conv3x3 (public conv3x3_relu),
-// the fused conv of the LPIPS VGG16 blocks 1-2.  On the eval path it runs
-// conv1_2 (64->64), conv2_1 (64->128) and conv2_2 (128->128): at the 1536^2
-// canvas and on 2*K 224^2 tactile patches.
+// the fused conv of the LPIPS VGG16 blocks 1-2, forward and backward.  It runs
+// conv1_2 (64->64), conv2_1 (64->128) and conv2_2 (128->128): on the eval path
+// at the 1536^2 canvas and on 2*K 224^2 tactile patches; on the training path
+// at the 1536^2 canvas and on 2*K 32^2 patches, where dx carries the canvas
+// and patch LPIPS gradients back through the same three convs.
+//
+// The backward is the same convolution, as pallas_conv.py:119-127 launches the
+// same Pallas kernel for it:
+//
+//   g       = relu ? gy * [y > 0] : gy              (the ReLU mask, from the saved output)
+//   dx[c]   = sum_{dy,dx,k} g[h+dy-1, w+dx-1, k] * w[2-dy][2-dx][c][k]
+//
+// i.e. a 3x3 conv of g with the forward weight flipped in space and
+// transposed in/out, with no bias and no ReLU.
 //
 // Bound on the H100: operations.  A 64->64 conv does 2*9*64 = 1152 FLOPs per
 // output value against ~512 bytes moved per output pixel, so in fp32 on the
-// CUDA cores (67 TFLOP/s) it is compute bound by two orders of magnitude.
+// CUDA cores (67 TFLOP/s) it is compute bound by two orders of magnitude; dx
+// moves ~4*(2*Co + C) bytes per pixel for the same FLOPs.
 //
 // Design: a direct convolution as a register-tiled implicit GEMM on the CUDA
-// cores.  A block owns an 8 x 16 pixel tile and 64 output channels.  It walks
-// the input channels in chunks of 8: it stages the (8+2) x (16+2) x 8 input
-// halo (zero outside the image, so any H, W, C works: no padding pass) and the
-// 9 x 8 x 64 weight slice in shared memory, then each thread accumulates
-// 8 pixels x 4 output channels in registers.  Per (channel, kernel row) a
-// thread loads 10 inputs and 3 float4 weights for 96 FMAs.  Bias and ReLU are
-// applied in the epilogue.  No tensor cores (wgmma/TMA) yet: the kernel keeps
-// full fp32 arithmetic so it matches the fp32 reference; a faster version is
-// later work.
+// cores, one template for both directions.  A block owns an 8 x 16 pixel tile
+// and 64 output channels.  It walks the input channels in chunks of 8: it
+// stages the (8+2) x (16+2) x 8 input halo (zero outside the image, so any H,
+// W, C works: no padding pass) and the 9 x 8 x 64 weight slice in shared
+// memory, then each thread accumulates 8 pixels x 4 output channels in
+// registers.  Per (channel, kernel row) a thread loads 10 inputs and 3 float4
+// weights for 96 FMAs.  The direction only changes the two load stages and the
+// epilogue:
+//   forward  halo x;           weight w[tap][ci][co];        bias (+ ReLU)
+//   dx       halo gy*[y > 0];  weight w[8-tap][co][ci];      neither
+// so the mask costs no pass of its own and no flipped or transposed weight
+// copy is made.  Batches larger than the grid's z limit are launched in
+// chunks.  No tensor cores (wgmma/TMA) yet: the kernel keeps full fp32
+// arithmetic so it matches the fp32 reference; a faster version is later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -34,17 +51,23 @@ constexpr int HW = TW + 2;
 constexpr int PX = 8;          // output cols per thread
 constexpr int PC = 4;          // output channels per thread
 constexpr int THREADS = (TH * TW / PX) * (TCO / PC);   // 256
+constexpr int MAX_GRID_Z = 65535;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-template <typename T>
+// in: (N, H, W, Ci); out: (N, H, W, Co).  Forward (DX false): in = x,
+// w (3, 3, Ci, Co) HWIO, out = relu?(conv + bias).  DX: in = gy with Ci the
+// forward's output channels, mask = the saved forward output y (read when
+// relu), w the forward's (3, 3, Co, Ci) HWIO weight, out = dx.
+template <typename T, bool DX>
 __global__ void __launch_bounds__(THREADS)
-conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               const float* __restrict__ bias, T* __restrict__ y,
-               int H, int W, int C, int Co, int co_tiles, int relu) {
+conv3x3_kernel(const T* __restrict__ in, const T* __restrict__ mask,
+               const T* __restrict__ w, const float* __restrict__ bias,
+               T* __restrict__ out, int H, int W, int Ci, int Co, int co_tiles,
+               int relu) {
   __shared__ float s_in[CK][HH][HW];
   __shared__ __align__(16) float s_w[9][CK][TCO];
 
@@ -58,14 +81,15 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int r = pg / (TW / PX);
   const int c0 = (pg % (TW / PX)) * PX;
 
-  const T* xn = x + (size_t)n * H * W * C;
+  const size_t img = (size_t)n * H * W * Ci;
+  const T* inn = in + img;
   float acc[PX][PC];
 #pragma unroll
   for (int j = 0; j < PX; ++j)
 #pragma unroll
     for (int k = 0; k < PC; ++k) acc[j][k] = 0.f;
 
-  for (int cb = 0; cb < C; cb += CK) {
+  for (int cb = 0; cb < Ci; cb += CK) {
     for (int i = tid; i < CK * HH * HW; i += THREADS) {
       const int ci = i % CK;
       const int p = i / CK;
@@ -73,8 +97,11 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int hy = p / HW;
       const int gh = h0 - 1 + hy, gw = w0 - 1 + hx, gc = cb + ci;
       float v = 0.f;
-      if (gh >= 0 && gh < H && gw >= 0 && gw < W && gc < C)
-        v = to_float(xn[((size_t)gh * W + gw) * C + gc]);
+      if (gh >= 0 && gh < H && gw >= 0 && gw < W && gc < Ci) {
+        const size_t off = ((size_t)gh * W + gw) * Ci + gc;
+        v = to_float(inn[off]);
+        if (DX && relu && !(to_float(mask[img + off]) > 0.f)) v = 0.f;
+      }
       s_in[ci][hy][hx] = v;
     }
     for (int i = tid; i < 9 * CK * TCO; i += THREADS) {
@@ -84,7 +111,9 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int tap = q / CK;
       const int gc = cb + ci, gco = co0 + co;
       float v = 0.f;
-      if (gc < C && gco < Co) v = to_float(w[((size_t)tap * C + gc) * Co + gco]);
+      if (gc < Ci && gco < Co)
+        v = to_float(DX ? w[((size_t)(8 - tap) * Co + gco) * Ci + gc]   // flipped, transposed
+                        : w[((size_t)tap * Ci + gc) * Co + gco]);
       s_w[tap][ci][co] = v;
     }
     __syncthreads();
@@ -117,32 +146,40 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int cob = co0 + cg * PC;
   float bv[PC];
 #pragma unroll
-  for (int k = 0; k < PC; ++k) bv[k] = (cob + k < Co) ? bias[cob + k] : 0.f;
+  for (int k = 0; k < PC; ++k) bv[k] = (!DX && cob + k < Co) ? bias[cob + k] : 0.f;
 #pragma unroll
   for (int j = 0; j < PX; ++j) {
     const int ow = w0 + c0 + j;
     if (ow >= W) break;
-    T* out = y + (((size_t)n * H + oh) * W + ow) * Co + cob;
+    T* o = out + (((size_t)n * H + oh) * W + ow) * Co + cob;
 #pragma unroll
     for (int k = 0; k < PC; ++k) {
       if (cob + k < Co) {
         float v = acc[j][k] + bv[k];
-        if (relu) v = fmaxf(v, 0.f);
-        store(out + k, v);
+        if (!DX && relu) v = fmaxf(v, 0.f);
+        store(o + k, v);
       }
     }
   }
 }
 
-template <typename T>
-int launch(const T* x, const T* w, const float* b, T* y, int N, int H, int W,
-           int C, int Co, int relu, cudaStream_t stream) {
+template <typename T, bool DX>
+int launch(const T* in, const T* mask, const T* w, const float* b, T* out, int N,
+           int H, int W, int Ci, int Co, int relu, cudaStream_t stream) {
   const int co_tiles = (Co + TCO - 1) / TCO;
-  const long long gz = (long long)N * co_tiles;
-  if (gz > 65535) return (int)cudaErrorInvalidConfiguration;
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, (unsigned)gz);
-  conv3x3_kernel<T><<<grid, THREADS, 0, stream>>>(x, w, b, y, H, W, C, Co, co_tiles, relu);
-  return (int)cudaGetLastError();
+  const int n_chunk = MAX_GRID_Z / co_tiles;
+  if (n_chunk < 1) return (int)cudaErrorInvalidConfiguration;
+  for (int n0 = 0; n0 < N; n0 += n_chunk) {
+    const int nn = N - n0 < n_chunk ? N - n0 : n_chunk;
+    const size_t in_off = (size_t)n0 * H * W * Ci;
+    dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, (unsigned)(nn * co_tiles));
+    conv3x3_kernel<T, DX><<<grid, THREADS, 0, stream>>>(
+        in + in_off, DX ? mask + in_off : mask, w, b, out + (size_t)n0 * H * W * Co,
+        H, W, Ci, Co, co_tiles, relu);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -150,11 +187,19 @@ int launch(const T* x, const T* w, const float* b, T* y, int N, int H, int W,
 extern "C" int conv3x3_bias_relu_f32(const float* x, const float* w, const float* b,
                                      float* y, int N, int H, int W, int C, int Co,
                                      int relu, cudaStream_t stream) {
-  return launch<float>(x, w, b, y, N, H, W, C, Co, relu, stream);
+  return launch<float, false>(x, nullptr, w, b, y, N, H, W, C, Co, relu, stream);
 }
 
 extern "C" int conv3x3_bias_relu_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                                       const float* b, __nv_bfloat16* y, int N, int H,
                                       int W, int C, int Co, int relu, cudaStream_t stream) {
-  return launch<__nv_bfloat16>(x, w, b, y, N, H, W, C, Co, relu, stream);
+  return launch<__nv_bfloat16, false>(x, nullptr, w, b, y, N, H, W, C, Co, relu, stream);
+}
+
+// gy, y: (N, H, W, K) with K the forward's output channels; w: (3, 3, C, K)
+// the forward HWIO weight; dx: (N, H, W, C).
+extern "C" int conv3x3_dx_f32(const float* gy, const float* y, const float* w, float* dx,
+                              int N, int H, int W, int C, int K, int relu,
+                              cudaStream_t stream) {
+  return launch<float, true>(gy, y, w, nullptr, dx, N, H, W, K, C, relu, stream);
 }

@@ -1,8 +1,10 @@
 """Dataset factory and batch loader (``vts_tpu/data/__init__.py``).
 
 ``create_dataset(opt)`` wraps the ``--dataset_mode`` dataset in a loader
-that yields batch dicts of stacked numpy arrays (leading batch axis), in
-order: the serial, single-process, batch-1 loading of ``vts_torch.test``.
+that yields batch dicts of stacked numpy arrays (leading batch axis).  As in
+the reference, training shuffles with a generator seeded by ``seed + epoch``
+(``set_epoch``) and drops the last partial batch; the test loader
+(``serial_batches``) goes in order and keeps it.  Loading is single-process.
 """
 
 from __future__ import annotations
@@ -25,22 +27,38 @@ def collate(samples) -> Dict[str, np.ndarray]:
 
 
 class DataLoader:
-    """In-order batch iterator over a map-style dataset."""
+    """Batch iterator over a map-style dataset: shuffled per epoch or in order."""
 
-    def __init__(self, dataset, batch_size: int = 1):
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        n = len(self.dataset)
-        for i in range(0, n, self.batch_size):
-            yield collate([self.dataset[j] for j in range(i, min(i + self.batch_size, n))])
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        for i in range(0, len(order), self.batch_size):
+            idx = order[i:i + self.batch_size]
+            if self.drop_last and len(idx) < self.batch_size:
+                break
+            yield collate([self.dataset[int(j)] for j in idx])
 
 
 def create_dataset(opt) -> DataLoader:
     if opt.dataset_mode not in DATASETS:
         raise NotImplementedError(f"dataset_mode {opt.dataset_mode!r} is not ported yet")
-    return DataLoader(DATASETS[opt.dataset_mode](opt))
+    return DataLoader(DATASETS[opt.dataset_mode](opt), batch_size=int(opt.batch_size),
+                      shuffle=not opt.serial_batches, drop_last=bool(opt.isTrain),
+                      seed=int(opt.seed))

@@ -1,16 +1,22 @@
-"""Single-garment SKIT dataset, test phase (``vts_tpu/data/singleskit.py``).
+"""Single-garment SKIT dataset (``vts_tpu/data/singleskit.py``), test and
+training phases.
 
-One garment = sketch S + visual I + object mask M + touch records.  A test
-sample is the center crop (``crop_size``) made a multiple of 256, with
-every touch ROI propagated analytically; each surviving record gives up to
-``sample_bbox_per_patch`` 32² squares centered in its contact-center mask
-(the middle candidates, deterministically), resampled to ``batch_size_G2``
-patches with a validity mask.  Samples are fixed-shape numpy NHWC float32.
+One garment = sketch S + visual I + object mask M + touch records.  A sample
+is a crop (``crop_size``; the center crop at test time, a random crop that
+keeps the protected center with ``--preprocess crop``) made a multiple of
+256, with every touch ROI propagated analytically.  Each surviving record
+gives up to ``sample_bbox_per_patch`` 32² squares centered in its
+contact-center mask — the middle candidates at test time, random ones in
+training — resampled to ``batch_size_G2`` patches with a validity mask.  In
+training the resampling is weighted by the sketch patch's Laplacian
+variance (clamped to [resampling_w_min, resampling_w_max]), and the
+``val_*`` set (``batch_size_G2_val`` patches from the validation records)
+rides along.  Samples are fixed-shape numpy NHWC float32, drawn from a
+generator seeded per (seed, index), so a sample is the same every epoch.
 
 ``synthetic://`` dataroots are built in memory (:mod:`.synthetic`); an
-on-disk dataroot is decoded with PIL, imported only then.  The training
-phase (zoom, random crops, weighted resampling, the disk cache) comes with
-the training port.
+on-disk dataroot is decoded with PIL, imported only then.  Zoom
+preprocessing and the reference's on-disk sample cache are not ported.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import numpy as np
 
 from . import coords as C
 from .npz import TouchRecord, list_images, list_touch_npz, load_touch_npz
-from .transforms import crop_img, make_power_2_img, to_array
+from .transforms import crop_img, make_power_2_img, to_array, variance_of_laplacian
 
 AUG_KEYS = (
     "H", "W", "crop_pos_x", "crop_pos_y", "crop_size_h", "crop_size_w",
@@ -52,11 +58,10 @@ def _read_image(path: str, gray: bool) -> np.ndarray:
 
 
 class SingleSkitDataset:
-    """Map-style dataset of fixed-shape test sample dicts (numpy, NHWC)."""
+    """Map-style dataset of fixed-shape sample dicts (numpy, NHWC)."""
 
     def __init__(self, opt):
-        if opt.isTrain:
-            raise NotImplementedError("the training phase of singleskit is not ported yet")
+        self.is_train = bool(opt.isTrain)
         if "zoom" in opt.preprocess:
             raise NotImplementedError("zoom preprocessing is not ported yet")
         self.opt = opt
@@ -73,7 +78,8 @@ class SingleSkitDataset:
             self.S_img, self.I_img = g.sketch, g.image
             if opt.use_bg_mask:
                 self.M_img = g.mask
-            self.records = g.records["testT"]
+            self.records = g.records["trainT" if self.is_train else "testT"]
+            self.val_records = g.records["valT"] if self.is_train else []
         else:
             root = opt.dataroot
             self.padded_size = _resolve_padded_size(root)
@@ -87,6 +93,9 @@ class SingleSkitDataset:
                 self.M_img = _read_image(list_images(sub(opt.subdir_M))[0], gray=True)
             self.I_img = _read_image(list_images(sub(opt.subdir_I))[0], gray=False)
             self.records = [load_touch_npz(p) for p in list_touch_npz(sub(opt.subdir_T))]
+            val_dir = getattr(opt, "subdir_valT", "") if self.is_train else ""
+            self.val_records = [load_touch_npz(p) for p in list_touch_npz(sub(val_dir))] \
+                if val_dir else []
 
     def __len__(self) -> int:
         return self.data_len
@@ -125,14 +134,26 @@ class SingleSkitDataset:
         if M3 is not None:
             sample["M"] = (to_array(M3, normalize=False) > 0.5).astype(np.float32)
         if self.records:
+            s3_gray = np.asarray(S3, np.float32)           # 0..255, the weight scale
+            if s3_gray.ndim == 3:
+                s3_gray = s3_gray[..., 0]
             sample.update(self._extract_patches(self.records, aug, M3, rng,
-                                                k_out=int(opt.batch_size_G2) or 64))
+                                                k_out=int(opt.batch_size_G2) or 64,
+                                                weighted=self.is_train, s3_gray=s3_gray))
+            if self.val_records:
+                val = self._extract_patches(self.val_records, aug, M3, rng,
+                                            k_out=int(opt.batch_size_G2_val) or 128,
+                                            weighted=False, s3_gray=s3_gray)
+                sample.update({f"val_{k}": val[k]
+                               for k in ("T_images", "T_coords", "I_masks", "T_valid")})
         return sample
 
     def _extract_patches(self, records: List[TouchRecord], aug: Dict, M3,
-                         rng: np.random.Generator, k_out: int) -> Dict[str, np.ndarray]:
-        """Propagate ROIs, take each record's middle contact squares, resample
-        to k_out with a validity mask (reference singleskit_dataset.py:434-1128)."""
+                         rng: np.random.Generator, k_out: int, weighted: bool,
+                         s3_gray: np.ndarray) -> Dict[str, np.ndarray]:
+        """Propagate ROIs, take each record's contact squares (the middle ones
+        at test time, random ones in training), resample to k_out with a
+        validity mask (reference singleskit_dataset.py:434-1128)."""
         from scipy.ndimage import maximum_filter
         opt = self.opt
         mult = self.mult
@@ -141,7 +162,7 @@ class SingleSkitDataset:
         m3_arr = np.asarray(M3, np.float32)
         if m3_arr.max() > 1:
             m3_arr = m3_arr / 255.0
-        imgs, coords_list, masks, full_rois = [], [], [], []
+        imgs, coords_list, masks, weights, full_rois = [], [], [], [], []
         for rec in records:
             roi = C.ROI(rec.roi_x, rec.roi_y, rec.roi_h, rec.roi_w)
             if self.padded_size is not None:
@@ -176,8 +197,12 @@ class SingleSkitDataset:
             if cand_x.size == 0:
                 continue
             n_pick = min(cand_x.size, int(opt.sample_bbox_per_patch))
-            start = cand_x.size // 2
-            for pidx in range(start, min(start + n_pick, cand_x.size)):
+            if self.is_train:
+                picks = rng.choice(cand_x.size, size=n_pick, replace=False).tolist()
+            else:
+                start = cand_x.size // 2
+                picks = range(start, min(start + n_pick, cand_x.size))
+            for pidx in picks:
                 x0, y0 = int(cand_x[pidx]), int(cand_y[pidx])
                 merged = rec.touch_mask[y0:y0 + pct, x0:x0 + pct] \
                     * m_aligned[y0:y0 + pct, x0:x0 + pct]
@@ -188,6 +213,10 @@ class SingleSkitDataset:
                     C.ROI(roi_i.x, roi_i.y, roi_i.h, roi_i.w), pc, 1.0,
                     x0 // mult, y0 // mult))
                 masks.append(merged.astype(np.float32)[..., None])
+                if weighted:
+                    sy, sx = roi_i.y + y0 // mult, roi_i.x + x0 // mult
+                    s_patch = s3_gray[sy:sy + pc, sx:sx + pc]
+                    weights.append(variance_of_laplacian(s_patch) if s_patch.size else 1.0)
 
         total = len(imgs)
         out = {
@@ -200,7 +229,11 @@ class SingleSkitDataset:
         }
         if total == 0:
             return out
-        if total >= k_out:
+        if weighted and weights:
+            w = np.clip(np.asarray(weights, np.float64), opt.resampling_w_min,
+                        opt.resampling_w_max)
+            sel = rng.choice(total, size=k_out, replace=True, p=w / w.sum())
+        elif total >= k_out:
             sel = rng.choice(total, size=k_out, replace=False)
         else:
             sel = np.concatenate([np.arange(total),

@@ -65,3 +65,15 @@ def to_array(img: np.ndarray, normalize: bool = True) -> np.ndarray:
     else:
         arr *= np.float32(1.0 / 255.0)
     return arr
+
+
+def variance_of_laplacian(image: np.ndarray) -> float:
+    """Variance of the 4-neighbour Laplacian over the interior — the
+    resampling weight of a sketch patch (``vts_tpu/data/transforms.py``)."""
+    img = np.asarray(image, np.float64)
+    if img.ndim == 3:
+        img = img[..., 0]
+    lap = (-4.0 * img
+           + np.roll(img, 1, 0) + np.roll(img, -1, 0)
+           + np.roll(img, 1, 1) + np.roll(img, -1, 1))
+    return float(lap[1:-1, 1:-1].var())

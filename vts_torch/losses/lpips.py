@@ -1,14 +1,21 @@
-"""LPIPS perceptual distance (VGG16 backbone), plain forward, NHWC.
+"""LPIPS perceptual distance (VGG16 backbone), NHWC, differentiable in x.
 
 Counterpart of ``vts_tpu/losses/lpips.py`` at fold 1: the scaling layer
 folded into conv1_1 (``_scale_folded_conv1``, with the 1-channel weight
-collapse for gx/gy patches), ``vgg16_taps`` with reshape-max pools, the
-composed head (normalize → diff → 1×1 lin head, eps added to the norm) and
-one 2N batch for (x, y).  VGG convs 1-3 (conv1_2 64→64, conv2_1 64→128,
-conv2_2 128→128) run through kernel K1 (:mod:`vts_torch.ops.conv3x3`); the
-other ten are ``F.conv2d`` on NCHW views of the NHWC activations, as they are
-XLA convs in the reference.  The TPU layout work of the reference (folds,
-custom VJPs, tap caches, the factored head) is not ported.
+collapse for gx/gy patches), ``vgg16_taps`` with reshape + max pools, the
+composed head (normalize → diff → 1×1 lin head, eps added to the norm),
+and either one 2N batch for (x, y) or, with ``y_no_grad`` (the training
+losses), a separate y forward under ``torch.no_grad()`` so that no backward
+is built or paid for the constant y.  VGG convs 1-3 (conv1_2 64→64,
+conv2_1 64→128, conv2_2 128→128) run through kernel K1
+(:mod:`vts_torch.ops.conv3x3`), whose backward is the K1 dx kernel; the
+other ten are ``F.conv2d`` on NCHW views of the NHWC activations, as they
+are XLA convs in the reference.  The pools are reshape + ``amax``, whose
+gradient is split evenly among tied maxima as ``jnp.max``'s is (ties are
+common here: masked canvases and patches are zero outside the mask, and the
+folded conv1_1 bias makes a zero region a constant activation).  The TPU
+layout work of the reference (folds, custom VJPs, tap caches, the factored
+head) is not ported.
 
 Weights: ``init_lpips_params(seed)`` rebuilds the reference's deterministic
 fallback parameters bit for bit (numpy ``default_rng``), as numpy arrays in
@@ -67,9 +74,11 @@ def conv_nhwc(x: torch.Tensor, w_oihw: torch.Tensor, b: torch.Tensor,
 
 
 def _max_pool_2x2(h: torch.Tensor) -> torch.Tensor:
-    """2×2/s2 VALID max pool (an odd trailing row/col is dropped)."""
-    y = F.max_pool2d(h.permute(0, 3, 1, 2), 2, 2)
-    return y.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    """2×2/s2 VALID max pool as reshape + amax (an odd trailing row/col is
+    dropped); a tie's gradient is split evenly, as the reference's."""
+    n, hh, ww, c = h.shape
+    h = h[:, :hh // 2 * 2, :ww // 2 * 2, :]
+    return torch.amax(h.reshape(n, hh // 2, 2, ww // 2, 2, c), dim=(2, 4))
 
 
 class LPIPS(nn.Module):
@@ -122,17 +131,30 @@ class LPIPS(nn.Module):
                 h = _max_pool_2x2(h)
         return taps
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, y: torch.Tensor, y_no_grad: bool = False) -> torch.Tensor:
+        """(N,) distances.  ``y_no_grad``: run y as its own forward under
+        ``torch.no_grad()`` (values are the same; the backbone has no
+        cross-sample ops)."""
         x = x.float()
         y = y.float()
-        n = x.shape[0]
-        both = self.vgg16_taps(torch.cat([x, y], dim=0))
+        if y_no_grad:
+            tx = self.vgg16_taps(x)
+            with torch.no_grad():
+                ty = self.vgg16_taps(y)
+        else:
+            n = x.shape[0]
+            both = self.vgg16_taps(torch.cat([x, y], dim=0))
+            tx, ty = [t[:n] for t in both], [t[n:] for t in both]
         total = 0.0
-        for i, t in enumerate(both):
-            ss = torch.sum(t * t, dim=-1, keepdim=True)
-            t = t * (1.0 / (torch.sqrt(ss) + 1e-10))          # torch: x / (||x|| + eps)
-            d = t[:n] - t[n:]
+        for i, (a, b) in enumerate(zip(tx, ty)):
+            d = _normalize(a) - _normalize(b)
             val = torch.sum(d * d * getattr(self, f"lin{i}"), dim=-1)
             total = total + torch.mean(val, dim=(1, 2))
         return total
+
+
+def _normalize(t: torch.Tensor) -> torch.Tensor:
+    """Channel normalize with eps added to the norm: x / (||x|| + 1e-10)."""
+    ss = torch.sum(t * t, dim=-1, keepdim=True)
+    return t * (1.0 / (torch.sqrt(ss) + 1e-10))
 

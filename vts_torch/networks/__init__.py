@@ -1,7 +1,8 @@
-"""Network factory (``vts_tpu/networks/__init__.py``)."""
+"""Network factories (``vts_tpu/networks/__init__.py``)."""
 
 from __future__ import annotations
 
+from .discriminators import MultiscaleDiscriminator
 from .unet_custom import CustomUNet
 
 
@@ -16,3 +17,14 @@ def define_G(opt, input_nc: int, output_nc: int) -> CustomUNet:
         use_style_code=opt.use_style_code,
         t_mult=int(opt.T_resolution_multiplier),
         init_type=opt.init_type, init_gain=opt.init_gain)
+
+
+def define_D(opt, input_nc: int, netD: str = None, n_layers: int = None, num_D: int = 3):
+    """Discriminator factory: ``multiscale`` only in this port so far."""
+    name = netD or opt.netD
+    if name != "multiscale":
+        raise NotImplementedError(f"netD {name!r} is not ported yet")
+    return MultiscaleDiscriminator(
+        input_nc, ndf=opt.ndf, n_layers=n_layers if n_layers is not None else opt.n_layers_D,
+        num_D=num_D, norm_type=opt.normD, use_sigmoid=opt.gan_mode == "vanilla",
+        get_interm_feat=bool(getattr(opt, "getIntermFeat_D", False)))

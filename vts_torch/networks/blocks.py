@@ -1,5 +1,5 @@
-"""U-Net building blocks (``vts_tpu/networks/blocks.py``), NHWC at every
-``forward``; the convs run on NCHW views of the same memory.
+"""U-Net and PatchGAN building blocks (``vts_tpu/networks/blocks.py``), NHWC
+at every ``forward``; the convs run on NCHW views of the same memory.
 
 Layouts: ``Conv4x4`` holds a torch OIHW weight; ``ConvT4x4`` holds the
 (in, out, kh, kw) weight of ``ConvTranspose2d(k=4, s=2, p=1)`` — the
@@ -22,6 +22,13 @@ def _to_nchw(x):
 
 def _to_nhwc(y):
     return y.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
+def leaky_relu(x, slope: float = 0.2):
+    """LeakyReLU as flax's: where(x >= 0, x, slope·x), so the gradient at
+    exactly 0 is 1 (``F.leaky_relu`` gives ``slope`` there; zeros are common
+    here, e.g. a zero-bias conv over the masked-out canvas)."""
+    return torch.where(x >= 0, x, x * slope)
 
 
 def make_initializer(init_type: str, init_gain: float):
@@ -60,11 +67,77 @@ class InstanceNorm(nn.Module):
         return (x - mean.to(x.dtype)) * scale.to(x.dtype)
 
 
-class Conv4x4(nn.Module):
-    """4×4 conv, stride 2, pad 1."""
+class BatchNorm(nn.Module):
+    """``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channels
+    of NHWC, written out because ``nn.BatchNorm2d`` differs in three ways:
 
-    def __init__(self, in_c: int, out_c: int, use_bias: bool = True):
+      * flax's momentum 0.9 weights the OLD running value (torch's 0.1 the new);
+      * the running variance takes the BIASED batch variance, computed in
+        one fp32 pass, var = max(E[x²] − E[x]², 0);
+      * a pass may use batch statistics and discard the new running ones
+        (``update_stats=False``: the reference's G-loss pass through D).
+
+    The batch statistics always normalize (the reference builds its
+    discriminators in training mode only) and, with ``update_stats``, fold
+    into the running ``mean``/``var`` buffers.  ``scale`` starts at
+    N(1, 0.02)."""
+
+    def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def reset_parameters(self, init, gen):
+        with torch.no_grad():
+            self.scale.normal_(0.0, 1.0, generator=gen).mul_(0.02).add_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x, update_stats: bool = True):
+        xf = x.float()
+        mean = torch.mean(xf, dim=(0, 1, 2))
+        var = torch.clamp_min(torch.mean(xf * xf, dim=(0, 1, 2)) - mean * mean, 0.0)
+        if update_stats:
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((x - mean.to(x.dtype)) * mul.to(x.dtype) + self.bias.to(x.dtype))
+
+
+def avg_pool_3x3_s2_nopad_count(x):
+    """AvgPool2d(3, stride 2, padding 1, count_include_pad=False) over NHWC —
+    the multiscale-D pyramid downsampler — as the reference computes it: the
+    3×3 window sums over the zero-padded input divided by the count of
+    in-image pixels.  Written with strided slices, not ``F.avg_pool2d``:
+    its CUDA backward returns wrong input gradients for the NHWC
+    (channels_last) view (measured on an H100 with torch 2.11)."""
+    n, h, w, c = x.shape
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    ones = F.pad(torch.ones((1, h, w, 1), dtype=x.dtype, device=x.device), (0, 0, 1, 1, 1, 1))
+    total = cnt = 0.0
+    for dy in range(3):
+        for dx in range(3):
+            win = (slice(None), slice(dy, dy + 2 * ho - 1, 2), slice(dx, dx + 2 * wo - 1, 2))
+            total = total + xp[win]
+            cnt = cnt + ones[win]
+    return total / cnt
+
+
+class Conv4x4(nn.Module):
+    """4×4 conv, stride 2 and pad 1 by default (the U-Net's); the PatchGAN
+    heads use pad 2 at stride 2 and 1."""
+
+    def __init__(self, in_c: int, out_c: int, use_bias: bool = True, stride: int = 2,
+                 padding: int = 1):
+        super().__init__()
+        self.stride, self.padding = stride, padding
         self.weight = nn.Parameter(torch.zeros(out_c, in_c, 4, 4))
         self.bias = nn.Parameter(torch.zeros(out_c)) if use_bias else None
 
@@ -75,7 +148,8 @@ class Conv4x4(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return _to_nhwc(F.conv2d(_to_nchw(x), self.weight, self.bias, stride=2, padding=1))
+        return _to_nhwc(F.conv2d(_to_nchw(x), self.weight, self.bias, stride=self.stride,
+                                 padding=self.padding))
 
 
 class ConvT4x4(nn.Module):
@@ -110,7 +184,7 @@ class Down(nn.Module):
 
     def forward(self, x):
         if not self.outermost:
-            x = F.leaky_relu(x, 0.2)
+            x = leaky_relu(x, 0.2)
         x = self.conv(x)
         return x if self.norm is None else self.norm(x)
 

@@ -1,0 +1,137 @@
+"""Training entry point (``vts_tpu/train.py``).
+
+The epoch loop: one training step per batch, the loss line every
+``--print_freq`` samples (and on each epoch's first batch), the ``latest``
+checkpoint every ``--save_latest_freq`` samples; at each epoch's end the
+validation metrics of the epoch's first sample with the reference's best
+vote — save ``best`` when at least half of the non-train metrics improve
+(lower is better for LPIPS, AE, MSE, SIFID; higher for PSNR, SSIM) — the
+epoch checkpoints, and the linear lr decay.  On CUDA the run turns TF32 off
+(cuDNN convs and matmuls in full fp32).
+
+The HTML gallery and visuals are not ported yet, so ``--no_html`` (the
+reference's own switch) is required.
+
+Run:  python -m vts_torch.train --model sinskit --dataroot synthetic://demo \\
+          --data_len 3 --no_html [--device cuda|cpu] ...
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict
+
+import torch
+
+from .config import TrainOptions
+from .data import create_dataset
+from .device import resolve_device
+from .models import create_model
+from .utils.visualizer import Visualizer
+
+LOWER_BETTER = ("LPIPS", "AE", "MSE", "SIFID")
+HIGHER_BETTER = ("PSNR", "SSIM")
+
+
+def metric_improved(name: str, new: float, old: float) -> bool:
+    if any(t in name for t in LOWER_BETTER):
+        return new < old
+    if any(t in name for t in HIGHER_BETTER):
+        return new > old
+    return False
+
+
+def best_vote(metrics: Dict[str, float], best: Dict[str, float]) -> bool:
+    """True when at least ``total // 2`` of the non-train metrics improved
+    (floor division, as in the reference)."""
+    names = [k for k in metrics if not k.startswith("metric_train_")]
+    if not names:
+        return False
+    improved = sum(1 for k in names if k not in best or metric_improved(k, metrics[k], best[k]))
+    return improved >= len(names) // 2
+
+
+def train(argv=None, opt=None):
+    if opt is None:
+        opt = TrainOptions().parse(argv)
+    if not opt.no_html:
+        raise NotImplementedError("the HTML gallery and visuals are not ported yet: "
+                                  "pass --no_html")
+    device = resolve_device(opt.device)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _train(opt, device)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _train(opt, device):
+    dataset = create_dataset(opt)
+    print(f"The number of training images = {len(dataset.dataset)}")
+    model = create_model(opt)
+    visualizer = Visualizer(opt)
+    total_iters = 0
+    best_metrics: Dict[str, float] = {}
+    eval_batch = None
+    t_start = time.time()
+    first = True
+    for epoch in range(opt.epoch_count, opt.n_epochs + opt.n_epochs_decay + 1):
+        epoch_start = time.time()
+        dataset.set_epoch(epoch)
+        t_data_mark = time.time()
+        for i, data in enumerate(dataset):
+            t_data = time.time() - t_data_mark
+            if eval_batch is None:
+                eval_batch = {k: v[:1] for k, v in data.items()}
+            if first:
+                model.setup(data)
+                if opt.continue_train or opt.pretrained_name:
+                    model.load_networks(opt.epoch)
+                first = False
+            total_iters += opt.batch_size
+            t_comp_mark = time.time()
+            model.set_input(data)
+            model.optimize_parameters(epoch)
+            t_comp = (time.time() - t_comp_mark) / opt.batch_size
+            if total_iters % opt.print_freq == 0 or i == 0:
+                visualizer.print_current_losses(epoch, total_iters, model.get_current_losses(),
+                                                t_comp, t_data)
+            if total_iters % opt.save_latest_freq == 0:
+                print(f"saving the latest model (epoch {epoch}, total_iters {total_iters})")
+                model.save_networks("latest")
+            t_data_mark = time.time()
+
+        if opt.val_for_each_epoch and eval_batch is not None:
+            model.set_input(eval_batch)
+            model.test()
+            t_eval = time.time()
+            metrics = model.compute_metrics()
+            print(f"[eval] epoch {epoch} metric suite (batched) took "
+                  f"{time.time() - t_eval:.1f} s")
+            visualizer.print_current_metrics(epoch, metrics)
+            visualizer.save_current_metrics(epoch, metrics)
+            if best_vote(metrics, best_metrics):
+                print(f"saving the BEST model at epoch {epoch}")
+                model.save_networks("best")
+                for k, v in metrics.items():
+                    if not k.startswith("metric_train_"):
+                        best_metrics[k] = v
+
+        if epoch % opt.save_epoch_freq == 0:
+            print(f"saving the model at the end of epoch {epoch}, iters {total_iters}")
+            model.save_networks("latest")
+            model.save_networks(str(epoch))
+        model.save_networks("latest")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        print(f"End of epoch {epoch} / {opt.n_epochs + opt.n_epochs_decay} \t "
+              f"Time Taken: {time.time() - epoch_start:.0f} sec")
+        model.update_learning_rate(epoch)
+    print(f"Training finished in {time.time() - t_start:.0f} s")
+    return model
+
+
+if __name__ == "__main__":
+    train()

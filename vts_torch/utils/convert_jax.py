@@ -109,3 +109,77 @@ def inception_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
         for f in _BN_FIELDS:
             sd[f"{name}_{f}"] = _t(p[f])
     return sd
+
+
+# ------------------------------------------------------- discriminators ---
+# A D's torch state-dict key is its flax tree path, dot-joined:
+#   <scale>.Conv4x4_i.weight|bias   ↔ params[<scale>][Conv4x4_i][Conv_0][kernel|bias]
+#   <scale>.BatchNorm_i.scale|bias  ↔ params[<scale>][BatchNorm_i][scale|bias]
+#   <scale>.BatchNorm_i.mean|var    ↔ batch_stats[<scale>][BatchNorm_i][mean|var]
+# (no <scale> level for a single NLayerDiscriminator).
+
+def _leaves(tree: Dict, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _set(tree: Dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def d_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """flax discriminator params → the port's D state-dict entries."""
+    sd = OrderedDict()
+    for path, v in _leaves(params):
+        if path[-2] == "Conv_0":
+            key = ".".join(path[:-2]) + (".weight" if path[-1] == "kernel" else ".bias")
+            sd[key] = _conv_to_torch(v) if path[-1] == "kernel" else _t(v)
+        else:
+            sd[".".join(path)] = _t(v)
+    return sd
+
+
+def d_stats_to_torch(stats: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """flax ``batch_stats`` → the port's running ``mean``/``var`` buffers."""
+    return OrderedDict((".".join(path), _t(v)) for path, v in _leaves(stats))
+
+
+def torch_to_d_params(state_dict: Dict[str, torch.Tensor]):
+    """The port's D state dict (or any subset, e.g. Adam moments keyed like
+    the parameters) → (flax params, flax batch_stats)."""
+    params: Dict = {}
+    stats: Dict = {}
+    for key, t in state_dict.items():
+        path = tuple(key.split("."))
+        module, leaf = path[-2], path[-1]
+        if module.startswith("Conv4x4"):
+            name = "kernel" if leaf == "weight" else "bias"
+            _set(params, path[:-1] + ("Conv_0", name),
+                 _conv_from_torch(t) if leaf == "weight" else _np(t).copy())
+        elif leaf in ("mean", "var"):
+            _set(stats, path, _np(t).copy())
+        else:
+            _set(params, path, _np(t).copy())
+    return params, stats
+
+
+# ------------------------------------------------------------ Adam state ---
+
+def adam_state_to_flax(count: int, mu: Dict[str, torch.Tensor], nu: Dict[str, torch.Tensor],
+                       to_flax_params) -> Dict:
+    """The port's Adam moments (keyed like the parameters) → the state dict of
+    ``optax.ScaleByAdamState`` that ``flax.serialization.to_bytes`` writes:
+    ``{"count": int32 scalar, "mu": tree, "nu": tree}`` in the params' layout."""
+    return {"count": np.array(count, np.int32), "mu": to_flax_params(mu),
+            "nu": to_flax_params(nu)}
+
+
+def adam_state_to_torch(state: Dict, params_to_torch):
+    """Inverse of :func:`adam_state_to_flax` → (count, mu, nu)."""
+    return (int(np.asarray(state["count"])), params_to_torch(state["mu"]),
+            params_to_torch(state["nu"]))

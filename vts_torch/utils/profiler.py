@@ -1,15 +1,19 @@
-"""Where one test sample's time goes, on the card.
+"""Where one test sample's, or one training step's, time goes, on the card.
 
     python -m vts_torch.utils.profiler [vts_torch.test flags] [--trace out.json]
+    python -m vts_torch.utils.profiler --phase train [vts_torch.train flags] [--trace out.json]
 
-Builds the model and the first sample from the same flags as
-``vts_torch.test`` (a checkpoint is loaded when one exists, else the seeded
-init stays), runs one warm-up sample, then one sample under
-``torch.profiler`` (CPU + CUDA activities).  Prints, as one JSON line:
-the sample's wall time, the device-busy time (the union of the CUDA kernel
-intervals) and the idle share, the host time spent in the Fréchet
-``sqrtm`` calls, and the device time per kernel name (top 25).  ``--trace``
-also writes the chrome trace.
+Test phase (the default): builds the model and the first sample from the
+same flags as ``vts_torch.test`` (a checkpoint is loaded when one exists,
+else the seeded init stays), runs one warm-up sample, then one sample under
+``torch.profiler`` (CPU + CUDA activities).  ``--phase train``: builds the
+training model and the first batch from the ``vts_torch.train`` flags, runs
+two warm-up steps, then one training step (losses fetched to the host)
+under the profiler.  Prints, as one JSON line: the wall time, the
+device-busy time (the union of the CUDA kernel intervals) and the idle
+share, the peak device memory of the profiled run, the host time spent in
+the Fréchet ``sqrtm`` calls (test phase), and the device time per kernel
+name (top 25).  ``--trace`` also writes the chrome trace.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..config import TestOptions
+from ..config import TestOptions, TrainOptions
 from ..data import create_dataset
 from ..device import resolve_device
 from ..metrics import evaluate_batch
@@ -76,12 +80,43 @@ def profile_test_sample(argv, trace_path: str = None) -> dict:
     one_sample()                                   # warm-up
     evaluate_batch.frechet_distance = timed_frechet
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            one_sample()
-            wall = (time.perf_counter() - t0) * 1e3
+        out = _profile(one_sample, trace_path)
     finally:
         evaluate_batch.frechet_distance = frechet
+    out["host_frechet_ms"] = host_frechet[0] * 1e3
+    return out
+
+
+def profile_train_step(argv, trace_path: str = None) -> dict:
+    opt = TrainOptions().parse(argv, quiet=True)
+    device = resolve_device(opt.device)
+    if device.type != "cuda":
+        raise RuntimeError("the profiler measures the card; run it with --device cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = next(iter(create_dataset(opt)))
+    model = create_model(opt)
+    model.setup()
+    model.set_input(batch)
+
+    def one_step():
+        model.optimize_parameters(opt.epoch_count)
+        model.get_current_losses()
+        torch.cuda.synchronize()
+
+    for _ in range(2):                             # warm-up
+        one_step()
+    return _profile(one_step, trace_path)
+
+
+def _profile(fn, trace_path: str = None) -> dict:
+    """Run ``fn`` once under torch.profiler; wall, device busy, idle share,
+    peak memory and the device time per kernel name."""
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     busy = _busy_ms(events)
     per_kernel = {}
@@ -94,7 +129,7 @@ def profile_test_sample(argv, trace_path: str = None) -> dict:
         prof.export_chrome_trace(trace_path)
     return {"device": torch.cuda.get_device_name(0), "wall_ms": wall,
             "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
-            "host_frechet_ms": host_frechet[0] * 1e3,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "kernels_ms": [{"name": n[:120], "ms": ms} for n, ms in top]}
 
 
@@ -105,4 +140,5 @@ if __name__ == "__main__":
         i = args.index("--trace")
         trace = args[i + 1]
         del args[i:i + 2]
-    print(json.dumps(profile_test_sample(args, trace)))
+    train = "--phase" in args and args[args.index("--phase") + 1] == "train"
+    print(json.dumps((profile_train_step if train else profile_test_sample)(args, trace)))
