@@ -10,15 +10,18 @@ Phases, each of which must pass or the script exits non-zero:
   2. kernels against their plain PyTorch versions on the card, TF32 off:
      K1 forward at the eval and the training shapes and K1 dx at the
      training shapes (canvas and patch LPIPS, x branch), each within
-     1e-4·max|ref| + 1e-5; K2 forward bit-exact at the eval shape and at
-     every training shape (1, 2 and 3 channels, K = 64 and 32), and K2
-     backward (the scatter-add) within 1e-6·max|ref| + 1e-7 against
-     index_put_(accumulate=True) — both modes, the batched form,
-     overlapping and out-of-bounds windows;
+     1e-4·max|ref| + 1e-5; K2 forward bit-exact at the eval shape, from
+     offsets and from coords (.5 ties included), and at each of the training
+     step's three launch groups (1 to 4 sources of 1, 2 and 3 channels,
+     K = 64 and 32, N = 1 and 2); K2 backward (the tile-owner scatter-add)
+     bit-exact against index_put_(accumulate=True) run serially on the CPU,
+     from offsets and from coords, and the same bits in two card runs — both
+     modes, the batched form, overlapping and out-of-bounds windows;
   3. the test slice end to end: a seeded ngf-10 generator written as
      best_net_G.msgpack, then ``vts_torch.test.test`` on a 1800² synthetic
      garment (1536² canvas, K = 100 test patches) with --device cuda; all 8
-     metrics finite, and the forward kernels' launch counts > 0 in that run;
+     metrics finite, the forward kernels' launch counts > 0 in that run, and
+     no patch_offsets call on the host (K2 decodes the coords);
      then ``vts_torch.test`` at 256² on cuda and on cpu (plain versions)
      agree;
   4. the training slice end to end: ``vts_torch.train`` on the same garment
@@ -28,14 +31,18 @@ Phases, each of which must pass or the script exits non-zero:
      counts of K1 fwd, K1 dx, K2 fwd and K2 bwd all > 0 in that run, the G,
      D and D2 checkpoints with their Adam files written, and the best G
      then loading into ``vts_torch.test``; then one 256² training step on
-     cuda and on cpu from the same weights and draws: losses within rtol
+     cuda (cuDNN's deterministic algorithms; a second CUDA step shows
+     whether the step repeats bit for bit) and on cpu from the same weights
+     and draws: losses within rtol
      1e-4, Adam first moments (the gradients) within 1e-4 of each leaf's
      max |g| (see :func:`grad_tol` for the two named sets of leaves held to
      a round-off floor);
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
-     shapes; the wall time of one test sample, and of one 1536² training
-     step (median of >= 5 after warm-up) with its peak memory and launches.
+     shapes, and for K2 and K2 bwd the device-only time of the kernel from
+     torch.profiler; the wall time of one test sample, and of one 1536²
+     training step (median of >= 5 after warm-up) with its peak memory and
+     launches (and no patch_offsets call on the host).
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel and
 path: an ``eval`` row covers one test sample (its launches are the test
@@ -89,10 +96,13 @@ K1_TRAIN = [
     (128, 16, 16, 64, 128, 2, 1),
     (128, 16, 16, 128, 128, 2, 1),
 ]
-# K2 on the training path: (channels, K, launches per step).  K = 64 at the
-# batch's coords: fake_T for D2 and again for G's losses, S, and the two
-# augmented I; K = 32 at the "more fake T" offsets: fake_I, fake_T and S.
-K2_TRAIN = [(2, 64, 2), (1, 64, 1), (3, 64, 2), (3, 32, 1), (2, 32, 1), (1, 32, 1)]
+# K2 on the training path, one launch per group and step: (group, the
+# channels of its sources, K, windows).  A: fake_T for D2, S and the two
+# augmented I at the batch's coords; B: fake_I, fake_T and S at the K = 32
+# "more fake T" offsets; C: fake_T for G's losses at the batch's coords,
+# the one gather with a gradient (K2 bwd).
+K2_TRAIN = [("A", (2, 1, 3, 3), 64, "coords"), ("B", (3, 2, 1), 32, "offsets"),
+            ("C", (2,), 64, "coords")]
 CANVAS, PADDED, NGF, K_PATCH, K_TRAIN = 1536, 1800, 10, 100, 64
 KERNELS = ("conv3x3_bias_relu", "conv3x3_dx", "gather_patches", "scatter_patches")
 # launches of one test sample and of one training step, as the tables above give them
@@ -100,7 +110,7 @@ PER_SAMPLE = {"conv3x3_bias_relu": sum(r[-1] for r in K1_SHAPES), "conv3x3_dx": 
               "gather_patches": 1, "scatter_patches": 0}
 PER_STEP = {"conv3x3_bias_relu": sum(r[5] for r in K1_TRAIN),
             "conv3x3_dx": sum(r[6] for r in K1_TRAIN),
-            "gather_patches": sum(r[2] for r in K2_TRAIN), "scatter_patches": 1}
+            "gather_patches": len(K2_TRAIN), "scatter_patches": 1}
 SMALL_DATA = "synthetic://small?size=320&center_w=192&center_h=128&patches=6&val_patches=3"
 
 
@@ -122,6 +132,41 @@ def cuda_ms(fn, reps=10, warmup=2):
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in evs)
+
+
+def device_ms(fn, name, reps=50):
+    """Device-only time of one call of fn in ms, from torch.profiler: the CUDA
+    time of the kernels whose name holds ``name`` (every kernel if ``name``
+    is empty) over ``reps`` calls, divided by ``reps``; None if the trace
+    shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return sum(us) / reps / 1e3 if us else None
+
+
+def host_ms(fn, reps=200):
+    """Host time of one call of fn in ms: the calls enqueued back to back on
+    the host clock (the card keeps up with kernels this small), then one
+    synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e3
+
+
+def fmt_ms(v):
+    return "not measured" if v is None else f"{v:.5f} ms"
 
 
 def bound_ms(flops, nbytes):
@@ -162,15 +207,49 @@ def grad_tol(name, g, net_max):
     return 1e-4 * g.abs().max().item() + (1e-5 * net_max if CANCELLING.search(name) else 0.0)
 
 
-def gather_bytes(ox, oy, c, cut=32):
-    """Bytes one gather must move: each canvas pixel the windows touch read
-    once, the patches written once, the offsets read."""
+def gather_bytes(ox, oy, chans, window_bytes, cut=32):
+    """Bytes one grouped gather from one image must move: each canvas pixel
+    the (K,) windows touch read once from every source, the patches written
+    once, the windows (offsets or coords) read once."""
     ar = torch.arange(cut, device=ox.device)
     iy = (oy.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, :, None].expand(-1, -1, cut)
     ix = (ox.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, None, :].expand(-1, cut, -1)
     touched = torch.zeros(CANVAS, CANVAS, dtype=torch.bool, device=ox.device)
     touched[iy, ix] = True
-    return int(touched.sum().item()) * c * 4 + ox.numel() * cut * cut * c * 4 + 2 * ox.numel() * 4
+    return (int(touched.sum().item()) + ox.numel() * cut * cut) * sum(chans) * 4 + window_bytes
+
+
+def serial_scatter(grad, ox, oy, shape, mode):
+    """scatter_patches_plain on CPU copies, with deterministic algorithms on,
+    so that index_put_(accumulate=True) adds serially in the order of its
+    index tensor (window, row, column), the order K2 bwd sums in.  Without
+    that, PyTorch's CPU index_put_ adds with atomics in parallel above its
+    grain (32768 elements), in an order that varies."""
+    from vts_torch.ops import patch as k2
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return k2.scatter_patches_plain(grad.cpu(), ox.cpu(), oy.cpu(), shape, mode)
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+class CountPatchOffsets:
+    """Counts the host's patch_offsets calls while it is entered: on the
+    card the main path decodes the coords in K2 and calls it no time."""
+
+    def __enter__(self):
+        from vts_torch.ops import patch as k2
+        self.k2, self.real, self.calls = k2, k2.patch_offsets, 0
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.real(*a, **kw)
+        k2.patch_offsets = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.k2.patch_offsets = self.real
 
 
 def main() -> int:
@@ -268,26 +347,45 @@ def main() -> int:
     coords = torch.zeros(2, K_PATCH, 8)        # packed (ROI_x, ROI_y, …, crop_pos) records
     coords[..., 0], coords[..., 1] = ox.cpu() - 3.5, oy.cpu() - 2.5
     coords[..., 4], coords[..., 5], coords[..., 6], coords[..., 7] = 32, 1.0, 3.5, 2.5
-    coords = coords.to(dev)
-    got = k2.gather_patches_from_coords(img2, coords)
-    ref = k2.gather_patches_plain(img2, *k2.patch_offsets(coords)[:2], 32)
-    torch.cuda.synchronize()
-    check(torch.equal(got, ref) and got.shape == (2 * K_PATCH, 32, 32, 2),
-          "K2 from (N, K, 8) coords differs from its plain version")
-    print("[K2 check] gather/slice, single and batched, from coords, OOB + overlapping: "
-          "bit-exact")
-    k2_train = []
-    for (c, kk, per_step) in K2_TRAIN:
-        im = torch.randn(1, CANVAS, CANVAS, c, generator=gen).to(dev)
-        a, bb = ox[:1, :kk].contiguous(), oy[:1, :kk].contiguous()
+    ties = coords.clone()                      # crop offsets on .5: round half to even
+    ties[..., 0], ties[..., 1] = ox.cpu().float(), oy.cpu().float()
+    ties[..., 6] = torch.tensor([0.5, -0.5, 1.5, 2.5]).repeat(K_PATCH // 4)
+    ties[..., 7] = torch.tensor([-1.5, 0.5, 2.5, -2.5, 1.0]).repeat(K_PATCH // 5)
+    ties[:, 40:42] = 0.0                       # padded patches: 0/0 offsets, decoded as 0
+    coords, ties = coords.to(dev), ties.to(dev)
+    for cc in (coords, ties):
         for mode in ("gather", "slice"):
-            got = k2.gather_patches(im, a, bb, 32, mode=mode)
-            ref = k2.gather_patches_plain(im, a, bb, 32, mode=mode)
+            got = k2.gather_patches_from_coords(img2, cc, mode=mode)
+            ref = k2.gather_patches_plain(img2, *k2.patch_offsets(cc)[:2], 32, mode=mode)
             torch.cuda.synchronize()
-            check(torch.equal(got, ref), f"K2 differs from its plain version ({mode}, "
-                                         f"{c} channels, K = {kk})")
-        k2_train.append(dict(c=c, k=kk, per_step=per_step, tensors=(im[0], a[0], bb[0])))
-    print("[K2 check] training shapes (1, 1536², 1|2|3) x K 64|32, gather/slice: bit-exact")
+            check(torch.equal(got, ref) and got.shape == (2 * K_PATCH, 32, 32, 2),
+                  f"K2 from (N, K, 8) coords differs from its plain version ({mode})")
+    print("[K2 check] gather/slice, single and batched, from offsets and from coords (.5 "
+          "ties, padded patches), OOB + overlapping: bit-exact")
+    k2_train = []
+    for (group, chans, kk, windows) in K2_TRAIN:
+        for n_img in (2, 1):
+            ims = [torch.randn(n_img, CANVAS, CANVAS, c, generator=gen).to(dev) for c in chans]
+            if windows == "coords":
+                kw = dict(coords=ties[:n_img, :kk].contiguous())
+                rx, ry = k2.patch_offsets(kw["coords"])[:2]
+            else:
+                kw = dict(offset_x=ox[:n_img, :kk].contiguous(),
+                          offset_y=oy[:n_img, :kk].contiguous())
+                rx, ry = kw["offset_x"], kw["offset_y"]
+            for mode in ("gather", "slice"):
+                outs = k2.gather_patches_group(ims, cutout=32, mode=mode, **kw)
+                for im, out in zip(ims, outs):
+                    ref = k2.gather_patches_plain(im, rx, ry, 32, mode=mode)
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, ref), f"K2 group {group} differs from its plain "
+                                                 f"version ({mode}, N = {n_img}, "
+                                                 f"{im.shape[-1]} channels, K = {kk})")
+            del outs, ref
+        k2_train.append(dict(group=group, chans=chans, k=kk, windows=windows, images=ims,
+                             kw=kw, offsets=(rx[0], ry[0])))
+    print("[K2 check] training groups A (2,1,3,3 ch), B (3,2,1 ch) at K 64|32, C, "
+          "N 1|2, gather/slice: bit-exact per source")
 
     oxt, oyt = ox[:, :K_TRAIN].contiguous(), oy[:, :K_TRAIN].contiguous()
     gpatch = torch.randn(2 * K_TRAIN, 32, 32, 2, generator=gen).to(dev)
@@ -296,15 +394,24 @@ def main() -> int:
         for n_img in (1, 2):
             g_in = gpatch[:n_img * K_TRAIN]
             shape = (n_img, CANVAS, CANVAS, 2)
-            got = k2.scatter_patches(g_in, oxt[:n_img], oyt[:n_img], shape, mode=mode)
-            ref = k2.scatter_patches_plain(g_in, oxt[:n_img], oyt[:n_img], shape, mode=mode)
+            runs = [k2.scatter_patches(g_in, oxt[:n_img], oyt[:n_img], shape, mode=mode)
+                    for _ in range(2)]
+            tc = ties[:n_img, :K_TRAIN].contiguous()
+            runs.append(k2.scatter_patches(g_in, None, None, shape, mode=mode, coords=tc))
+            ref = serial_scatter(g_in, oxt[:n_img], oyt[:n_img], shape, mode)
+            ref_c = serial_scatter(g_in, *k2.patch_offsets(tc)[:2], shape, mode)
             torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            tol = 1e-6 * ref.abs().max().item() + 1e-7
+            err = max((runs[0].cpu() - ref).abs().max().item(),
+                      (runs[2].cpu() - ref_c).abs().max().item())
             k2b_err = max(k2b_err, err)
-            print(f"[K2 bwd check] {mode} {shape} K={K_TRAIN}: max|d| {err:.3e} (tol {tol:.3e})")
-            check(err <= tol, f"K2 backward disagrees with index_put_ ({mode}, {shape})")
-    del got, ref
+            print(f"[K2 bwd check] {mode} {shape} K={K_TRAIN}: max|d| {err:.3e} against the "
+                  f"serial CPU index_put_ (offsets and coords); two card runs equal: "
+                  f"{torch.equal(runs[0], runs[1])}")
+            check(torch.equal(runs[0], runs[1]), f"K2 backward is not deterministic ({mode}, "
+                                                 f"{shape})")
+            check(torch.equal(runs[0].cpu(), ref) and torch.equal(runs[2].cpu(), ref_c),
+                  f"K2 backward differs from the serial index_put_ ({mode}, {shape})")
+    del runs, ref, ref_c
 
     # ---------------------------------------------------------------- 3 ---
     tmp_dir = tempfile.TemporaryDirectory(prefix="vts_torch_smoke_")
@@ -323,7 +430,8 @@ def main() -> int:
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.time()
-    metrics = run_test(argv)[0]
+    with CountPatchOffsets() as host_offsets:
+        metrics = run_test(argv)[0]
     t_slice = time.time() - t0
     test_launches = read_counts()
     print(f"[slice] {len(metrics)} metrics in {t_slice:.2f} s (first run, incl. data "
@@ -333,6 +441,8 @@ def main() -> int:
           f"expected 8 finite metrics, got {metrics}")
     check(test_launches["conv3x3_bias_relu"] > 0 and test_launches["gather_patches"] > 0,
           f"a forward kernel was not launched: {test_launches}")
+    check(host_offsets.calls == 0, f"the test run called patch_offsets {host_offsets.calls} "
+                                   f"times on the host")
 
     small = ["--model", "sinskit", "--epoch", "best", "--name", "small",
              "--dataroot", SMALL_DATA, "--crop_size", "256", "--center_w", "192",
@@ -388,16 +498,27 @@ def main() -> int:
               "--ndf", "4", "--batch_size_G2", "6", "--batch_size_G2_val", "4",
               "--add_fake_T_sample_size", "4", "--data_len", "2", "--init_gain", "0.5",
               "--no_html"] + dirs
+    # cuDNN picks its conv algorithms anew in each run, and some add in a
+    # varying order: its deterministic choice makes the CUDA step the same
+    # from run to run (the port's own kernels are), so that the comparison
+    # below does not move between runs of this script.
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     pair = {}
-    for d in ("cpu", "cuda"):
+    for key, d in (("cpu", "cpu"), ("cuda", "cuda"), ("cuda again", "cuda")):
         o = TrainOptions().parse(strain + ["--device", d], quiet=True)
-        pair[d] = create_model(o)
-        pair[d].setup()
+        pair[key] = create_model(o)
+        pair[key].setup()
     sbatch = next(iter(create_dataset(o)))
     draws = pair["cpu"].draw(1)
     for m in pair.values():
         m.set_input(sbatch)
         m.optimize_parameters(1, draws=draws)
+    torch.backends.cudnn.deterministic = cudnn_det
+    same = all(torch.equal(pair["cuda"].adam[net].mu[k], pair["cuda again"].adam[net].mu[k])
+               for net in ("G", "D", "D2") for k in pair["cuda"].adam[net].mu)
+    print(f"[train ref] two 256² CUDA steps from the same weights and draws give the same "
+          f"gradients bit for bit: {same}")
     lc, lg = pair["cpu"].get_current_losses(), pair["cuda"].get_current_losses()
     worst = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-7) for k in lc)
     print(f"[train ref] 256² step, cuda vs cpu: worst loss rel {worst:.2e}")
@@ -425,7 +546,8 @@ def main() -> int:
 
     def add(kname, path, per, ms, plain, lib, flops, nbytes, err, shape):
         acc = rows.setdefault((kname, path), dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                                                  flops=0.0, bytes=0.0, err=0.0, per=0))
+                                                  flops=0.0, bytes=0.0, err=0.0, per=0,
+                                                  dev=[]))
         for k_, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                       ("flops", flops), ("bytes", nbytes)):
             acc[k_] += per * v
@@ -434,7 +556,7 @@ def main() -> int:
         bound, by = bound_ms(flops, nbytes)
         shape_rows.append(dict(kernel=kname, path=path, shape=shape, launches=per, ms=ms,
                                plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                               tflops=flops / ms / 1e9, max_abs_err=err))
+                               tflops=flops / ms / 1e9, max_abs_err=err, device_ms=None))
         return bound, by
 
     for row in k1_rows:
@@ -479,47 +601,95 @@ def main() -> int:
               f"dx {flops / ms / 1e9:.2f} TFLOP/s")
         del row["tensors"]
 
-    def time_gather(path, per, img1, ox1, oy1, c, err):
-        ms = cuda_ms(lambda: k2.gather_patches(img1, ox1, oy1, 32), reps=50)
-        plain = cuda_ms(lambda: k2.gather_patches_plain(img1, ox1, oy1, 32), reps=50)
+    def indexing(img1, ox1, oy1):
+        """The library call: advanced indexing on window indices already made."""
         ar = torch.arange(32, device=dev)
         iy = (oy1.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, :, None]
         ix = (ox1.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, None, :]
-        lib = cuda_ms(lambda: img1[iy, ix], reps=50)
-        kk = ox1.numel()
-        bound, _ = add("gather_patches", path, per, ms, plain, lib, 0.0,
-                       gather_bytes(ox1, oy1, c), err, [1, CANVAS, CANVAS, c, kk, 32])
-        print(f"[time K2 {path}] (1,{CANVAS},{CANVAS},{c}) K={kk} cut 32: kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, indexing {lib:.4f} ms, bound {bound:.5f} ms (bytes), "
-              f"{per} per {'sample' if path == 'eval' else 'step'}")
+        return lambda: img1[iy, ix]
 
-    # eval: fake_T (1, 1536², 2) at the K = 100 test patches
-    time_gather("eval", PER_SAMPLE["gather_patches"], img2[0], ox[0], oy[0], 2, 0.0)
+    # Device-only times come from torch.profiler, run after the step timing
+    # below: a profiler session slows the host's later calls.  ``deferred``
+    # holds what those runs need: (row key, launches, shape row, kernel
+    # call, kernel name, library call, line to print).
+    deferred = []
+
+    def time_gather(path, per, ims, kw, offsets, what):
+        """One K2 launch on (1, 1536², C) images at K windows, as the main path
+        calls it; the library time sums indexing over the group's sources."""
+        call = lambda: k2.gather_patches_group(ims, cutout=32, **kw)
+        if "coords" in kw:
+            plain = lambda: [k2.gather_patches_plain(
+                im, *k2.patch_offsets(kw["coords"])[:2], 32) for im in ims]
+        else:
+            plain = lambda: [k2.gather_patches_plain(im, *offsets, 32) for im in ims]
+        ms = cuda_ms(call, reps=50)
+        host = host_ms(call)
+        plain_ms = cuda_ms(plain, reps=50)
+        libs = [indexing(im[0], *offsets) for im in ims]
+        lib = sum(cuda_ms(f, reps=50) for f in libs)
+        chans = [im.shape[-1] for im in ims]
+        kk = offsets[0].numel()
+        wbytes = kk * 8 * 4 if "coords" in kw else 2 * kk * 4
+        bound, _ = add("gather_patches", path, per, ms, plain_ms, lib, 0.0,
+                       gather_bytes(*offsets, chans, wbytes), 0.0,
+                       [1, CANVAS, CANVAS, chans, kk, 32])
+        line = (f"[time K2 {path}] {what}: (1,{CANVAS},{CANVAS},{chans}) K={kk} cut 32 from "
+                f"{'coords' if 'coords' in kw else 'offsets'}: kernel {ms:.4f} ms (host only "
+                f"{host:.4f} ms, device only {{dev}}), plain {plain_ms:.4f} ms, indexing "
+                f"{lib:.4f} ms (device only {{lib_dev}}), bound {bound:.5f} ms (bytes), "
+                f"{per} per {'sample' if path == 'eval' else 'step'}")
+        deferred.append((("gather_patches", path), per, len(shape_rows) - 1, call,
+                         "gather_group_kernel", lambda: [f() for f in libs], line))
+
+    # eval: fake_T (1, 1536², 2) at the K = 100 test patches' coords
+    time_gather("eval", PER_SAMPLE["gather_patches"], (img2[:1],),
+                dict(coords=coords[:1].contiguous()), k2.patch_offsets(coords[0])[:2],
+                "fake_T at the test patches")
     for row in k2_train:
-        time_gather("train", row["per_step"], *row["tensors"], row["c"], 0.0)
-        del row["tensors"]
+        time_gather("train", 1, row["images"], row["kw"], row["offsets"],
+                    f"group {row['group']}")
+        del row["images"]
 
-    oxt1, oyt1 = oxt[0], oyt[0]
+    # K2 bwd at the check's windows (out-of-bounds ones and 10 on one spot,
+    # as PR 2 timed it), and beside it at in-bounds windows, as the data
+    # pipeline cuts them
+    tc1 = ties[:1, :K_TRAIN].contiguous()
+    inb = tc1.clone()
+    inb[..., :2] = torch.randint(0, CANVAS - 32, (1, K_TRAIN, 2), generator=gen).float()
+    inb[..., 5], inb[..., 6:] = 1.0, 0.0
     gp1 = gpatch[:K_TRAIN].contiguous()
     shape1 = (1, CANVAS, CANVAS, 2)
-    ms = cuda_ms(lambda: k2.scatter_patches(gp1, oxt1, oyt1, shape1), reps=50)
-    plain = cuda_ms(lambda: k2.scatter_patches_plain(gp1, oxt1, oyt1, shape1), reps=50)
-    ar = torch.arange(32, device=dev)
-    iy = (oyt1.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, :, None]
-    ix = (oxt1.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, None, :]
-    flat = (iy * CANVAS + ix).reshape(-1)                       # (K·32·32,) pixel index
-    gflat = gp1.reshape(-1, 2)
-
-    def index_add():
-        return torch.zeros(CANVAS * CANVAS, 2, device=dev).index_add_(0, flat, gflat)
-
-    lib = cuda_ms(index_add, reps=50)
-    nbytes = CANVAS * CANVAS * 2 * 4 + K_TRAIN * 32 * 32 * 2 * 4 + 2 * K_TRAIN * 4
-    bound, _ = add("scatter_patches", "train", PER_STEP["scatter_patches"], ms, plain, lib,
-                   0.0, nbytes, k2b_err, [1, CANVAS, CANVAS, 2, K_TRAIN, 32])
-    print(f"[time K2 bwd] (1,{CANVAS},{CANVAS},2) K={K_TRAIN} cut 32: kernel {ms:.4f} ms, "
-          f"plain (index_put_) {plain:.4f} ms, index_add_ {lib:.4f} ms, bound {bound:.5f} ms "
-          f"(bytes: the canvas zero fill {CANVAS * CANVAS * 8 / 1e6:.1f} MB dominates)")
+    for label, wc in (("", tc1), (" in-bounds windows", inb)):
+        oxt1, oyt1 = k2.patch_offsets(wc[0])[:2]
+        call = lambda wc=wc: k2.scatter_patches(gp1, None, None, shape1, coords=wc)
+        ms = cuda_ms(call, reps=50)
+        host = host_ms(call)
+        plain = cuda_ms(lambda: k2.scatter_patches_plain(
+            gp1, *k2.patch_offsets(wc)[:2], shape1), reps=50)
+        ar = torch.arange(32, device=dev)
+        iy = (oyt1.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, :, None]
+        ix = (oxt1.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, None, :]
+        flat = (iy * CANVAS + ix).reshape(-1)                       # (K·32·32,) pixel index
+        gflat = gp1.reshape(-1, 2)
+        index_add = lambda flat=flat: torch.zeros(CANVAS * CANVAS, 2,
+                                                  device=dev).index_add_(0, flat, gflat)
+        lib = cuda_ms(index_add, reps=50)
+        nbytes = CANVAS * CANVAS * 2 * 4 + K_TRAIN * 32 * 32 * 2 * 4 + K_TRAIN * 8 * 4
+        if label:
+            bound = bound_ms(0.0, nbytes)[0]
+            key, idx = None, None
+        else:
+            bound, _ = add("scatter_patches", "train", PER_STEP["scatter_patches"], ms, plain,
+                           lib, 0.0, nbytes, k2b_err, [1, CANVAS, CANVAS, 2, K_TRAIN, 32])
+            key, idx = ("scatter_patches", "train"), len(shape_rows) - 1
+        line = (f"[time K2 bwd{label}] (1,{CANVAS},{CANVAS},2) K={K_TRAIN} cut 32 from coords: "
+                f"kernel {ms:.4f} ms (host only {host:.4f} ms, device only {{dev}}), plain "
+                f"(index_put_) {plain:.4f} ms, zeros + index_add_ {lib:.4f} ms (device only "
+                f"{{lib_dev}}), bound {bound:.5f} ms (bytes: the canvas write, "
+                f"{CANVAS * CANVAS * 8 / 1e6:.1f} MB, dominates)")
+        deferred.append((key, PER_STEP["scatter_patches"], idx, call, "scatter_tile_kernel",
+                         index_add, line))
     del img2, gpatch
 
     # one test sample: G forward + the 8 metrics, after a warm-up
@@ -554,27 +724,38 @@ def main() -> int:
     model.setup()
     model.set_input(batch)
     walls, peaks = [], []
-    for i in range(7):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        if i == 2:
-            reset_counts()
-        t0 = time.perf_counter()
-        model.optimize_parameters(1)
-        model.get_current_losses()
-        torch.cuda.synchronize()
-        if i == 2:
-            step_launches = read_counts()
-        if i >= 2:
-            walls.append((time.perf_counter() - t0) * 1e3)
-            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    with CountPatchOffsets() as host_offsets:
+        for i in range(7):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if i == 2:
+                reset_counts()
+            t0 = time.perf_counter()
+            model.optimize_parameters(1)
+            model.get_current_losses()
+            torch.cuda.synchronize()
+            if i == 2:
+                step_launches = read_counts()
+            if i >= 2:
+                walls.append((time.perf_counter() - t0) * 1e3)
+                peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
     print(f"[time step] one {CANVAS}² training step (batch 1, ngf {NGF}, ndf 8, K {K_TRAIN} "
           f"+ 32): {statistics.median(walls):.1f} ms wall, median of {len(walls)} "
           f"({', '.join(f'{w:.1f}' for w in walls)}); {1e3 / statistics.median(walls):.3f} "
           f"samples/s; peak memory {max(peaks):.2f} GiB; launches per step {step_launches}")
     check(step_launches == PER_STEP, f"a training step launched {step_launches}, the "
                                      f"timed shapes stand for {PER_STEP}")
+    check(host_offsets.calls == 0, f"7 training steps called patch_offsets "
+                                   f"{host_offsets.calls} times on the host")
     del model, batch
+
+    # device-only times of K2 and K2 bwd, and of their library calls
+    for key, per, idx, call, kname_, lib_fn, line in deferred:
+        dev_t, lib_t = device_ms(call, kname_), device_ms(lib_fn, "")
+        if key is not None:
+            shape_rows[idx]["device_ms"] = dev_t
+            rows[key]["dev"].append(None if dev_t is None else per * dev_t)
+        print(line.format(dev=fmt_ms(dev_t), lib_dev=fmt_ms(lib_t)))
 
     sources = {"conv3x3_bias_relu": ("vts_torch/csrc/conv3x3.cu",
                                      "vts_tpu/ops/pallas_conv.py:42"),
@@ -589,14 +770,16 @@ def main() -> int:
         launches = (test_launches if path == "eval" else step_launches)[kname]
         check(launches == acc["per"], f"{kname} ({path}): {launches} launches, timed {acc['per']}")
         b_ms, b_by = bound_ms(acc["flops"], acc["bytes"])
+        dev_t = sum(acc["dev"]) if acc["dev"] and None not in acc["dev"] else None
         src, repl = sources[kname]
         print(f"[time {kname} {path}] per {'test sample' if path == 'eval' else 'training step'}: "
               f"{launches} launches, kernel {acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, "
-              f"library {acc['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+              f"library {acc['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), device only "
+              f"{fmt_ms(dev_t)}")
         kernels.append(dict(name=f"{kname}@{path}", route="cuda", source=src, replaces=repl,
                             launches=launches, max_abs_err=acc["err"], ms=acc["ms"],
                             plain_ms=acc["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                            library_ms=acc["library_ms"], path=path,
+                            library_ms=acc["library_ms"], device_ms=dev_t, path=path,
                             launches_in_run=(test_launches if path == "eval"
                                              else train_launches)[kname]))
     print(f"[shapes] {json.dumps(shape_rows)}")

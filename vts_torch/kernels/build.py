@@ -3,8 +3,8 @@
 Each ``vts_torch/csrc/<name>.cu`` has a plain C interface.  It is compiled
 by hand with ``nvcc`` into ``vts_torch/_build/lib<name>-<hash>.so`` (a
 git-ignored directory) the first time a wrapper needs it, and loaded with
-``ctypes``.  The hash covers the source and the flags, so an edited source
-is rebuilt.  :func:`build` starts one ``nvcc`` per source, all at once, and
+``ctypes``.  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt.  :func:`build` starts one ``nvcc`` per source, all at once, and
 waits for them; ``chip_smoke.py`` calls it to build everything in parallel.
 """
 
@@ -39,8 +39,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

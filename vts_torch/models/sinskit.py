@@ -46,7 +46,7 @@ from ..networks.blocks import make_initializer
 from ..networks.discriminators import reset_parameters as reset_d
 from ..networks.positional import positional_encoding
 from ..ops import diffaug
-from ..ops.patch import gather_patches, gather_patches_from_coords, sample_offsets_in_mask
+from ..ops.patch import gather_patches_from_coords, gather_patches_group, sample_offsets_in_mask
 from ..utils.convert_jax import (adam_state_to_flax, adam_state_to_torch, d_params_to_torch,
                                  d_stats_to_torch, torch_to_d_params, torch_to_unet_params,
                                  unet_params_to_torch)
@@ -244,12 +244,11 @@ class SinSKITModel:
         coords = batch["T_coords"]                    # (N, K, 8)
         valid = batch["T_valid"]
         k, pc = real_T.shape[0], real_T.shape[1]
-        fake_T_patch_d = gather_patches_from_coords(fake_T_d, coords, 32)
-        S_patch = gather_patches_from_coords(S, coords, 32)
-        realI_cond = torch.cat([gather_patches_from_coords(aug_real_I, coords, 32),
-                                batch["I_masks"]], -1)
-        fakeI_cond = torch.cat([gather_patches_from_coords(aug_fake_I, coords, 32),
-                                batch["I_masks"]], -1)
+        # one K2 launch for the four stacks at the batch's coords
+        fake_T_patch_d, S_patch, real_I_patch, fake_I_patch = gather_patches_group(
+            (fake_T_d, S, aug_real_I, aug_fake_I), coords=coords, cutout=32)
+        realI_cond = torch.cat([real_I_patch, batch["I_masks"]], -1)
+        fakeI_cond = torch.cat([fake_I_patch, batch["I_masks"]], -1)
 
         def d2_cond(t_patch, s_p, i_p):
             parts = [t_patch]
@@ -266,10 +265,12 @@ class SinSKITModel:
                     for i in range(n)]
             ox = torch.stack([o[0] for o in offs])
             oy = torch.stack([o[1] for o in offs])
-            more_I = gather_patches(fake_I_d, ox, oy, 32)
+            # one K2 launch for the three stacks at the "more fake T" offsets
+            # (pc == 32: T_resolution_multiplier is 1)
+            more_I, more_T, more_S = gather_patches_group(
+                (fake_I_d, fake_T_d, S), offset_x=ox, offset_y=oy, cutout=32)
             more_I = torch.cat([more_I, torch.ones_like(more_I[..., :1])], -1)
-            more_cond = d2_cond(gather_patches(fake_T_d, ox, oy, pc),
-                                gather_patches(S, ox, oy, 32), more_I)
+            more_cond = d2_cond(more_T, more_S, more_I)
 
         # ---- 4. D2 update ----
         if "D2" in self.model_names:

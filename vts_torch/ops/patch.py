@@ -8,9 +8,14 @@ Counterpart of ``vts_tpu/ops/patch.py`` (``patch_offsets_jnp``,
 ``vts_torch/csrc/gather_patches.cu`` (forward) and
 ``vts_torch/csrc/scatter_patches.cu`` (backward: the scatter-add that the
 JAX package leaves to XLA's transpose of the gather).
-:func:`gather_patches` is differentiable in the image; each wrapper launches
-its kernel for a CUDA tensor and takes its plain version for a CPU tensor
-only, and the launch counts are kept apart (``gather_patches.launches``,
+
+:func:`gather_patches_group` cuts the same windows from up to 4 images of
+one size in one launch, at int offsets or at the data's packed coords,
+which the kernel decodes itself; :func:`gather_patches` and
+:func:`gather_patches_from_coords` are groups of one.  The gather is
+differentiable in each image.  Each wrapper launches its kernel for CUDA
+tensors and takes its plain version for CPU tensors only, and the launch
+counts are kept apart (``gather_patches.launches``,
 ``scatter_patches.launches``).
 
 Modes, as in the reference: ``'gather'`` clamps every pixel index into the
@@ -21,24 +26,39 @@ window origin (a whole-window shift).  Both agree on in-bounds windows.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..kernels import build
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_SCATTER_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# gather_patches_group: 4 images, 4 outputs, 4 channel counts + nsrc, off_x,
+# off_y, coords, mult, N, K, H, W, cut, mode, element size, stream
+_GROUP_ARGTYPES = [_P] * 8 + [_I] * 5 + [_P] * 3 + [_I] * 8 + [_P]
+# scatter_patches_f32: g, off_x, off_y, coords, mult, canvas, N, K, H, W, C, cut, mode, stream
+_SCATTER_ARGTYPES = [_P] * 4 + [_I, _P] + [_I] * 7 + [_P]
 _MODES = {"gather": 0, "slice": 1}
+MAX_GROUP = 4
+_FNS = {}
+
+
+def _round_int32(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even like ``jnp.round``, then convert as XLA (and CUDA)
+    convert to int32: NaN, which the all-zero coords of a padded patch give,
+    to 0, and out-of-range values saturated (PyTorch's own cast on the CPU
+    would give INT_MIN for both)."""
+    return torch.round(x).double().nan_to_num(0.0).clamp(-2 ** 31, 2 ** 31 - 1).to(torch.int32)
 
 
 def patch_offsets(coords: torch.Tensor, scale_multiplier: int = 1):
     """Packed coords (..., 8) → int32 (offset_x, offset_y, cutout), in fp32 like
-    the reference; ``torch.round`` rounds half to even like ``jnp.round``."""
+    the reference."""
     coords = coords.float()
     rr = coords[..., 5]
-    off_x = torch.round((coords[..., 0] + coords[..., 6] / rr) * scale_multiplier).to(torch.int32)
-    off_y = torch.round((coords[..., 1] + coords[..., 7] / rr) * scale_multiplier).to(torch.int32)
-    cutout = torch.round(coords[..., 4] / rr * scale_multiplier).to(torch.int32)
+    off_x = _round_int32((coords[..., 0] + coords[..., 6] / rr) * scale_multiplier)
+    off_y = _round_int32((coords[..., 1] + coords[..., 7] / rr) * scale_multiplier)
+    cutout = _round_int32(coords[..., 4] / rr * scale_multiplier)
     return off_x, off_y, cutout
 
 
@@ -67,44 +87,139 @@ def gather_patches_plain(image, offset_x, offset_y, cutout: int, mode: str = "ga
     return out.reshape((-1, cutout, cutout, c))
 
 
-def _lib():
-    lib = build.load("gather_patches")
-    lib.gather_patches.argtypes = _ARGTYPES
-    lib.gather_patches.restype = ctypes.c_int
-    return lib
+class _Windows(NamedTuple):
+    """K windows in each of n images: int offsets, or packed coords with
+    their scale multiplier."""
+    offset_x: Optional[torch.Tensor]
+    offset_y: Optional[torch.Tensor]
+    coords: Optional[torch.Tensor]
+    mult: int
+    n: int
+    k: int
+
+    def offsets(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(n, k) offsets for the plain versions, decoded by patch_offsets from coords."""
+        if self.coords is None:
+            ox, oy = self.offset_x, self.offset_y
+        else:
+            ox, oy, _ = patch_offsets(self.coords, self.mult)
+        return ox.reshape(self.n, self.k), oy.reshape(self.n, self.k)
+
+    def kernel_args(self, device: torch.device):
+        """(off_x, off_y, coords) pointers for a kernel, cast only where the
+        dtype or the layout needs it."""
+        ts = (self.offset_x, self.offset_y) if self.coords is None else (self.coords,)
+        if any(t.device != device for t in ts):
+            raise ValueError("gather_patches: the windows must lie on the images' device")
+        if self.coords is None:
+            ox, oy = (t if t.dtype == torch.int32 and t.is_contiguous()
+                      else t.to(torch.int32).contiguous() for t in ts)
+            return (ox, oy), (ox.data_ptr(), oy.data_ptr(), None)
+        c = self.coords
+        if c.dtype != torch.float32 or not c.is_contiguous():
+            c = c.float().contiguous()
+        return (c,), (None, None, c.data_ptr())
 
 
-def _gather(image: torch.Tensor, offset_x: torch.Tensor, offset_y: torch.Tensor,
-            cutout: int, mode: str) -> torch.Tensor:
-    """One forward: the kernel for a CUDA tensor, the plain version for a CPU one."""
-    if image.device.type == "cpu":
-        return gather_patches_plain(image, offset_x, offset_y, cutout, mode)
-    image, offset_x, offset_y = _as_batched(image, offset_x, offset_y)
-    n, h, w, c = image.shape
-    k = offset_x.shape[1]
-    if image.device.type != "cuda" or offset_x.device != image.device \
-            or offset_y.device != image.device:
-        raise ValueError("gather_patches: image and offsets must lie on one CUDA device")
+def _windows(n: int, offset_x, offset_y, coords, mult: int) -> _Windows:
+    """Check the windows against n images: offsets (K,) for one image or (n, K);
+    coords (..., 8), all of them cut from a single image, or (n, K, 8)."""
+    if coords is not None:
+        if offset_x is not None or offset_y is not None or coords.shape[-1:] != (8,):
+            raise ValueError(f"gather_patches: give offsets or (..., 8) coords, not both; "
+                             f"got coords {tuple(coords.shape)}")
+        if n == 1:
+            return _Windows(None, None, coords, mult, 1, coords.numel() // 8)
+        if coords.dim() != 3 or coords.shape[0] != n:
+            raise ValueError(f"gather_patches: coords {tuple(coords.shape)} do not match "
+                             f"{n} images")
+        return _Windows(None, None, coords, mult, n, coords.shape[1])
+    if offset_x is None or offset_y is None or offset_x.shape != offset_y.shape \
+            or offset_x.dim() not in (1, 2) or offset_x.dim() == 1 and n != 1 \
+            or offset_x.dim() == 2 and offset_x.shape[0] != n:
+        shapes = [None if t is None else tuple(t.shape) for t in (offset_x, offset_y)]
+        raise ValueError(f"gather_patches: offsets {shapes} do not match {n} images")
+    return _Windows(offset_x, offset_y, None, mult, n, offset_x.shape[-1])
+
+
+def _group_size(images: Sequence[torch.Tensor]) -> Tuple[int, int, int]:
+    """(N, H, W) that the images of a group share; they must also share a
+    device and an element size."""
+    if not 1 <= len(images) <= MAX_GROUP:
+        raise ValueError(f"gather_patches_group: 1 to {MAX_GROUP} images, got {len(images)}")
+    first = images[0]
+    size = (1, *first.shape[:2]) if first.dim() == 3 else tuple(first.shape[:3])
+    for im in images:
+        if im.dim() not in (3, 4) or \
+                ((1, *im.shape[:2]) if im.dim() == 3 else tuple(im.shape[:3])) != size:
+            raise ValueError(f"gather_patches_group: image {tuple(im.shape)} does not "
+                             f"share (N, H, W) = {size}")
+        if im.device != first.device:
+            raise ValueError("gather_patches_group: the images lie on different devices")
+        if im.element_size() != first.element_size():
+            raise TypeError(f"gather_patches_group: element sizes differ ({im.dtype} and "
+                            f"{first.dtype})")
+    return size
+
+
+def _kernel(lib_name: str, fn_name: str, argtypes):
+    """A kernel's C entry point, its argument types set once, when it loads."""
+    fn = _FNS.get(fn_name)
+    if fn is None:
+        fn = getattr(build.load(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[fn_name] = fn
+    return fn
+
+
+def _launch(fn, device: torch.device, *args):
+    """Call a kernel on the device's current stream; a device guard only when
+    the device is not the current one."""
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _launch(fn, device, *args)
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
+
+
+def _gather_group(images, win: _Windows, cutout: int, mode: str):
+    """One forward: the kernel for CUDA tensors, the plain version for CPU ones."""
+    dev = images[0].device
+    if dev.type == "cpu":
+        ox, oy = win.offsets()
+        return tuple(gather_patches_plain(im.reshape(win.n, *im.shape[-3:]), ox, oy,
+                                          cutout, mode) for im in images)
+    if dev.type != "cuda":
+        raise ValueError("gather_patches: the images must lie on one CUDA device")
+    h, w = images[0].shape[-3:-1]
     if cutout > h or cutout > w or cutout <= 0:
         raise ValueError(f"gather_patches: cutout {cutout} does not fit {h}x{w}")
-    if image.element_size() not in (1, 2, 4, 8):
-        raise TypeError(f"gather_patches: unsupported dtype {image.dtype}")
-    image = image.contiguous()
-    ox = offset_x.to(torch.int32).contiguous()
-    oy = offset_y.to(torch.int32).contiguous()
-    out = torch.empty((n * k, cutout, cutout, c), dtype=image.dtype, device=image.device)
-    if out.numel() == 0:
-        return out
-    lib = _lib()
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream(image.device).cuda_stream
-        rc = lib.gather_patches(image.data_ptr(), ox.data_ptr(), oy.data_ptr(),
-                                out.data_ptr(), n, k, h, w, c, cutout,
-                                _MODES[mode], image.element_size(), stream)
-    if rc != 0:
-        raise RuntimeError(f"gather_patches kernel launch failed: CUDA error {rc}")
+    esize = images[0].element_size()
+    if esize not in (1, 2, 4, 8):
+        raise TypeError(f"gather_patches: unsupported dtype {images[0].dtype}")
+    # ``keep`` holds every cast or contiguous copy until the launch is
+    # enqueued: freed earlier, its memory could become one of the outputs
+    keep, ptrs = win.kernel_args(dev)
+    srcs, outs = [None] * MAX_GROUP, [None] * MAX_GROUP
+    chans = [0] * MAX_GROUP
+    result = []
+    for s, im in enumerate(images):
+        if not im.is_contiguous():
+            im = im.contiguous()
+        keep += (im,)
+        out = torch.empty((win.n * win.k, cutout, cutout, im.shape[-1]), dtype=im.dtype,
+                          device=dev)
+        srcs[s], outs[s], chans[s] = im.data_ptr(), out.data_ptr(), im.shape[-1]
+        result.append(out)
+    if win.n * win.k == 0:
+        return tuple(result)
+    _launch(_kernel("gather_patches", "gather_patches_group", _GROUP_ARGTYPES), dev,
+            *srcs, *outs, *chans, len(images), *ptrs, win.mult, win.n, win.k, h, w, cutout,
+            _MODES[mode], esize)
     gather_patches.launches += 1
-    return out
+    return tuple(result)
 
 
 def _window_indices(offset_x, offset_y, h: int, w: int, cutout: int, mode: str):
@@ -121,7 +236,11 @@ def _window_indices(offset_x, offset_y, h: int, w: int, cutout: int, mode: str):
 def scatter_patches_plain(grad: torch.Tensor, offset_x: torch.Tensor, offset_y: torch.Tensor,
                           image_shape, mode: str = "gather") -> torch.Tensor:
     """Plain version of :func:`scatter_patches`: ``index_put_`` with
-    ``accumulate=True`` into a zeroed fp32 canvas."""
+    ``accumulate=True`` into a zeroed fp32 canvas.  On the CPU that adds in
+    the order of the index tensor (window, row, column) when it runs
+    serially: under ``torch.use_deterministic_algorithms(True)``, on one
+    thread, or below PyTorch's parallel grain; otherwise it adds with atomics
+    in parallel, in an order that varies."""
     n, h, w, c = image_shape
     ox = offset_x.reshape(n, -1)
     oy = offset_y.reshape(n, -1)
@@ -135,52 +254,42 @@ def scatter_patches_plain(grad: torch.Tensor, offset_x: torch.Tensor, offset_y: 
     return canvas
 
 
-def _lib_scatter():
-    lib = build.load("scatter_patches")
-    lib.scatter_patches_f32.argtypes = _SCATTER_ARGTYPES
-    lib.scatter_patches_f32.restype = ctypes.c_int
-    return lib
-
-
-def scatter_patches(grad: torch.Tensor, offset_x: torch.Tensor, offset_y: torch.Tensor,
-                    image_shape, mode: str = "gather") -> torch.Tensor:
+def scatter_patches(grad: torch.Tensor, offset_x: Optional[torch.Tensor],
+                    offset_y: Optional[torch.Tensor], image_shape, mode: str = "gather", *,
+                    coords: Optional[torch.Tensor] = None,
+                    scale_multiplier: int = 1) -> torch.Tensor:
     """Transpose of :func:`gather_patches`: the (N·K, cut, cut, C) cotangent
-    summed into a zeroed fp32 (N, H, W, C) canvas at the same windows.
-    Overlapping and clamped windows accumulate.  On CUDA the kernel adds
-    with atomics, so the order of the additions (and the last bits of a
-    pixel that several windows share) varies from run to run."""
+    summed into an fp32 (N, H, W, C) canvas at the same windows, given by
+    offsets or (with ``offset_x = offset_y = None``) by packed ``coords``.
+    Overlapping and clamped windows accumulate.  On CUDA each canvas element
+    is summed by one thread in a fixed order (window, row, column), so the
+    result is the same from run to run."""
     if mode not in _MODES:
         raise NotImplementedError(mode)
     n, h, w, c = (int(v) for v in image_shape)
+    win = _windows(n, offset_x, offset_y, coords, int(scale_multiplier))
     if grad.dim() != 4 or grad.shape[1] != grad.shape[2] or grad.shape[3] != c \
-            or offset_x.numel() != grad.shape[0] or offset_y.numel() != grad.shape[0] \
-            or grad.shape[0] % max(n, 1):
+            or grad.shape[0] != win.n * win.k:
         raise ValueError(f"scatter_patches: cotangent {tuple(grad.shape)} does not match "
-                         f"image {(n, h, w, c)} and offsets {tuple(offset_x.shape)}")
-    if grad.device.type == "cpu":
-        return scatter_patches_plain(grad, offset_x, offset_y, (n, h, w, c), mode)
-    if grad.device.type != "cuda" or offset_x.device != grad.device \
-            or offset_y.device != grad.device:
-        raise ValueError("scatter_patches: cotangent and offsets must lie on one CUDA device")
+                         f"image {(n, h, w, c)} and {win.k} windows an image")
+    dev = grad.device
+    if dev.type == "cpu":
+        return scatter_patches_plain(grad, *win.offsets(), (n, h, w, c), mode)
+    if dev.type != "cuda":
+        raise ValueError("scatter_patches: the cotangent must lie on a CUDA device")
     if grad.dtype != torch.float32:
         raise TypeError(f"scatter_patches: the scatter kernel takes float32, got {grad.dtype}")
     cutout = grad.shape[1]
     if cutout > h or cutout > w:
         raise ValueError(f"scatter_patches: cutout {cutout} does not fit {h}x{w}")
-    g = grad.contiguous()
-    ox = offset_x.to(torch.int32).contiguous()
-    oy = offset_y.to(torch.int32).contiguous()
-    canvas = torch.empty((n, h, w, c), dtype=torch.float32, device=grad.device)
+    g = grad if grad.is_contiguous() else grad.contiguous()
+    keep, (ox, oy, cp) = win.kernel_args(dev)     # alive until the launch, as in the gather
+    canvas = torch.empty((n, h, w, c), dtype=torch.float32, device=dev)
     if canvas.numel() == 0:
         return canvas
-    lib = _lib_scatter()
-    with torch.cuda.device(grad.device):
-        stream = torch.cuda.current_stream(grad.device).cuda_stream
-        rc = lib.scatter_patches_f32(g.data_ptr(), ox.data_ptr(), oy.data_ptr(),
-                                     canvas.data_ptr(), n, grad.shape[0] // max(n, 1), h, w, c,
-                                     cutout, _MODES[mode], stream)
-    if rc != 0:
-        raise RuntimeError(f"scatter_patches kernel launch failed: CUDA error {rc}")
+    _launch(_kernel("scatter_patches", "scatter_patches_f32", _SCATTER_ARGTYPES), dev,
+            g.data_ptr(), ox, oy, cp, win.mult, canvas.data_ptr(), n, win.k, h, w, c, cutout,
+            _MODES[mode])
     scatter_patches.launches += 1
     return canvas
 
@@ -189,21 +298,56 @@ scatter_patches.launches = 0
 
 
 class _GatherPatches(torch.autograd.Function):
-    """The batched gather, with :func:`scatter_patches` as its gradient."""
+    """The grouped gather, with :func:`scatter_patches` as the gradient of
+    each image that needs one."""
 
     @staticmethod
-    def forward(ctx, image, offset_x, offset_y, cutout, mode):
-        image, offset_x, offset_y = _as_batched(image, offset_x, offset_y)
-        ctx.image_shape = tuple(image.shape)
-        ctx.mode = mode
-        ctx.save_for_backward(offset_x, offset_y)
-        return _gather(image, offset_x, offset_y, cutout, mode)
+    def forward(ctx, win, cutout, mode, *images):
+        ctx.win, ctx.mode = win, mode
+        ctx.shapes = [tuple(im.shape) for im in images]
+        outs = _gather_group(images, win, cutout, mode)
+        ctx.mark_non_differentiable(*[o for o, needed in zip(outs, ctx.needs_input_grad[3:])
+                                      if not needed])
+        return outs
 
     @staticmethod
-    def backward(ctx, grad):
-        offset_x, offset_y = ctx.saved_tensors
-        canvas = scatter_patches(grad, offset_x, offset_y, ctx.image_shape, ctx.mode)
-        return canvas.to(grad.dtype), None, None, None, None
+    def backward(ctx, *grads):
+        win = ctx.win
+        canvases = []
+        for g, shape, needed in zip(grads, ctx.shapes, ctx.needs_input_grad[3:]):
+            if not needed:
+                canvases.append(None)
+                continue
+            canvas = scatter_patches(g, win.offset_x, win.offset_y, (win.n, *shape[-3:]),
+                                     ctx.mode, coords=win.coords, scale_multiplier=win.mult)
+            canvases.append(canvas.to(g.dtype).reshape(shape))
+        return (None, None, None, *canvases)
+
+
+def gather_patches_group(images: Sequence[torch.Tensor], *,
+                         offset_x: Optional[torch.Tensor] = None,
+                         offset_y: Optional[torch.Tensor] = None,
+                         coords: Optional[torch.Tensor] = None, cutout: int,
+                         mode: str = "gather",
+                         scale_multiplier: int = 1) -> Tuple[torch.Tensor, ...]:
+    """The same K windows of cutout² from each of 1 to 4 images that share N,
+    H, W, the device and the element size (channels may differ): one output
+    (N·K, cut, cut, C_s) per image, sample-major, in one kernel launch.
+
+    Images are (H, W, C) or (N, H, W, C).  The windows are int top-left
+    corners ``offset_x``/``offset_y``, (K,) for one image or (N, K); or the
+    data's packed ``coords``, (N, K, 8), or (..., 8) for one image, decoded
+    as :func:`patch_offsets` does with ``scale_multiplier``.  Differentiable
+    in each image (the gradient is :func:`scatter_patches`, shaped like the
+    image that was passed)."""
+    if mode not in _MODES:
+        raise NotImplementedError(mode)
+    images = tuple(images)
+    n = _group_size(images)[0]
+    win = _windows(n, offset_x, offset_y, coords, int(scale_multiplier))
+    if torch.is_grad_enabled() and any(im.requires_grad for im in images):
+        return _GatherPatches.apply(win, int(cutout), mode, *images)
+    return _gather_group(images, win, int(cutout), mode)
 
 
 def gather_patches(image: torch.Tensor, offset_x: torch.Tensor, offset_y: torch.Tensor,
@@ -211,13 +355,9 @@ def gather_patches(image: torch.Tensor, offset_x: torch.Tensor, offset_y: torch.
     """K windows of cutout² from each image.  image (H, W, C) with (K,) offsets
     → (K, cut, cut, C); image (N, H, W, C) with (N, K) offsets → (N·K, cut,
     cut, C), sample-major.  Offsets are int top-left corners (x, y).
-    Differentiable in the image (the gradient is :func:`scatter_patches`,
-    shaped like the image that was passed)."""
-    if mode not in _MODES:
-        raise NotImplementedError(mode)
-    if image.dim() == 3:
-        image = image[None]
-    return _GatherPatches.apply(image, offset_x, offset_y, int(cutout), mode)
+    Differentiable in the image.  A group of one of :func:`gather_patches_group`."""
+    return gather_patches_group((image,), offset_x=offset_x, offset_y=offset_y,
+                                cutout=cutout, mode=mode)[0]
 
 
 gather_patches.launches = 0
@@ -228,13 +368,10 @@ def gather_patches_from_coords(image: torch.Tensor, coords: torch.Tensor,
                                mode: str = "gather") -> torch.Tensor:
     """Patches at packed coords.  image (N, H, W, C) with coords (N, K, 8) →
     (N·K, cut, cut, C) sample-major; a single image with (K, 8) or (1, K, 8)
-    coords → (K, cut, cut, C).  cut = patch_size·scale_multiplier."""
-    if image.dim() == 4 and image.shape[0] == 1:
-        image = image[0]
-    if coords.dim() == 3 and image.dim() == 3:
-        coords = coords.reshape(-1, coords.shape[-1])
-    off_x, off_y, _ = patch_offsets(coords, scale_multiplier)
-    return gather_patches(image, off_x, off_y, patch_size * scale_multiplier, mode=mode)
+    coords → (K, cut, cut, C).  cut = patch_size·scale_multiplier.  A group
+    of one of :func:`gather_patches_group`."""
+    return gather_patches_group((image,), coords=coords, cutout=patch_size * scale_multiplier,
+                                mode=mode, scale_multiplier=scale_multiplier)[0]
 
 
 def _box_sum_last(x: torch.Tensor, kernel: int) -> torch.Tensor:
