@@ -10,8 +10,11 @@ Phases, each of which must pass or the script exits non-zero:
   2. kernels against their plain PyTorch versions on the card, TF32 off:
      K1 forward at the eval and the training shapes and K1 dx at the
      training shapes (canvas and patch LPIPS, x branch), each within
-     1e-4·max|ref| + 1e-5; K2 forward bit-exact at the eval shape, from
-     offsets and from coords (.5 ties included), and at each of the training
+     1e-4·max|ref| + 1e-5; K1 and K1 dx at two path shapes against an
+     fp64 reference, within 0.05 of that limit and with a relative bias
+     under 1e-6 (the kernel's 3xTF32 sums keep fp32 accuracy); K2 forward
+     bit-exact at the eval shape, from offsets and from coords (.5 ties
+     included), and at each of the training
      step's three launch groups (1 to 4 sources of 1, 2 and 3 channels,
      K = 64 and 32, N = 1 and 2); K2 backward (the tile-owner scatter-add)
      bit-exact against index_put_(accumulate=True) run serially on the CPU,
@@ -39,10 +42,12 @@ Phases, each of which must pass or the script exits non-zero:
      a round-off floor);
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
-     shapes, and for K2 and K2 bwd the device-only time of the kernel from
-     torch.profiler; the wall time of one test sample, and of one 1536²
-     training step (median of >= 5 after warm-up) with its peak memory and
-     launches (and no patch_offsets call on the host).
+     shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
+     their fp32 CUDA-core bound beside it), and the device-only time of
+     every kernel and library call from one torch.profiler session; the
+     wall time of one test sample, and of one 1536² training step (median
+     of >= 5 after warm-up) with its peak memory and launches (and no
+     patch_offsets call on the host).
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel and
 path: an ``eval`` row covers one test sample (its launches are the test
@@ -68,9 +73,13 @@ import time
 
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): fp32 on the CUDA cores
-# and HBM3 bandwidth.  Stated against the card's power limit, printed below.
+# H100 SXM published peaks (NVIDIA data sheet, dense): fp32 on the CUDA cores,
+# TF32 on the tensor cores and HBM3 bandwidth.  Stated against the card's
+# power limit, printed below.  K1 runs fp32 as three TF32 passes (3xTF32), so
+# its operations bound is 3·FLOPs at the TF32 rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+K1_PEAK = PEAK_TF32_FLOPS / 3
 PEAK_HBM_BYTES = 3.35e12
 
 # K1 at the eval path: (N, H, W, C, Co, launches per test sample).  I_LPIPS runs
@@ -134,21 +143,47 @@ def cuda_ms(fn, reps=10, warmup=2):
     return statistics.median(s.elapsed_time(e) for s, e in evs)
 
 
-def device_ms(fn, name, reps=50):
-    """Device-only time of one call of fn in ms, from torch.profiler: the CUDA
-    time of the kernels whose name holds ``name`` (every kernel if ``name``
-    is empty) over ``reps`` calls, divided by ``reps``; None if the trace
-    shows no such kernel."""
+def device_times(calls):
+    """Device-only time of one call of each fn in ms, from one torch.profiler
+    session.  ``calls`` holds (fn, name, reps): each fn runs reps times
+    between two spin kernels (``torch.cuda._sleep``) that mark its span, and
+    its time is the CUDA time of the span's kernels whose name holds
+    ``name`` (every kernel if ``name`` is empty) over reps.  None where the
+    span shows no such kernel, or one a number of times that is not a
+    multiple of reps (the trace lost launches); all None if the spans cannot
+    be told apart.  One session: a profiler session per call lost launches
+    after some dozens of sessions on the H100."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    for fn, _, _ in calls:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn, _, reps in calls:
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-    return sum(us) / reps / 1e3 if us else None
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    spans = []
+    for e in events:
+        if "spin" in e.name:
+            spans.append([])
+        elif spans:
+            spans[-1].append(e)
+    if len(spans) != len(calls) + 1:
+        return [None] * len(calls)
+    out = []
+    for (_, name, reps), span in zip(calls, spans):
+        counts = {}
+        for e in span:
+            if name in e.name:
+                counts[e.name] = counts.get(e.name, 0) + 1
+        ok = counts and not any(c % reps for c in counts.values())
+        out.append(sum(e.time_range.end - e.time_range.start for e in span if name in e.name)
+                   / reps / 1e3 if ok else None)
+    return out
 
 
 def host_ms(fn, reps=200):
@@ -169,8 +204,8 @@ def fmt_ms(v):
     return "not measured" if v is None else f"{v:.5f} ms"
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound_ms(flops, nbytes, peak=PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -284,13 +319,19 @@ def main() -> int:
     t0 = time.time()
     libs = build.build()
     print(f"[build] {len(libs)} kernels in {time.time() - t0:.1f} s")
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for kname, path in libs.items():
         log = path.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {kname}] {line.strip()}")
+        if os.path.exists(cuobjdump):
+            sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                                  text=True, timeout=120).stdout
+            print(f"[sass {kname}] {sass.count('HGMMA')} HGMMA instructions")
 
     # ---------------------------------------------------------------- 2 ---
+    print(f"[phase] phase 2 (kernel checks) from {time.time() - t_start:.1f} s")
     gen = torch.Generator(device="cpu").manual_seed(0)
     k1_rows = []
     for (n, h, w, c, co, mult) in K1_SHAPES:
@@ -331,6 +372,38 @@ def main() -> int:
         dx_rows.append(dict(shape=[n, h, w, c, co], fwd=fwd_per_step, dx=dx_per_step,
                             f_err=f_err, err=err, tensors=(x, wt, b, y, gy)))
         del got, ref
+
+    # K1 and K1 dx against an fp64 reference: max |Δ| over the limit, and the
+    # bias mean(Δ·sign(ref)) / mean|ref|.  The tensor cores round their sums
+    # toward zero; the kernel adds each 8-channel chunk's sum in fp32
+    # registers so that this bias stays far below the limit (summed over K
+    # in the tensor cores it shrank the outputs by a few 1e-6, and the 256²
+    # step's gradients failed).
+    def acc_line(got, ref):
+        d = got.double() - ref
+        tol = 1e-4 * ref.abs().max().item() + 1e-5
+        bias = (d * torch.sign(ref)).mean().item() / ref.abs().mean().item()
+        return d.abs().max().item() / tol, bias
+
+    for (n, h, w, c, co) in ((1, 768, 768, 128, 128), (128, 32, 32, 64, 64)):
+        x = torch.relu(torch.randn(n, h, w, c, generator=gen)).to(dev)
+        wt = (torch.randn(3, 3, c, co, generator=gen) * math.sqrt(2.0 / (9 * c))).to(dev)
+        b = (torch.randn(co, generator=gen) * 0.1).to(dev)
+        gy = torch.randn(n, h, w, co, generator=gen).to(dev)
+        w64 = wt.double().permute(3, 2, 0, 1)
+        y64 = torch.relu(F.conv2d(x.double().permute(0, 3, 1, 2), w64, b.double(), padding=1)
+                         ).permute(0, 2, 3, 1)
+        y = y64.float()
+        g64 = torch.where(y > 0, gy, torch.zeros_like(gy)).double().permute(0, 3, 1, 2)
+        dx64 = F.conv_transpose2d(g64, w64, padding=1).permute(0, 2, 3, 1)
+        for what, got, plain, ref in (
+                ("K1", k1.conv3x3_bias_relu(x, wt, b), k1.conv3x3_bias_relu_plain(x, wt, b), y64),
+                ("K1 dx", k1.conv3x3_dx(gy, y, wt), k1.conv3x3_dx_plain(gy, y, wt), dx64)):
+            (e_k, b_k), (e_p, b_p) = acc_line(got, ref), acc_line(plain, ref)
+            print(f"[{what} vs fp64] {(n, h, w, c)}->{co}: kernel max|d|/limit {e_k:.4f} bias "
+                  f"{b_k:+.2e}; plain max|d|/limit {e_p:.4f} bias {b_p:+.2e}")
+            check(e_k <= 0.05 and abs(b_k) < 1e-6, f"{what} strays from fp64 at {(n, h, w, c, co)}")
+        del x, y, y64, g64, dx64, gy
 
     img2 = torch.randn(2, CANVAS, CANVAS, 2, generator=gen).to(dev)
     ox = torch.randint(-40, CANVAS + 8, (2, K_PATCH), generator=gen)
@@ -414,6 +487,7 @@ def main() -> int:
     del runs, ref, ref_c
 
     # ---------------------------------------------------------------- 3 ---
+    print(f"[phase] phase 3 (test slice) from {time.time() - t_start:.1f} s")
     tmp_dir = tempfile.TemporaryDirectory(prefix="vts_torch_smoke_")
     tmp = tmp_dir.name
     dirs = ["--checkpoints_dir", os.path.join(tmp, "ckpt"),
@@ -461,6 +535,7 @@ def main() -> int:
               f"{key} on cuda disagrees with the cpu reference")
 
     # ---------------------------------------------------------------- 4 ---
+    print(f"[phase] phase 4 (training slice) from {time.time() - t_start:.1f} s")
     targv = ["--model", "sinskit", "--name", "train_smoke",
              "--dataroot", f"synthetic://smoke?size={PADDED}", "--device", "cuda",
              "--data_len", "2", "--n_epochs", "1", "--n_epochs_decay", "0",
@@ -541,39 +616,57 @@ def main() -> int:
     del pair
 
     # ---------------------------------------------------------------- 5 ---
+    print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s")
     rows = {}                     # (kernel, path) -> per-sample or per-step sums
     shape_rows = []
 
-    def add(kname, path, per, ms, plain, lib, flops, nbytes, err, shape):
+    def add(kname, path, per, ms, plain, lib, flops, nbytes, err, shape, peak=PEAK_FP32_FLOPS):
         acc = rows.setdefault((kname, path), dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
                                                   flops=0.0, bytes=0.0, err=0.0, per=0,
-                                                  dev=[]))
+                                                  dev=[], peak=peak))
         for k_, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                       ("flops", flops), ("bytes", nbytes)):
             acc[k_] += per * v
         acc["err"] = max(acc["err"], err)
         acc["per"] += per
-        bound, by = bound_ms(flops, nbytes)
+        bound, by = bound_ms(flops, nbytes, peak)
         shape_rows.append(dict(kernel=kname, path=path, shape=shape, launches=per, ms=ms,
                                plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                               bound_fp32_ms=bound_ms(flops, nbytes)[0],
                                tflops=flops / ms / 1e9, max_abs_err=err, device_ms=None))
         return bound, by
+
+    # Device-only times come from torch.profiler, run after the step timing
+    # below: a profiler session slows the host's later calls.  ``deferred``
+    # holds what those runs need: (row key, launches, shape row, kernel
+    # call, kernel name, library call, line to print).
+    deferred = []
+
+    def k1_line(what, ms, plain, lib_name, lib, bound, flops, nbytes):
+        return (f"{what}: kernel {ms:.4f} ms (device only {{dev}}), plain {plain:.4f} ms, "
+                f"{lib_name} {lib:.4f} ms (device only {{lib_dev}}), bound {bound:.4f} ms "
+                f"(operations, 3xTF32; fp32 CUDA cores {bound_ms(flops, nbytes)[0]:.4f}), "
+                f"{flops / ms / 1e9:.2f} TFLOP/s")
 
     for row in k1_rows:
         n, h, w, c, co = row["shape"]
         x, wt, b = row["tensors"]
         w_oihw = wt.permute(3, 2, 0, 1).contiguous()
         x_nchw = x.permute(0, 3, 1, 2)
-        ms = cuda_ms(lambda: k1.conv3x3_bias_relu(x, wt, b))
+        call = lambda x=x, wt=wt, b=b: k1.conv3x3_bias_relu(x, wt, b)
+        lib_fn = lambda x_nchw=x_nchw, w_oihw=w_oihw, b=b: F.relu(
+            F.conv2d(x_nchw, w_oihw, b, padding=1))
+        ms = cuda_ms(call)
         plain = cuda_ms(lambda: k1.conv3x3_bias_relu_plain(x, wt, b))
-        lib = cuda_ms(lambda: F.relu(F.conv2d(x_nchw, w_oihw, b, padding=1)))
+        lib = cuda_ms(lib_fn)
         flops = 2.0 * 9 * n * h * w * c * co
         nbytes = 4.0 * (n * h * w * c + 9 * c * co + co + n * h * w * co)
         bound, _ = add("conv3x3_bias_relu", "eval", row["per_sample"], ms, plain, lib, flops,
-                       nbytes, row["err"], row["shape"])
-        print(f"[time K1 eval] {(n, h, w, c)}->{co}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"F.conv2d+relu {lib:.4f} ms, bound {bound:.4f} ms (operations), "
-              f"{flops / ms / 1e9:.2f} TFLOP/s")
+                       nbytes, row["err"], row["shape"], K1_PEAK)
+        line = k1_line(f"[time K1 eval] {(n, h, w, c)}->{co}", ms, plain, "F.conv2d+relu", lib,
+                       bound, flops, nbytes)
+        deferred.append((("conv3x3_bias_relu", "eval"), row["per_sample"], len(shape_rows) - 1,
+                         call, "conv3x3", lib_fn, line))
         del row["tensors"]
 
     for row in dx_rows:
@@ -582,22 +675,35 @@ def main() -> int:
         w_oihw = wt.permute(3, 2, 0, 1).contiguous()
         x_nchw, y_nchw, gy_nchw = (t.permute(0, 3, 1, 2) for t in (x, y, gy))
         flops = 2.0 * 9 * n * h * w * c * co
-        f_ms = cuda_ms(lambda: k1.conv3x3_bias_relu(x, wt, b))
+        f_call = lambda x=x, wt=wt, b=b: k1.conv3x3_bias_relu(x, wt, b)
+        f_lib_fn = lambda x_nchw=x_nchw, w_oihw=w_oihw, b=b: F.relu(
+            F.conv2d(x_nchw, w_oihw, b, padding=1))
+        f_ms = cuda_ms(f_call)
         f_plain = cuda_ms(lambda: k1.conv3x3_bias_relu_plain(x, wt, b))
-        f_lib = cuda_ms(lambda: F.relu(F.conv2d(x_nchw, w_oihw, b, padding=1)))
+        f_lib = cuda_ms(f_lib_fn)
         f_bytes = 4.0 * (n * h * w * c + 9 * c * co + co + n * h * w * co)
-        ms = cuda_ms(lambda: k1.conv3x3_dx(gy, y, wt))
+        d_call = lambda gy=gy, y=y, wt=wt: k1.conv3x3_dx(gy, y, wt)
+        d_lib_fn = lambda shape=(n, c, h, w), w_oihw=w_oihw, gy_nchw=gy_nchw, y_nchw=y_nchw: \
+            torch.nn.grad.conv2d_input(shape, w_oihw, gy_nchw * (y_nchw > 0), padding=1)
+        ms = cuda_ms(d_call)
         plain = cuda_ms(lambda: k1.conv3x3_dx_plain(gy, y, wt))
-        lib = cuda_ms(lambda: torch.nn.grad.conv2d_input(
-            (n, c, h, w), w_oihw, gy_nchw * (y_nchw > 0), padding=1))
+        lib = cuda_ms(d_lib_fn)
         nbytes = 4.0 * (2 * n * h * w * co + 9 * c * co + n * h * w * c)
         fb, _ = add("conv3x3_bias_relu", "train", row["fwd"], f_ms, f_plain, f_lib, flops,
-                    f_bytes, row["f_err"], row["shape"])
-        bb, by = add("conv3x3_dx", "train", row["dx"], ms, plain, lib, flops, nbytes,
-                     row["err"], row["shape"])
+                    f_bytes, row["f_err"], row["shape"], K1_PEAK)
+        deferred.append((("conv3x3_bias_relu", "train"), row["fwd"], len(shape_rows) - 1,
+                         f_call, "conv3x3", f_lib_fn,
+                         k1_line(f"[time K1 train] {(n, h, w, c)}->{co}", f_ms, f_plain,
+                                 "F.conv2d+relu", f_lib, fb, flops, f_bytes)))
+        bb, _ = add("conv3x3_dx", "train", row["dx"], ms, plain, lib, flops, nbytes,
+                    row["err"], row["shape"], K1_PEAK)
+        deferred.append((("conv3x3_dx", "train"), row["dx"], len(shape_rows) - 1, d_call,
+                         "conv3x3", d_lib_fn,
+                         k1_line(f"[time K1 dx train] gy {(n, h, w, co)} -> dx {c}", ms, plain,
+                                 "conv2d_input+mask", lib, bb, flops, nbytes)))
         print(f"[time K1 train] {(n, h, w, c)}->{co}: fwd {f_ms:.4f} ms (plain {f_plain:.4f}, "
               f"F.conv2d+relu {f_lib:.4f}, bound {fb:.4f}); dx {ms:.4f} ms (plain "
-              f"{plain:.4f}, conv2d_input+mask {lib:.4f}, bound {bb:.4f} {by}), "
+              f"{plain:.4f}, conv2d_input+mask {lib:.4f}, bound {bb:.4f}), "
               f"dx {flops / ms / 1e9:.2f} TFLOP/s")
         del row["tensors"]
 
@@ -607,12 +713,6 @@ def main() -> int:
         iy = (oy1.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, :, None]
         ix = (ox1.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, None, :]
         return lambda: img1[iy, ix]
-
-    # Device-only times come from torch.profiler, run after the step timing
-    # below: a profiler session slows the host's later calls.  ``deferred``
-    # holds what those runs need: (row key, launches, shape row, kernel
-    # call, kernel name, library call, line to print).
-    deferred = []
 
     def time_gather(path, per, ims, kw, offsets, what):
         """One K2 launch on (1, 1536², C) images at K windows, as the main path
@@ -693,6 +793,7 @@ def main() -> int:
     del img2, gpatch
 
     # one test sample: G forward + the 8 metrics, after a warm-up
+    print(f"[phase] sample wall from {time.time() - t_start:.1f} s")
     topt = TestOptions().parse(argv, quiet=True)
     batch = next(iter(create_dataset(topt)))
     model = create_model(topt)
@@ -718,6 +819,7 @@ def main() -> int:
     del model, batch
 
     # one training step at the full-width training defaults, after warm-up
+    print(f"[phase] step wall from {time.time() - t_start:.1f} s")
     topt = TrainOptions().parse(targv, quiet=True)
     batch = next(iter(create_dataset(topt)))
     model = create_model(topt)
@@ -749,9 +851,14 @@ def main() -> int:
                                    f"{host_offsets.calls} times on the host")
     del model, batch
 
-    # device-only times of K2 and K2 bwd, and of their library calls
-    for key, per, idx, call, kname_, lib_fn, line in deferred:
-        dev_t, lib_t = device_ms(call, kname_), device_ms(lib_fn, "")
+    # device-only times of every kernel, and of their library calls
+    print(f"[phase] device-only times from {time.time() - t_start:.1f} s")
+    calls = []
+    for _, _, _, call, kname_, lib_fn, _ in deferred:
+        reps = 20 if kname_ == "conv3x3" else 50
+        calls += [(call, kname_, reps), (lib_fn, "", reps)]
+    times = device_times(calls)
+    for (key, per, idx, _, _, _, line), dev_t, lib_t in zip(deferred, times[::2], times[1::2]):
         if key is not None:
             shape_rows[idx]["device_ms"] = dev_t
             rows[key]["dev"].append(None if dev_t is None else per * dev_t)
@@ -769,17 +876,19 @@ def main() -> int:
     for (kname, path), acc in rows.items():
         launches = (test_launches if path == "eval" else step_launches)[kname]
         check(launches == acc["per"], f"{kname} ({path}): {launches} launches, timed {acc['per']}")
-        b_ms, b_by = bound_ms(acc["flops"], acc["bytes"])
+        b_ms, b_by = bound_ms(acc["flops"], acc["bytes"], acc["peak"])
         dev_t = sum(acc["dev"]) if acc["dev"] and None not in acc["dev"] else None
         src, repl = sources[kname]
         print(f"[time {kname} {path}] per {'test sample' if path == 'eval' else 'training step'}: "
               f"{launches} launches, kernel {acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, "
-              f"library {acc['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), device only "
-              f"{fmt_ms(dev_t)}")
+              f"library {acc['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}"
+              f"{', 3xTF32' if acc['peak'] == K1_PEAK else ''}; fp32 CUDA cores "
+              f"{bound_ms(acc['flops'], acc['bytes'])[0]:.4f}), device only {fmt_ms(dev_t)}")
         kernels.append(dict(name=f"{kname}@{path}", route="cuda", source=src, replaces=repl,
                             launches=launches, max_abs_err=acc["err"], ms=acc["ms"],
                             plain_ms=acc["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                             library_ms=acc["library_ms"], device_ms=dev_t, path=path,
+                            bound_fp32_ms=bound_ms(acc["flops"], acc["bytes"])[0],
                             launches_in_run=(test_launches if path == "eval"
                                              else train_launches)[kname]))
     print(f"[shapes] {json.dumps(shape_rows)}")

@@ -28,10 +28,12 @@ def cuda():
 
 @pytest.mark.parametrize("shape", [(2, 16, 24, 64, 128), (1, 13, 7, 3, 5),
                                    (3, 37, 29, 128, 128), (2, 9, 40, 64, 64),
-                                   (33000, 2, 2, 3, 128)])
+                                   (33000, 2, 2, 3, 128), (70000, 1, 2, 3, 8),
+                                   (128, 32, 32, 64, 64), (128, 16, 16, 128, 128)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_conv3x3_kernel_matches_plain(cuda, shape, relu):
-    """The last shape has N·(Co/64) past the grid's z limit: launched in chunks."""
+    """(70000, 1, 2) has N past the grid's z limit (launched in chunks); the
+    last two are the training path's patch shapes."""
     n, h, w, c, co = shape
     g = torch.Generator(device="cpu").manual_seed(sum(shape))
     x = torch.randn(n, h, w, c, generator=g).to(cuda)
@@ -73,12 +75,14 @@ def test_gather_kernel_matches_plain(cuda, mode, dtype):
 
 @pytest.mark.parametrize("shape", [(2, 16, 24, 64, 128), (1, 13, 7, 3, 5),
                                    (3, 37, 29, 128, 128), (128, 16, 16, 128, 64),
-                                   (33000, 2, 2, 128, 8)])
+                                   (33000, 2, 2, 128, 8), (70000, 1, 2, 8, 3),
+                                   (128, 32, 32, 64, 64), (128, 16, 16, 128, 128)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_conv3x3_dx_kernel_matches_plain(cuda, shape, relu):
     """K1 dx against its plain version (and the autograd path launches it):
-    |Δ| ≤ 1e-4·max|ref| + 1e-5.  The last shape has N·(C/64) past the grid's
-    z limit: launched in chunks."""
+    |Δ| ≤ 1e-4·max|ref| + 1e-5.  (70000, 1, 2) has N past the grid's z
+    limit (launched in chunks); the last two are the training path's patch
+    shapes."""
     n, h, w, c, co = shape
     g = torch.Generator(device="cpu").manual_seed(sum(shape) + 1)
     x = torch.randn(n, h, w, c, generator=g).to(cuda)
@@ -97,6 +101,43 @@ def test_conv3x3_dx_kernel_matches_plain(cuda, shape, relu):
     (gx,) = torch.autograd.grad(k1.conv3x3_bias_relu(xg, wt, b, relu=relu), xg, gy)
     assert k1.conv3x3_dx.launches == before + 2
     assert (gx - want).abs().max().item() <= tol
+
+
+def _lpips_like(shape, seed, spread=False):
+    """ReLU'd activations, He-scaled weights, a cotangent, as the LPIPS
+    convs see them; ``spread`` scales the activations by 1e-3…1e3."""
+    n, h, w, c, co = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.relu(torch.randn(n, h, w, c, generator=g))
+    if spread:
+        x = x * 10.0 ** (6 * torch.rand(n, h, w, c, generator=g) - 3)
+    wt = torch.randn(3, 3, c, co, generator=g) * (2.0 / (9 * c)) ** 0.5
+    b = torch.randn(co, generator=g) * 0.1
+    gy = torch.randn(n, h, w, co, generator=g)
+    return x, wt, b, gy
+
+
+def test_conv3x3_kernels_at_wide_magnitudes(cuda):
+    """K1 and K1 dx (3xTF32 on the tensor cores) with activations spread over
+    six decades, against their plain fp32 versions: |Δ| ≤ 1e-4·max|ref| +
+    1e-5, the limit of chip_smoke.py."""
+    x, wt, b, gy = (t.to(cuda) for t in _lpips_like((2, 40, 24, 64, 128), 3, spread=True))
+    y = k1.conv3x3_bias_relu(x, wt, b)
+    want = k1.conv3x3_bias_relu_plain(x, wt, b)
+    assert (y - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+    got = k1.conv3x3_dx(gy, y, wt)
+    want = k1.conv3x3_dx_plain(gy, y, wt)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+
+
+def test_conv3x3_kernels_repeat_bit_for_bit(cuda):
+    """No split-K and no atomics: two launches on the same inputs give the
+    same bits, forward and dx."""
+    x, wt, b, gy = (t.to(cuda) for t in _lpips_like((4, 48, 40, 64, 128), 5))
+    ys = [k1.conv3x3_bias_relu(x, wt, b) for _ in range(2)]
+    dxs = [k1.conv3x3_dx(gy, ys[0], wt) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1]) and torch.equal(dxs[0], dxs[1])
 
 
 def serial_scatter(grad, ox, oy, shape, mode, **windows):

@@ -5,13 +5,19 @@ Counterpart of ``vts_tpu/ops/pallas_conv.py::conv3x3_relu``, forward and
 backward.  One CUDA kernel template, ``vts_torch/csrc/conv3x3.cu``, built
 for both directions: the forward, and dx (the ReLU-masked cotangent
 convolved with the spatially flipped, in/out-transposed weight, as
-``pallas_conv.py:119-127`` launches the same Pallas kernel for it).  Its
-source notes say what bounds it on the H100 and how it is laid out.
+``pallas_conv.py:119-127`` launches the same Pallas kernel for it).  In
+fp32 it runs on the TF32 tensor cores in three passes (3xTF32: each operand
+split into a tf32 hi and its remainder lo, lo·hi + hi·lo + hi·hi summed in
+fp32), which keeps fp32 accuracy; a pre-pass kernel splits the weight into
+a workspace the wrapper allocates.  A bf16 forward runs the same kernel
+on its inputs widened to fp32 and rounds the output to bf16.  The source
+notes say what bounds it on the H100 and how it is laid out.
 
-:func:`conv3x3_bias_relu` is differentiable (a ``torch.autograd.Function``):
-its backward launches the dx kernel, and computes dw/db with plain einsums
-only when they are asked for (the LPIPS weights are frozen buffers, so the
-training path never asks).  Each wrapper launches its kernel for a CUDA
+:func:`conv3x3_bias_relu` is differentiable (a ``torch.autograd.Function``,
+entered only when an input requires a gradient): its backward launches the
+dx kernel, and computes dw/db with plain einsums only when they are asked
+for (the LPIPS weights are frozen buffers, so the training path never
+asks).  Each wrapper launches its kernel for a CUDA
 tensor and takes its plain version for a CPU tensor only; the two launch
 counts are kept apart (``conv3x3_bias_relu.launches``,
 ``conv3x3_dx.launches``).
@@ -24,9 +30,10 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..kernels import build
+from ._launch import entry, launch
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# (x|gy, w|y, b|w, ws, y|dx); six ints; the stream
+_F32_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def conv3x3_bias_relu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -58,12 +65,12 @@ def conv3x3_dx_plain(gy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return conv3x3_bias_relu_plain(g, wt, zero, relu=False)
 
 
-def _lib():
-    lib = build.load("conv3x3")
-    for fn in (lib.conv3x3_bias_relu_f32, lib.conv3x3_bias_relu_bf16, lib.conv3x3_dx_f32):
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+def _workspace(cin: int, cout: int, device: torch.device) -> torch.Tensor:
+    """The split-weight workspace of one fp32 call (hi and lo of every tap,
+    padded to the kernel's tiles), written by the kernel's pre-pass."""
+    size = entry("conv3x3", "conv3x3_workspace_floats", [ctypes.c_int] * 2,
+                 ctypes.c_longlong)(cin, cout)
+    return torch.empty(size, dtype=torch.float32, device=device)
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:
@@ -80,22 +87,20 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool) -> t
                         f"bfloat16, got {x.dtype} and {w.dtype}")
     n, h, wd, c = x.shape
     co = w.shape[-1]
-    x = x.contiguous()
-    w = w.contiguous()
+    dtype = x.dtype
+    # bf16 runs the fp32 kernel: exact widening in, one rounding out
+    x = x.float().contiguous()
+    w = w.float().contiguous()
     b = b.float().contiguous()
-    y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
+    y = torch.empty((n, h, wd, co), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
-        return y
-    lib = _lib()
-    fn = lib.conv3x3_bias_relu_f32 if x.dtype == torch.float32 else lib.conv3x3_bias_relu_bf16
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                n, h, wd, c, co, int(bool(relu)), stream)
-    if rc != 0:
-        raise RuntimeError(f"conv3x3_bias_relu kernel launch failed: CUDA error {rc}")
+        return y.to(dtype)
+    ws = _workspace(c, co, x.device)
+    launch(entry("conv3x3", "conv3x3_bias_relu_f32", _F32_ARGTYPES), x.device,
+           x.data_ptr(), w.data_ptr(), b.data_ptr(), ws.data_ptr(), y.data_ptr(),
+           n, h, wd, c, co, int(bool(relu)))
     conv3x3_bias_relu.launches += 1
-    return y
+    return y.to(dtype)
 
 
 def conv3x3_dx(gy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -122,13 +127,10 @@ def conv3x3_dx(gy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     dx = torch.empty((n, h, wd, c), dtype=torch.float32, device=gy.device)
     if dx.numel() == 0:
         return dx
-    lib = _lib()
-    with torch.cuda.device(gy.device):
-        stream = torch.cuda.current_stream(gy.device).cuda_stream
-        rc = lib.conv3x3_dx_f32(gy.data_ptr(), y.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                                n, h, wd, c, k, int(bool(relu)), stream)
-    if rc != 0:
-        raise RuntimeError(f"conv3x3_dx kernel launch failed: CUDA error {rc}")
+    ws = _workspace(k, c, gy.device)
+    launch(entry("conv3x3", "conv3x3_dx_f32", _F32_ARGTYPES), gy.device,
+           gy.data_ptr(), y.data_ptr(), w.data_ptr(), ws.data_ptr(), dx.data_ptr(),
+           n, h, wd, c, k, int(bool(relu)))
     conv3x3_dx.launches += 1
     return dx
 
@@ -173,7 +175,9 @@ def conv3x3_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """relu(conv3x3_s1_p1(x, w) + b), NHWC.  x (N, H, W, C) fp32 or bf16,
     w (3, 3, C, Co) in x's dtype, b (Co,).  Any H, W, C, Co.  Differentiable:
     the input gradient runs :func:`conv3x3_dx` (fp32)."""
-    return _Conv3x3BiasRelu.apply(x, w, b, bool(relu))
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
+        return _Conv3x3BiasRelu.apply(x, w, b, bool(relu))
+    return _forward(x, w, b, bool(relu))
 
 
 conv3x3_bias_relu.launches = 0

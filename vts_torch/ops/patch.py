@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels import build
+from ._launch import entry, launch
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # gather_patches_group: 4 images, 4 outputs, 4 channel counts + nsrc, off_x,
@@ -40,7 +40,6 @@ _GROUP_ARGTYPES = [_P] * 8 + [_I] * 5 + [_P] * 3 + [_I] * 8 + [_P]
 _SCATTER_ARGTYPES = [_P] * 4 + [_I, _P] + [_I] * 7 + [_P]
 _MODES = {"gather": 0, "slice": 1}
 MAX_GROUP = 4
-_FNS = {}
 
 
 def _round_int32(x: torch.Tensor) -> torch.Tensor:
@@ -162,28 +161,6 @@ def _group_size(images: Sequence[torch.Tensor]) -> Tuple[int, int, int]:
     return size
 
 
-def _kernel(lib_name: str, fn_name: str, argtypes):
-    """A kernel's C entry point, its argument types set once, when it loads."""
-    fn = _FNS.get(fn_name)
-    if fn is None:
-        fn = getattr(build.load(lib_name), fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[fn_name] = fn
-    return fn
-
-
-def _launch(fn, device: torch.device, *args):
-    """Call a kernel on the device's current stream; a device guard only when
-    the device is not the current one."""
-    if device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):
-            return _launch(fn, device, *args)
-    rc = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
-
-
 def _gather_group(images, win: _Windows, cutout: int, mode: str):
     """One forward: the kernel for CUDA tensors, the plain version for CPU ones."""
     dev = images[0].device
@@ -215,9 +192,9 @@ def _gather_group(images, win: _Windows, cutout: int, mode: str):
         result.append(out)
     if win.n * win.k == 0:
         return tuple(result)
-    _launch(_kernel("gather_patches", "gather_patches_group", _GROUP_ARGTYPES), dev,
-            *srcs, *outs, *chans, len(images), *ptrs, win.mult, win.n, win.k, h, w, cutout,
-            _MODES[mode], esize)
+    launch(entry("gather_patches", "gather_patches_group", _GROUP_ARGTYPES), dev,
+           *srcs, *outs, *chans, len(images), *ptrs, win.mult, win.n, win.k, h, w, cutout,
+           _MODES[mode], esize)
     gather_patches.launches += 1
     return tuple(result)
 
@@ -287,9 +264,9 @@ def scatter_patches(grad: torch.Tensor, offset_x: Optional[torch.Tensor],
     canvas = torch.empty((n, h, w, c), dtype=torch.float32, device=dev)
     if canvas.numel() == 0:
         return canvas
-    _launch(_kernel("scatter_patches", "scatter_patches_f32", _SCATTER_ARGTYPES), dev,
-            g.data_ptr(), ox, oy, cp, win.mult, canvas.data_ptr(), n, win.k, h, w, c, cutout,
-            _MODES[mode])
+    launch(entry("scatter_patches", "scatter_patches_f32", _SCATTER_ARGTYPES), dev,
+           g.data_ptr(), ox, oy, cp, win.mult, canvas.data_ptr(), n, win.k, h, w, c, cutout,
+           _MODES[mode])
     scatter_patches.launches += 1
     return canvas
 
