@@ -24,19 +24,24 @@ Phases, each of which must pass or the script exits non-zero:
      best_net_G.msgpack, then ``vts_torch.test.test`` on a 1800² synthetic
      garment (1536² canvas, K = 100 test patches) with --device cuda; all 8
      metrics finite, the forward kernels' launch counts > 0 in that run, and
-     no patch_offsets call on the host (K2 decodes the coords);
-     then ``vts_torch.test`` at 256² on cuda and on cpu (plain versions)
-     agree;
+     no patch_offsets call on the host (K2 decodes the coords); its HTML
+     gallery (PNGs, raw gx/gy npz, patch-coords JSON, index.html) written,
+     the gallery's time and K2 launch on a line of their own and outside the
+     sample's counts; then ``vts_torch.test`` at 256² on cuda and on cpu
+     (plain versions) agree;
   4. the training slice end to end: ``vts_torch.train`` on the same garment
      at the full-width training defaults (1536² crop, ngf 10, ndf 8, K = 64
-     patches + 32 "more fake T", batch_size_G2_val 128) for the 2 steps of
-     one epoch and its validation pass; every loss finite, the launch
-     counts of K1 fwd, K1 dx, K2 fwd and K2 bwd all > 0 in that run, the G,
-     D and D2 checkpoints with their Adam files written, and the best G
-     then loading into ``vts_torch.test``; then one 256² training step on
+     patches + 32 "more fake T", batch_size_G2_val 128, the full CLIP
+     ViT-B/32 for D3) for 2 epochs of 2 steps with D3 switched on at epoch
+     2 and the gallery written once (after the last step); every loss
+     finite, G_D3 and D3_loss among epoch 2's, the launch counts of K1 fwd,
+     K1 dx, K2 fwd and K2 bwd all > 0 in that run, the gallery and the G, D
+     and D2 checkpoints with their Adam files written, one more D3-active
+     step launching each kernel as often as ``PER_STEP`` says, and the best
+     G then loading into ``vts_torch.test``; then 256² training steps on
      cuda (cuDNN's deterministic algorithms; a second CUDA step shows
      whether the step repeats bit for bit) and on cpu from the same weights
-     and draws: losses within rtol
+     and draws, before D3's warmup and with D3 active: losses within rtol
      1e-4, Adam first moments (the gradients) within 1e-4 of each leaf's
      max |g| (see :func:`grad_tol` for the two named sets of leaves held to
      a round-off floor);
@@ -44,15 +49,18 @@ Phases, each of which must pass or the script exits non-zero:
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
      their fp32 CUDA-core bound beside it), and the device-only time of
-     every kernel and library call from one torch.profiler session; the
-     wall time of one test sample, and of one 1536² training step (median
-     of >= 5 after warm-up) with its peak memory and launches (and no
+     every kernel and library call from one torch.profiler session, with
+     the D3 part of a step (both CLIP passes, the backward, resize_mm)
+     beside them; the wall time of one test sample, and of one 1536²
+     training step before D3's warmup and with D3 active (median of 5
+     after 2 warm-ups each) with its peak memory and launches (and no
      patch_offsets call on the host).
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel and
 path: an ``eval`` row covers one test sample (its launches are the test
-run's, which holds one sample) and a ``train`` row one training step (its
-launches are those of a timed step, counted from 0); ``ms``, ``plain_ms``,
+run's, which holds one sample, less the gallery's) and a ``train`` row one
+training step (its launches are those of a timed D3-active step, counted
+from 0); ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` sum the per-shape times over those launches,
 and ``max_abs_err`` is the worst of the checks at that path's shapes.  The
 last line is ``{"ok": true, "device": {...}}``.  Nothing is printed as a result unless
@@ -267,6 +275,56 @@ def serial_scatter(grad, ox, oy, shape, mode):
         return k2.scatter_patches_plain(grad.cpu(), ox.cpu(), oy.cpu(), shape, mode)
     finally:
         torch.use_deterministic_algorithms(was)
+
+
+class Gallery:
+    """While entered: the launches and the time of the model's
+    ``get_current_visuals`` and the time of the gallery's file writes (the
+    test driver's ``save_images``, the training driver's
+    ``display_current_results``), kept apart from the run they happen in."""
+
+    def __enter__(self):
+        from vts_torch import test as test_mod
+        from vts_torch.models.sinskit import SinSKITModel
+        from vts_torch.utils.visualizer import Visualizer
+        self.launches = dict.fromkeys(KERNELS, 0)
+        self.visuals_ms, self.write_ms, self.passes = 0.0, 0.0, 0
+        self.patched = [(SinSKITModel, "get_current_visuals"), (test_mod, "save_images"),
+                        (Visualizer, "display_current_results")]
+        self.real = [getattr(o, a) for o, a in self.patched]
+        outer = self
+
+        def visuals(model):
+            torch.cuda.synchronize()
+            before, t0 = read_counts(), time.perf_counter()
+            out = outer.real[0](model)
+            torch.cuda.synchronize()
+            outer.visuals_ms += (time.perf_counter() - t0) * 1e3
+            outer.passes += 1
+            for k, v in read_counts().items():
+                outer.launches[k] += v - before[k]
+            return out
+
+        def timed(real):
+            def write(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return real(*a, **kw)
+                finally:
+                    outer.write_ms += (time.perf_counter() - t0) * 1e3
+            return write
+        for (o, a), fn in zip(self.patched, [visuals, timed(self.real[1]), timed(self.real[2])]):
+            setattr(o, a, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (o, a), real in zip(self.patched, self.real):
+            setattr(o, a, real)
+
+    def line(self, what):
+        return (f"[gallery] {what}: {self.passes} visuals pass(es) {self.visuals_ms:.1f} ms, "
+                f"file writes {self.write_ms:.1f} ms; launches {self.launches} (outside the "
+                f"path's counts)")
 
 
 class CountPatchOffsets:
@@ -504,13 +562,26 @@ def main() -> int:
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.time()
-    with CountPatchOffsets() as host_offsets:
+    with CountPatchOffsets() as host_offsets, Gallery() as gallery:
         metrics = run_test(argv)[0]
     t_slice = time.time() - t0
-    test_launches = read_counts()
+    run_launches = read_counts()
+    test_launches = {k: v - gallery.launches[k] for k, v in run_launches.items()}
     print(f"[slice] {len(metrics)} metrics in {t_slice:.2f} s (first run, incl. data "
-          f"and model set-up): " + " ".join(f"{k}={v:.6g}" for k, v in sorted(metrics.items())))
-    print(f"[slice] launches during the test run: {test_launches}")
+          f"and model set-up and the gallery): "
+          + " ".join(f"{k}={v:.6g}" for k, v in sorted(metrics.items())))
+    print(f"[slice] launches during the test run: {run_launches}; the sample's, without "
+          f"the gallery: {test_launches}")
+    print(gallery.line(f"test gallery, one {CANVAS}² sample"))
+    web = os.path.join(tmp, "res", "smoke", "test_best")
+    written = os.listdir(os.path.join(web, "images")) if os.path.isdir(web) else []
+    check(os.path.exists(os.path.join(web, "index.html"))
+          and any(f.endswith("_fake_gxgy_raw.npz") for f in written)
+          and any(f.endswith("_patch_coords.json") for f in written)
+          and sum(f.endswith(".png") for f in written) == 11,
+          f"the test gallery is incomplete: {sorted(written)}")
+    check(gallery.passes == 1 and gallery.launches["gather_patches"] == 1,
+          f"the test gallery made {gallery.passes} visuals passes, {gallery.launches}")
     check(len(metrics) == 8 and all(math.isfinite(v) for v in metrics.values()),
           f"expected 8 finite metrics, got {metrics}")
     check(test_launches["conv3x3_bias_relu"] > 0 and test_launches["gather_patches"] > 0,
@@ -536,29 +607,46 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 4 ---
     print(f"[phase] phase 4 (training slice) from {time.time() - t_start:.1f} s")
+    # 2 epochs of 2 steps, D3 from epoch 2, the gallery after step 4 (the
+    # shipped defaults switch D3 on at epoch 100 and draw every 100 samples)
     targv = ["--model", "sinskit", "--name", "train_smoke",
              "--dataroot", f"synthetic://smoke?size={PADDED}", "--device", "cuda",
-             "--data_len", "2", "--n_epochs", "1", "--n_epochs_decay", "0",
-             "--no_html"] + dirs
+             "--data_len", "2", "--n_epochs", "2", "--n_epochs_decay", "0",
+             "--vision_aided_warmup_epoch", "2", "--display_freq", "4"] + dirs
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.time()
-    tmodel = run_train(targv)
+    with Gallery() as gallery:
+        tmodel = run_train(targv)
     torch.cuda.synchronize()
     t_train = time.time() - t0
     train_launches = read_counts()
     losses = tmodel.get_current_losses()
-    print(f"[train] 2 steps + validation in {t_train:.2f} s (first run, incl. data and "
-          f"model set-up); last losses: " + " ".join(f"{k}={v:.6g}" for k, v in losses.items()))
+    print(f"[train] 4 steps (D3 active in the last 2) + 2 validations + the gallery in "
+          f"{t_train:.2f} s (first run, incl. data and model set-up); epoch 2's last losses: "
+          + " ".join(f"{k}={v:.6g}" for k, v in losses.items()))
     print(f"[train] launches during the training run: {train_launches}")
-    check(len(losses) >= 13 and all(math.isfinite(v) for v in losses.values()),
-          f"a training loss is not finite: {losses}")
+    print(gallery.line(f"training gallery at {CANVAS}² (with the full-canvas D2 pass)"))
+    check(len(losses) >= 15 and {"G_D3", "D3_loss"} <= set(losses)
+          and all(math.isfinite(v) for v in losses.values()),
+          f"an epoch-2 training loss is missing or not finite: {losses}")
     check(all(train_launches[k] > 0 for k in KERNELS),
           f"a kernel was not launched by the training run: {train_launches}")
     ck = os.path.join(tmp, "ckpt", "train_smoke")
     missing = [f"best_{kind}_{net}.msgpack" for net in ("G", "D", "D2") for kind in ("net", "opt")
                if not os.path.exists(os.path.join(ck, f"best_{kind}_{net}.msgpack"))]
     check(not missing, f"checkpoints not written: {missing}")
+    pngs = [f for f in os.listdir(os.path.join(ck, "web", "images")) if f.startswith("epoch002_")]
+    check(gallery.passes == 1 and len(pngs) == 19
+          and os.path.exists(os.path.join(ck, "web", "index.html")),
+          f"the training gallery is incomplete: {gallery.passes} passes, {sorted(pngs)}")
+    torch.cuda.synchronize()
+    reset_counts()
+    tmodel.optimize_parameters(2)
+    torch.cuda.synchronize()
+    d3_launches = read_counts()
+    print(f"[train] launches of one more D3-active step: {d3_launches}")
+    check(d3_launches == PER_STEP, f"a D3-active step launched {d3_launches}, not {PER_STEP}")
     del tmodel
     tm = run_test(["--model", "sinskit", "--epoch", "best", "--name", "train_smoke",
                    "--dataroot", f"synthetic://smoke?size={PADDED}", "--device", "cuda",
@@ -579,41 +667,52 @@ def main() -> int:
     # below does not move between runs of this script.
     cudnn_det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    pair = {}
-    for key, d in (("cpu", "cpu"), ("cuda", "cuda"), ("cuda again", "cuda")):
-        o = TrainOptions().parse(strain + ["--device", d], quiet=True)
-        pair[key] = create_model(o)
-        pair[key].setup()
-    sbatch = next(iter(create_dataset(o)))
-    draws = pair["cpu"].draw(1)
-    for m in pair.values():
-        m.set_input(sbatch)
-        m.optimize_parameters(1, draws=draws)
+    for label, extra, keys in (
+            ("256² step", ["--use_vision_aided_loss", "false"], ("cpu", "cuda", "cuda again")),
+            ("256² D3-active step", ["--vision_aided_warmup_epoch", "1"], ("cpu", "cuda"))):
+        pair = {}
+        for key in keys:
+            o = TrainOptions().parse(strain + extra + ["--device", key.split()[0]], quiet=True)
+            pair[key] = create_model(o)
+            pair[key].setup()
+        sbatch = next(iter(create_dataset(o)))
+        draws = pair["cpu"].draw(1)
+        for m in pair.values():
+            m.set_input(sbatch)
+            m.optimize_parameters(1, draws=draws)
+        if "cuda again" in pair:
+            same = all(torch.equal(pair["cuda"].adam[net].mu[k],
+                                   pair["cuda again"].adam[net].mu[k])
+                       for net in ("G", "D", "D2") for k in pair["cuda"].adam[net].mu)
+            print(f"[train ref] two {label}s on CUDA from the same weights and draws give "
+                  f"the same gradients bit for bit: {same}")
+        lc, lg = pair["cpu"].get_current_losses(), pair["cuda"].get_current_losses()
+        check(("G_D3" in lc) == ("D3" in label) and set(lc) == set(lg),
+              f"{label}: unexpected losses {sorted(lc)} / {sorted(lg)}")
+        worst = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-7) for k in lc)
+        print(f"[train ref] {label}, cuda vs cpu: worst loss rel {worst:.2e}" + (
+            f" (G_D3 cuda {lg['G_D3']:.7g} cpu {lc['G_D3']:.7g}, D3_loss cuda "
+            f"{lg['D3_loss']:.7g} cpu {lc['D3_loss']:.7g})" if "G_D3" in lc else ""))
+        for k in lc:
+            check(abs(lg[k] - lc[k]) <= 1e-4 * abs(lc[k]) + 1e-7,
+                  f"{label}: training loss {k} on cuda {lg[k]} disagrees with cpu {lc[k]}")
+        for net in ("G", "D", "D2"):
+            mu_c, mu_g = pair["cpu"].adam[net].mu, pair["cuda"].adam[net].mu
+            net_max = max(v.abs().max().item() for v in mu_c.values())
+            at_roundoff = {k for k, v in mu_c.items() if v.abs().max().item() <= 1e-5 * net_max}
+            check(at_roundoff == {k for k in mu_c if ZERO_GRAD.search(k)},
+                  f"{label}, {net}: the leaves at round-off are not the named ones: "
+                  f"{sorted(at_roundoff)}")
+            ratio = {k: (mu_g[k].cpu() - v).abs().max().item() / grad_tol(k, v, net_max)
+                     for k, v in mu_c.items()}
+            worst = max(ratio, key=ratio.get)
+            print(f"[train ref] {label}, {net} grads cuda vs cpu: worst per-leaf "
+                  f"|d|/tolerance {ratio[worst]:.2e} at {worst} (network max |g| "
+                  f"{net_max:.3e}, {len(at_roundoff)} leaves at round-off)")
+            check(ratio[worst] <= 1.0, f"{label}: {net} gradient {worst} on cuda disagrees "
+                                       f"with cpu")
+        del pair
     torch.backends.cudnn.deterministic = cudnn_det
-    same = all(torch.equal(pair["cuda"].adam[net].mu[k], pair["cuda again"].adam[net].mu[k])
-               for net in ("G", "D", "D2") for k in pair["cuda"].adam[net].mu)
-    print(f"[train ref] two 256² CUDA steps from the same weights and draws give the same "
-          f"gradients bit for bit: {same}")
-    lc, lg = pair["cpu"].get_current_losses(), pair["cuda"].get_current_losses()
-    worst = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-7) for k in lc)
-    print(f"[train ref] 256² step, cuda vs cpu: worst loss rel {worst:.2e}")
-    for k in lc:
-        check(abs(lg[k] - lc[k]) <= 1e-4 * abs(lc[k]) + 1e-7,
-              f"training loss {k} on cuda {lg[k]} disagrees with cpu {lc[k]}")
-    for net in ("G", "D", "D2"):
-        mu_c, mu_g = pair["cpu"].adam[net].mu, pair["cuda"].adam[net].mu
-        net_max = max(v.abs().max().item() for v in mu_c.values())
-        at_roundoff = {k for k, v in mu_c.items() if v.abs().max().item() <= 1e-5 * net_max}
-        check(at_roundoff == {k for k in mu_c if ZERO_GRAD.search(k)},
-              f"{net}: the leaves at round-off are not the named ones: {sorted(at_roundoff)}")
-        ratio = {k: (mu_g[k].cpu() - v).abs().max().item() / grad_tol(k, v, net_max)
-                 for k, v in mu_c.items()}
-        worst = max(ratio, key=ratio.get)
-        print(f"[train ref] {net} grads cuda vs cpu: worst per-leaf |d|/tolerance "
-              f"{ratio[worst]:.2e} at {worst} (network max |g| {net_max:.3e}, "
-              f"{len(at_roundoff)} leaves at round-off)")
-        check(ratio[worst] <= 1.0, f"{net} gradient {worst} on cuda disagrees with cpu")
-    del pair
 
     # ---------------------------------------------------------------- 5 ---
     print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s")
@@ -820,44 +919,78 @@ def main() -> int:
 
     # one training step at the full-width training defaults, after warm-up
     print(f"[phase] step wall from {time.time() - t_start:.1f} s")
+    # the same model steps at epoch 1 (before D3's warmup) and at epoch 2 (D3
+    # active, as every step from epoch 100 at the shipped defaults)
     topt = TrainOptions().parse(targv, quiet=True)
     batch = next(iter(create_dataset(topt)))
     model = create_model(topt)
     model.setup()
     model.set_input(batch)
-    walls, peaks = [], []
+    step_wall = {}
     with CountPatchOffsets() as host_offsets:
-        for i in range(7):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            if i == 2:
-                reset_counts()
-            t0 = time.perf_counter()
-            model.optimize_parameters(1)
-            model.get_current_losses()
-            torch.cuda.synchronize()
-            if i == 2:
-                step_launches = read_counts()
-            if i >= 2:
-                walls.append((time.perf_counter() - t0) * 1e3)
-                peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
-    print(f"[time step] one {CANVAS}² training step (batch 1, ngf {NGF}, ndf 8, K {K_TRAIN} "
-          f"+ 32): {statistics.median(walls):.1f} ms wall, median of {len(walls)} "
-          f"({', '.join(f'{w:.1f}' for w in walls)}); {1e3 / statistics.median(walls):.3f} "
-          f"samples/s; peak memory {max(peaks):.2f} GiB; launches per step {step_launches}")
-    check(step_launches == PER_STEP, f"a training step launched {step_launches}, the "
-                                     f"timed shapes stand for {PER_STEP}")
-    check(host_offsets.calls == 0, f"7 training steps called patch_offsets "
+        for key, label, epoch in (("warmup", "before D3's warmup", 1), ("d3", "D3 active", 2)):
+            walls, peaks = [], []
+            for i in range(7):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                if i == 2:
+                    reset_counts()
+                t0 = time.perf_counter()
+                model.optimize_parameters(epoch)
+                model.get_current_losses()
+                torch.cuda.synchronize()
+                if i == 2:
+                    step_launches = read_counts()
+                if i >= 2:
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            step_wall[key] = statistics.median(walls)
+            print(f"[time step] one {CANVAS}² training step, {label} (batch 1, ngf {NGF}, "
+                  f"ndf 8, K {K_TRAIN} + 32): {step_wall[key]:.1f} ms wall, median of "
+                  f"{len(walls)} ({', '.join(f'{w:.1f}' for w in walls)}); "
+                  f"{1e3 / step_wall[key]:.3f} samples/s; peak memory {max(peaks):.2f} GiB; "
+                  f"launches per step {step_launches}")
+            check(step_launches == PER_STEP, f"a training step ({label}) launched "
+                                             f"{step_launches}, the timed shapes stand for "
+                                             f"{PER_STEP}")
+    check(host_offsets.calls == 0, f"14 training steps called patch_offsets "
                                    f"{host_offsets.calls} times on the host")
-    del model, batch
+    print(f"[time step] D3 adds {step_wall['d3'] - step_wall['warmup']:.1f} ms to the step wall")
 
+    # the D3 part of a step on its own, at the step's tensors: CLIP of the
+    # real I without a gradient, CLIP of fake_I with one, the backward to
+    # fake_I (through the 12 blocks and resize_mm); and resize_mm alone
+    from vts_torch.losses.vision_aided import d3_logits, softplus
+    from vts_torch.ops.resize_mm import resize_mm
+    clip, heads = model.clip, model.d3_heads
+    real_I, fake_I = model._input["I"], model._outputs["fake_I"]
+
+    def d3_part():
+        with torch.no_grad():
+            d3_logits(clip, heads, real_I)
+        f = fake_I.detach().requires_grad_(True)
+        loss = sum(torch.mean(softplus(-lg)) for lg in d3_logits(clip, heads, f))
+        return torch.autograd.grad(loss, f)[0]
+
+    def resize_part():
+        return resize_mm(real_I, (224, 224))
+    d3_ms, resize_ms = cuda_ms(d3_part, reps=5), cuda_ms(resize_part, reps=20)
+    d3_host = host_ms(d3_part, reps=5)
+    del model, batch
     # device-only times of every kernel, and of their library calls
     print(f"[phase] device-only times from {time.time() - t_start:.1f} s")
     calls = []
     for _, _, _, call, kname_, lib_fn, _ in deferred:
         reps = 20 if kname_ == "conv3x3" else 50
         calls += [(call, kname_, reps), (lib_fn, "", reps)]
+    calls += [(d3_part, "", 3), (resize_part, "", 20)]
     times = device_times(calls)
+    d3_dev, resize_dev = times[-2:]
+    times = times[:-2]
+    print(f"[time D3] the D3 part of a {CANVAS}² step (CLIP ViT-B/32 of real I, no grad; of "
+          f"fake_I with grad; backward to fake_I): {d3_ms:.2f} ms (host only {d3_host:.2f} ms, "
+          f"device only {fmt_ms(d3_dev)}); resize_mm {CANVAS}² -> 224² forward "
+          f"{resize_ms:.4f} ms (device only {fmt_ms(resize_dev)})")
     for (key, per, idx, _, _, _, line), dev_t, lib_t in zip(deferred, times[::2], times[1::2]):
         if key is not None:
             shape_rows[idx]["device_ms"] = dev_t
@@ -889,7 +1022,7 @@ def main() -> int:
                             plain_ms=acc["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                             library_ms=acc["library_ms"], device_ms=dev_t, path=path,
                             bound_fp32_ms=bound_ms(acc["flops"], acc["bytes"])[0],
-                            launches_in_run=(test_launches if path == "eval"
+                            launches_in_run=(run_launches if path == "eval"
                                              else train_launches)[kname]))
     print(f"[shapes] {json.dumps(shape_rows)}")
     print(f"[done] chip_smoke took {time.time() - t_start:.1f} s")

@@ -259,6 +259,28 @@ def test_discriminator_input_grad_matches_cpu(cuda):
     assert (grads[0] - grads[1]).abs().max() <= 1e-5 * grads[0].abs().max()
 
 
+def test_d3_on_cuda_matches_cpu(cuda):
+    """D3 on the card with TF32 off (the ``cuda`` fixture): CLIP ViT-B/32 of a
+    512² image (the resize to 224² included), the four logit levels and
+    d3_g_loss's gradient in the image, CUDA vs CPU: logits within 1e-4 of
+    their max + 1e-5, the gradient within 1e-4 of its max."""
+    from vts_torch.losses import vision_aided as tv
+    from vts_torch.networks.clip_vit import CLIPViT, init_clip_params
+    clip, heads = CLIPViT(init_clip_params(0)), tv.D3Heads(tv.init_d3_head_params(0))
+    x = torch.rand(1, 512, 512, 3, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    got = []
+    for dev in ("cpu", cuda):
+        xi = x.to(dev).requires_grad_()
+        logits = tv.d3_logits(clip.to(dev), heads.to(dev), xi)
+        loss = sum(torch.mean(tv.softplus(-lg)) for lg in logits)
+        (g,) = torch.autograd.grad(loss, xi)
+        got.append(([lg.detach().cpu() for lg in logits], g.cpu()))
+    (want_l, want_g), (l_cuda, g_cuda) = got
+    for a, b in zip(l_cuda, want_l):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-5
+    assert (g_cuda - want_g).abs().max() <= 1e-4 * want_g.abs().max()
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     x = torch.randn(1, 8, 8, 4, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):

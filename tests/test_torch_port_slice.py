@@ -88,6 +88,8 @@ def test_port_imports_without_jax_or_vts_tpu():
             "import vts_torch.models.base, vts_torch.networks.discriminators; "
             "import vts_torch.losses.gan, vts_torch.losses.gan_masked, vts_torch.ops.diffaug; "
             "import vts_torch.utils.profiler, vts_torch.utils.visualizer; "
+            "import vts_torch.networks.clip_vit, vts_torch.losses.vision_aided; "
+            "import vts_torch.ops.resize_mm, vts_torch.utils.collage, vts_torch.utils.html; "
             "bad = [m for m in sys.modules if m.startswith('vts_tpu') "
             "or m.split('.')[0] in ('jax', 'flax', 'optax') and sys.modules[m] is not None]; "
             "assert not bad, bad; print('ok')")

@@ -4,12 +4,12 @@ ngf/ndf 4 (8 downs reach a 1×1 latent, as at 1536²):
   * the synthetic training batch (train and ``val_*`` keys) is JAX's
     ``create_dataset`` batch bit for bit;
   * one full training step of the port against ``SinSKITModel._train_step``
-    at batch 1 and 2, from the same weights (carried across by
-    ``convert_jax``) and the same random draws (the port replays JAX's:
-    the DiffAugment uniforms and the "more fake T" uniforms are drawn here
-    from the step's key exactly as the JAX step splits it).  The JAX side
-    runs with ``--canvas_fold 1 --lpips_fold 1``, exact re-expressions of
-    its default folds.  Compared: every loss (rtol 1e-4), the Adam first
+    at batch 1 and 2, and at batch 1 with the vision-aided D3 active, from
+    the same weights (carried across by ``convert_jax``) and the same random
+    draws (``tests/torch_port_step.py``: the port replays JAX's).  The JAX
+    side runs with ``--canvas_fold 1 --lpips_fold 1``, exact re-expressions
+    of its default folds.  Compared: every loss (rtol 1e-4; ``G_D3`` and
+    ``D3_loss`` in the D3 step), the Adam first
     moments — equal to the gradients, since β1 = 0 — per leaf within 1e-4
     of the leaf's max |g|, with two named sets of leaves held to a round-off
     floor instead (see :func:`_grad_tol`), the updated batch-norm running
@@ -18,10 +18,9 @@ ngf/ndf 4 (8 downs reach a 1×1 latent, as at 1536²):
   * checkpoints with batch stats and Adam state cross both ways;
   * ``python -m vts_torch.train --device cpu`` then ``vts_torch.test``.
 
-One JAX step per batch size is shared by the step tests (module scope).
+One JAX step per configuration is shared by the step tests (module scope).
 """
 
-import functools
 import os
 import re
 import subprocess
@@ -31,88 +30,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+from tests.torch_port_step import argv as _argv
+from tests.torch_port_step import env  # noqa: F401  (module-scoped fixture)
+from tests.torch_port_step import flat as _flat
+from tests.torch_port_step import jax_batch as _jax_batch
+from tests.torch_port_step import port_model as _port_model
+from tests.torch_port_step import run_step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DATAROOT = "synthetic://porttrain?size=320&center_w=192&center_h=128&patches=6&val_patches=3"
-K, K_VAL, MORE = 6, 4, 4
-
-
-def _argv(tmp, batch=1):
-    return ["--model", "sinskit", "--dataroot", DATAROOT, "--name", "train",
-            "--crop_size", "256", "--center_w", "192", "--center_h", "128",
-            "--ngf", "4", "--ndf", "4", "--batch_size", str(batch),
-            "--batch_size_G2", str(K), "--batch_size_G2_val", str(K_VAL),
-            "--add_fake_T_sample_size", str(MORE), "--data_len", "2",
-            "--use_vision_aided_loss", "false", "--init_gain", "0.5",
-            "--canvas_fold", "1", "--lpips_fold", "1",
-            "--checkpoints_dir", str(tmp / "ckpt"), "--results_dir", str(tmp / "res")]
-
-
-@pytest.fixture(scope="module")
-def env(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("train")
-    old = os.environ.get("VTS_SYNTH_DIR")
-    os.environ["VTS_SYNTH_DIR"] = str(tmp / "synth")
-    try:
-        yield tmp
-    finally:
-        if old is None:
-            os.environ.pop("VTS_SYNTH_DIR", None)
-        else:
-            os.environ["VTS_SYNTH_DIR"] = old
-
-
-def _flat(tree):
-    return {jax.tree_util.keystr(p): np.asarray(v)
-            for p, v in jax.tree_util.tree_leaves_with_path(tree)}
-
-
-def _jax_batch(tmp, batch):
-    from vts_tpu.config import TrainOptions as JaxTrainOptions
-    from vts_tpu.data import create_dataset as jax_create_dataset
-    jopt = JaxTrainOptions().parse(_argv(tmp, batch), quiet=True)
-    jopt.num_threads = 0
-    return jopt, next(iter(jax_create_dataset(jopt)))
-
-
-def _jax_draws(rng, n):
-    """The uniforms of one JAX ``_train_step``, split from its key as the step
-    and its callees split it (sinskit.py:608, diffaug.py, patch.py:178-183)."""
-    _, k_aug_r, k_aug_f, k_more, _, _ = jax.random.split(rng, 6)
-
-    def aug(key):
-        kb, ks = jax.random.split(key, 2)
-        return {"b": torch.tensor(np.asarray(jax.random.uniform(kb, (n, 1, 1, 1)))).reshape(n),
-                "s": torch.tensor(np.asarray(jax.random.uniform(ks, (n, 1, 1, 1)))).reshape(n)}
-
-    keys = [k_more] if n == 1 else list(jax.random.split(k_more, n))
-    more = []
-    for key in keys:
-        k_row, k_col = jax.random.split(key)
-        more.append(np.stack([np.asarray(jax.random.uniform(k_row, (MORE,))),
-                              np.asarray(jax.random.uniform(k_col, (MORE,)))]))
-    return {"aug_real": aug(k_aug_r), "aug_fake": aug(k_aug_f),
-            "more": torch.from_numpy(np.stack(more))}
-
-
-def _port_model(tmp, batch):
-    from vts_torch.config import TrainOptions
-    from vts_torch.models import create_model
-    opt = TrainOptions().parse(_argv(tmp, batch) + ["--device", "cpu", "--no_html"], quiet=True)
-    model = create_model(opt)
-    model.setup()
-    return model
-
-
-def _load_jax_states(model, states):
-    from vts_torch.utils.convert_jax import (d_params_to_torch, d_stats_to_torch,
-                                             unet_params_to_torch)
-    model.netG.load_state_dict(unet_params_to_torch(_np_tree(states["G"].params)))
-    for name in ("D", "D2"):
-        sd = dict(d_params_to_torch(_np_tree(states[name].params)))
-        sd.update(d_stats_to_torch(_np_tree(states[name].stats)))
-        getattr(model, f"net{name}").load_state_dict(sd)
 
 
 # Leaves whose exact gradient is zero: the bias of a conv that an instance
@@ -135,33 +61,17 @@ def _grad_tol(name, g, net_max):
     return 1e-4 * np.abs(g).max() + (1e-5 * net_max if CANCELLING.search(name) else 0.0)
 
 
-def _np_tree(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-@pytest.fixture(scope="module", params=[1, 2], ids=["batch1", "batch2"])
-def step(request, env):
+@pytest.fixture(scope="module", params=[(1, False), (2, False), (1, True)],
+                ids=["batch1", "batch2", "d3_batch1"])
+def step(request, env):  # noqa: F811
     """One JAX training step and one port step from the same weights, batch
-    and draws."""
-    from vts_tpu.models import create_model as jax_create_model
+    and draws: at batch 1 and 2 before D3's warmup epoch, and at batch 1 with
+    D3 active (JAX ``use_d3=True``, the port at ``--vision_aided_warmup_epoch
+    1``)."""
     from vts_torch.utils.convert_jax import torch_to_d_params, torch_to_unet_params
-    n = request.param
-    jopt, batch = _jax_batch(env, n)
-    jmodel = jax_create_model(jopt)
-    jmodel.setup(batch)
-    jmodel.set_input(batch)
-    states0 = jmodel.states
-    fn = jax.jit(functools.partial(jmodel._train_step, use_d3=False))
-    gS, dS, d2S, losses, _ = fn(states0["G"], states0["D"], states0["D2"], jmodel._input,
-                                jmodel.rng, jnp.float32(jopt.lr), jnp.float32(jopt.lr_G2),
-                                jnp.int32(1))
-    want = {"losses": {k: float(v) for k, v in losses.items()},
-            "G": gS, "D": dS, "D2": d2S}
-
-    model = _port_model(env, n)
-    _load_jax_states(model, states0)
-    model.set_input(batch)
-    model.optimize_parameters(epoch=1, draws=_jax_draws(jmodel.rng, n))
+    n, d3 = request.param
+    jmodel, losses, model = run_step(env, n, d3)
+    want = {"losses": losses, **jmodel.states}
     to_flax = {"G": lambda sd: (torch_to_unet_params(sd), {}), "D": torch_to_d_params,
                "D2": torch_to_d_params}
     got = {"losses": model.get_current_losses()}
@@ -176,6 +86,7 @@ def step(request, env):
 def test_train_step_losses(step):
     want, got = step
     assert set(got["losses"]) == set(want["losses"])
+    assert ("G_D3" in want["losses"]) == ("D3_loss" in want["losses"])
     for k, v in want["losses"].items():
         np.testing.assert_allclose(got["losses"][k], v, rtol=1e-4, atol=1e-7, err_msg=k)
 
@@ -303,11 +214,13 @@ def test_cpu_train_then_test_smoke(tmp_path):
 
 
 def test_train_requires_no_html_and_refuses_unported_settings(tmp_path):
+    """The settings the port does not run raise when parsed: the live
+    dashboard (``--display_id`` > 0), the cropped LPIPS, bf16 and a mesh.
+    (The gallery is ported: ``--no_html`` is no longer required.)"""
     from vts_torch.config import TrainOptions
-    from vts_torch.train import train
     base = ["--checkpoints_dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError):
-        train(base)
-    for extra in (["--lpips_crop", "64"], ["--dtype", "bfloat16"], ["--mesh", "data:2"]):
+    for extra in (["--display_id", "1"], ["--lpips_crop", "64"], ["--dtype", "bfloat16"],
+                  ["--mesh", "data:2"]):
         with pytest.raises(NotImplementedError):
             TrainOptions().parse(base + extra, quiet=True)
+    assert TrainOptions().parse(base, quiet=True).display_id == 0

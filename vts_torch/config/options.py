@@ -9,9 +9,12 @@ cache flags (``--canvas_fold``, ``--lpips_fold``, ``--lpips_fold_axis``,
 ``--lpips_remat``, ``--lpips_conv``, ``--lpips_head``,
 ``--steps_per_dispatch``, ``--device_sample_cache``, ``--lpips_tap_cache``,
 ``--d3_logit_cache``) are accepted and have no effect: the port runs the
-plain math on one device, and their values do not change the result.  In
+plain math on one device, and their values do not change the result.
+``--train_d3_heads`` has no effect either: the reference steps the D3 heads
+under no setting (the flag only routes its cached real logits).  In
 training, ``--lpips_crop`` ≠ 0, ``--dtype bfloat16`` and ``--mesh`` ≠ ""
-change the result or need more than one device, are not ported, and raise.
+change the result or need more than one device, are not ported, and raise;
+so does ``--display_id`` > 0 (the live dashboard is not ported).
 Unknown flags are an error.
 """
 
@@ -75,6 +78,12 @@ def _common(p: argparse.ArgumentParser, train: bool) -> None:
     a("--center_h", type=int, default=960)
     a("--use_bg_mask", type=str2bool, default=True)
     a("--sample_bbox_per_patch", type=int, default=2 if train else 1)
+    # visuals and the HTML gallery
+    a("--display_winsize", type=int, default=256)
+    a("--display_id", type=int, default=0, help="> 0: the live dashboard (not ported)")
+    a("--num_touch_patch_for_logging", type=int, default=10 if train else 100)
+    a("--save_raw_arr_vis", type=str2bool, default=False)
+    a("--scale_nz", type=float, default=0.25)
     for sub in ("S", "I", "T", "M"):
         a(f"--subdir_{sub}", type=str, default=f"{ph}{sub}")
     # accepted for command-line compatibility with vts_tpu; no effect here
@@ -120,6 +129,10 @@ def _train_parser() -> argparse.ArgumentParser:
     a("--smooth_GAN_label", type=str2bool, default=True)
     a("--use_vision_aided_loss", type=str2bool, default=True)
     a("--vision_aided_warmup_epoch", type=int, default=100)
+    a("--clip_weights", type=str, default="",
+      help="OpenAI CLIP checkpoint (visual.* keys) for D3; empty: the seeded tower")
+    a("--train_d3_heads", type=str2bool, default=False,
+      help="accepted; the D3 heads never step (as in the reference)")
     a("--g2_gan_backprop", type=str2bool, default=False)
     a("--use_more_fakeT", type=str2bool, default=True)
     a("--add_fake_T_sample_size", type=int, default=32)
@@ -150,7 +163,7 @@ def _train_parser() -> argparse.ArgumentParser:
     a("--save_latest_freq", type=int, default=100)
     a("--save_epoch_freq", type=int, default=50)
     a("--no_html", action="store_true",
-      help="required for now: the HTML gallery and visuals are not ported yet")
+      help="write no visuals and no HTML gallery under <checkpoints_dir>/<name>/web")
     # accepted for command-line compatibility with vts_tpu; no effect here
     for flag, kind, default in (("--step_mode", str, "fused"), ("--remat_g", str, "auto"),
                                 ("--lpips_remat", str, "auto"), ("--lpips_conv", str, "xla"),
@@ -216,3 +229,5 @@ class TrainOptions(_Options):
             raise NotImplementedError("--dtype bfloat16 is not ported yet (the port trains in fp32)")
         if opt.mesh:
             raise NotImplementedError("--mesh (data parallelism over devices) is not ported yet")
+        if opt.display_id > 0:
+            raise NotImplementedError("--display_id > 0 (the live dashboard) is not ported yet")

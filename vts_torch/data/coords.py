@@ -1,6 +1,6 @@
 """Analytic ROI propagation through the augmentation pipeline and the
 8-field patch-coordinate codec — the port's copy of ``vts_tpu/data/coords.py``
-(the parts the test phase uses).
+(the parts the data pipeline and the gallery's box overlays use).
 
 ROI = (x, y, h, w); the coordinate record is
 ``(ROI_x, ROI_y, ROI_h, ROI_w, patch_crop_size, resize_ratio, crop_pos_x,
@@ -67,3 +67,16 @@ def pack_patch_coords(roi: ROI, patch_crop_size: float, resize_ratio: float,
                       crop_pos_x: float, crop_pos_y: float) -> np.ndarray:
     return np.array([roi.x, roi.y, roi.h, roi.w, patch_crop_size, resize_ratio,
                      crop_pos_x, crop_pos_y], dtype=np.float32)
+
+
+def patch_offsets(coords: np.ndarray, scale_multiplier: int = 1):
+    """Packed coords (..., 8) → int32 (offset_x, offset_y, cutout) on the host,
+    in float64 as the reference's: offset = (ROI origin + crop_pos /
+    resize_ratio) · scale_multiplier, cutout = patch_crop_size / resize_ratio
+    · scale_multiplier, each rounded half to even."""
+    coords = np.asarray(coords, dtype=np.float64)
+    rr = coords[..., 5]
+    off_x = np.round((coords[..., 0] + coords[..., 6] / rr) * scale_multiplier).astype(np.int32)
+    off_y = np.round((coords[..., 1] + coords[..., 7] / rr) * scale_multiplier).astype(np.int32)
+    cutout = np.round(coords[..., 4] / rr * scale_multiplier).astype(np.int32)
+    return off_x, off_y, cutout

@@ -2,17 +2,21 @@
 (``vts_tpu/models/sinskit.py``): ``setup`` (seeded init of G, and of D and
 D2 in training), ``set_input``, ``optimize_parameters`` (one training step),
 ``test`` (the fp32 eval forward), ``compute_metrics`` (batched 8-metric
-evaluation), ``get_current_losses``, ``update_learning_rate``,
-``save_networks`` / ``load_networks``.
+evaluation), ``get_current_losses``, ``get_current_visuals`` (the gallery's
+arrays), ``update_learning_rate``, ``save_networks`` / ``load_networks``.
 
 One training step is the reference's ``_train_step``, in its order:
   1. G forward once, its graph kept;
   2. D1 update on (S, fake_I) and (S, I), batch-norm stats threaded fake → real;
   3. the patch stacks, and the "more fake T" stack sampled ∝ the dilated mask;
   4. D2 update, stats threaded fake → more → real;
-  5. G update against the updated D1 and D2 (batch statistics, new ones
-     discarded): G1 = GAN + L1·100 + LPIPS, G2 = per-patch L1·10 + LPIPS·10,
-     the gradient through the G forward of step 1.
+  5. from ``--vision_aided_warmup_epoch`` on, the vision-aided D3's logits
+     of the real image (frozen CLIP ViT-B/32 and heads, no gradient);
+  6. G update against the updated D1 and D2 (batch statistics, new ones
+     discarded): G1 = GAN + L1·100 + LPIPS (+ D3's softplus loss on one CLIP
+     pass of fake_I once D3 is active), G2 = per-patch L1·10 + LPIPS·10,
+     the gradient through the G forward of step 1.  ``D3_loss`` is logged
+     only: the reference never steps the D3 heads.
 The reference's quirks are kept: the G2 GAN terms see detached tactile
 patches (logged, no G gradient, unless ``--g2_gan_backprop``), DiffAugment
 feeds only D2's visual conditioning, and D2's conditioning is detached.
@@ -22,9 +26,8 @@ real and fake, and the uniforms that place the "more fake T" windows — comes
 from a ``torch.Generator`` seeded by ``--seed``, or is injected with
 ``optimize_parameters(draws=...)`` (see :meth:`SinSKITModel.draw`).
 
-Not ported yet, and raising: the vision-aided D3 (a step at an epoch where
-it would be active raises), WGAN-GP, style codes, ``T_resolution_multiplier
-> 1``, the legacy per-metric evaluation and the visuals.
+Not ported yet, and raising: WGAN-GP, style codes, ``T_resolution_multiplier
+> 1`` and the legacy per-metric evaluation.
 """
 
 from __future__ import annotations
@@ -34,19 +37,24 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..data.coords import patch_offsets
 from ..device import resolve_device
 from ..losses.gan import feature_matching_loss, gan_loss
 from ..losses.gan_masked import GAN_MODES, masked_mean, masked_patch_sum, per_sample_gan_loss
 from ..losses.lpips import LPIPS, init_lpips_params
+from ..losses.vision_aided import D3Heads, d3_logits, init_d3_head_params, softplus
 from ..metrics.evaluate import DEFAULT_EVAL_METRICS
 from ..metrics.evaluate_batch import compute_evaluation_metrics_batched
 from ..metrics.inception import InceptionBlock0, init_inception_params
 from ..networks import define_D, define_G
 from ..networks.blocks import make_initializer
+from ..networks.clip_vit import CLIPViT, init_clip_params, load_clip_weights
 from ..networks.discriminators import reset_parameters as reset_d
 from ..networks.positional import positional_encoding
 from ..ops import diffaug
+from ..ops.normal import compute_normal
 from ..ops.patch import gather_patches_from_coords, gather_patches_group, sample_offsets_in_mask
+from ..utils.collage import bbox_overlay, patch_collage
 from ..utils.convert_jax import (adam_state_to_flax, adam_state_to_torch, d_params_to_torch,
                                  d_stats_to_torch, torch_to_d_params, torch_to_unet_params,
                                  unet_params_to_torch)
@@ -92,6 +100,8 @@ class SinSKITModel:
             if opt.lambda_G2_GAN > 0:
                 self.model_names.append("D2")
             self.use_d3 = bool(opt.use_vision_aided_loss)
+            self.clip: Optional[CLIPViT] = None
+            self.d3_heads: Optional[D3Heads] = None
             self.generator = torch.Generator().manual_seed(int(opt.seed))
         self.lpips_net = LPIPS(init_lpips_params(0)).to(self.device)
         self.inception = InceptionBlock0(init_inception_params(0)).to(self.device)
@@ -109,7 +119,9 @@ class SinSKITModel:
 
     def setup(self, example_batch=None) -> None:
         """Seeded init (``--seed``) of G, and of D and D2 in training, then onto
-        the device with Adam moments for each network that trains."""
+        the device with Adam moments for each network that trains; with
+        ``--use_vision_aided_loss``, D3's frozen CLIP tower (``--clip_weights``
+        or the seeded one) and heads."""
         seed = int(self.opt.seed)
         self.netG.reset_parameters(torch.Generator().manual_seed(seed))
         self.netG.to(self.device)
@@ -128,6 +140,15 @@ class SinSKITModel:
               f"{sum(p.numel() for p in self.netD2.parameters()) / 1e6:.3f} M")
         for name, net in self.nets().items():
             self.adam[name] = Adam(net.named_parameters(), self.opt.beta1, self.opt.beta2)
+        if self.use_d3:
+            # frozen, on the device once (the tower is ~350 MB in fp32); not
+            # among the networks that are saved or stepped
+            cw = self.opt.clip_weights
+            self.clip = CLIPViT(load_clip_weights(cw) if cw else init_clip_params(0)).to(
+                self.device)
+            self.d3_heads = D3Heads(init_d3_head_params(0)).to(self.device)
+            print(f"[sinskit] D3: CLIP ViT-B/32 ({cw or 'seeded tower'}) from epoch "
+                  f"{self.opt.vision_aided_warmup_epoch}")
 
     def _pe(self, n: int, h: int, w: int):
         """The positional encoding, built on the host once per (n, h, w) and
@@ -179,18 +200,15 @@ class SinSKITModel:
                                    generator=self.generator)}
 
     def optimize_parameters(self, epoch: int = 1, draws: Optional[Dict] = None) -> None:
-        """One training step at the lr of ``epoch``."""
+        """One training step at the lr of ``epoch``, with D3 from
+        ``--vision_aided_warmup_epoch`` on."""
         opt = self.opt
-        if self.use_d3 and epoch >= opt.vision_aided_warmup_epoch:
-            raise NotImplementedError(
-                f"epoch {epoch} >= --vision_aided_warmup_epoch "
-                f"{opt.vision_aided_warmup_epoch}: the vision-aided D3 (CLIP) is not "
-                f"ported yet; pass --use_vision_aided_loss false to train without it")
         f = lr_factor(opt.lr_policy, epoch - 1, opt)
         if draws is None:
             draws = self.draw(self._input["S"].shape[0])
+        use_d3 = self.use_d3 and epoch >= opt.vision_aided_warmup_epoch
         self._losses, self._outputs = self._train_step(self._input, opt.lr * f,
-                                                       opt.lr_G2 * f, draws)
+                                                       opt.lr_G2 * f, draws, use_d3)
 
     def _update(self, name: str, loss: torch.Tensor, lr: float) -> None:
         """Gradient of ``loss`` w.r.t. network ``name``'s parameters, then Adam."""
@@ -204,7 +222,7 @@ class SinSKITModel:
         self.adam[name].step(params, grads, lr)
 
     def _train_step(self, batch: Dict[str, torch.Tensor], lr: float, lr_d2: float,
-                    draws: Dict):
+                    draws: Dict, use_d3: bool = False):
         opt = self.opt
         mode = opt.gan_mode
         real_lbl = 0.8 if opt.smooth_GAN_label else 1.0
@@ -231,8 +249,9 @@ class SinSKITModel:
         if "D" in self.model_names:
             fake_in = torch.cat([S, fake_I_d], -1) if opt.use_cGAN else fake_I_d
             real_in = torch.cat([S, I], -1) if opt.use_cGAN else I
-            l_fake = torch.mean(gan_loss(self.netD(fake_in), False, mode, real_lbl)) \
-                * opt.lambda_G1_GAN
+            pred_fake = self.netD(fake_in)
+            pred_fake_I = pred_fake[-1][-1].detach()      # D1's last logit map, a visual
+            l_fake = torch.mean(gan_loss(pred_fake, False, mode, real_lbl)) * opt.lambda_G1_GAN
             l_real = torch.mean(gan_loss(self.netD(real_in), True, mode, real_lbl)) \
                 * opt.lambda_G1_GAN
             self._update("D", (l_fake + l_real + 0.0) * 0.5, lr)
@@ -292,7 +311,13 @@ class SinSKITModel:
         else:
             pred_real_T = None
 
-        # ---- 5. G update against the updated discriminators ----
+        # ---- 5. D3's real logits (frozen heads); the fake ones come from the
+        # one CLIP pass of the G loss ----
+        if use_d3:
+            with torch.no_grad():
+                d3_real_logits = d3_logits(self.clip, self.d3_heads, I)
+
+        # ---- 6. G update against the updated discriminators ----
         aux: Dict[str, torch.Tensor] = {}
         if opt.lambda_G1_GAN > 0:
             g_in = torch.cat([S, fake_I], -1) if opt.use_cGAN else fake_I
@@ -325,6 +350,14 @@ class SinSKITModel:
                         and pred_real_T is not None and len(pf[0]) > 1:
                     aux["G2_GAN_feat"] = feature_matching_loss(
                         pf, pred_real_T, opt.n_layers_D, opt.num_D_D2) * opt.lambda_G2_GAN_feat
+        if use_d3:
+            lf = d3_logits(self.clip, self.d3_heads, fake_I)
+            aux["G_D3"] = sum(torch.mean(softplus(-l)) for l in lf) * opt.lambda_G1_GAN
+            # D3's D objective, logged only, from the same fake pass
+            d3_d = 0.0
+            for a, b in zip(d3_real_logits, lf):
+                d3_d = d3_d + torch.mean(softplus(-a)) + torch.mean(softplus(b.detach()))
+            losses["D3_loss"] = d3_d * 0.5 * opt.lambda_G1_GAN
         total = 0.0
         for v in aux.values():
             total = total + v
@@ -333,6 +366,8 @@ class SinSKITModel:
         losses["G_total"] = total.detach()
         outputs = {"fake_I": fake_I_d, "fake_T": fake_T_d, "aug_real_I": aug_real_I,
                    "aug_fake_I": aug_fake_I}
+        if "D" in self.model_names:
+            outputs["pred_fake_I"] = pred_fake_I
         return losses, outputs
 
     # ------------------------------------------------------------------
@@ -350,6 +385,73 @@ class SinSKITModel:
         M = self._input.get("M", torch.ones_like(S))
         fake_I, fake_T = self._forward_eval(S, M)
         self._outputs = {"fake_I": fake_I, "fake_T": fake_T}
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _pred_fake_T_full(self) -> torch.Tensor:
+        """D2 on the whole canvas, [fake_T, S, (aug_fake_I, M)] as in its
+        patch conditioning: the last scale's logit map, as the reference
+        takes it.  Batch statistics, running ones kept; run only when visuals
+        are asked for, outside the training step."""
+        opt, out, inp = self.opt, self._outputs, self._input
+        S = inp["S"]
+        parts = [out["fake_T"]]
+        if opt.use_cGAN_G2:
+            if opt.use_cGAN_G2_S:
+                parts.append(S)
+            if opt.use_cGAN_G2_I:
+                parts.append(torch.cat([out["aug_fake_I"], inp.get("M", torch.ones_like(S))], -1))
+        return self.netD2(torch.cat(parts, -1), update_stats=False)[-1][-1]
+
+    def get_current_visuals(self) -> Dict[str, np.ndarray]:
+        """The gallery's arrays (NHWC, float, or uint8 for the panels), as the
+        reference's ``get_current_visuals``: the inputs, the generated image,
+        gx, gy and normals, the augmented images, D1's and the full-canvas D2's
+        logit maps after a training step, and per coord set (train in red,
+        val in green) the box overlays and the real/fake gx patch panels of
+        sample 0.  The panels' gather is a K2 launch on the card."""
+        def host(t):
+            return t.detach().float().cpu().numpy()
+
+        vis: Dict[str, np.ndarray] = {}
+        inp = self._input
+        vis["real_S"] = host(inp["S"])
+        for k, name in (("I", "real_I"), ("M", "M")):
+            if k in inp:
+                vis[name] = host(inp[k])
+        out = self._outputs
+        if not out:
+            return vis
+        fake_T = out["fake_T"]
+        vis["fake_I"] = host(out["fake_I"])
+        vis["fake_gx"] = host(fake_T[..., 0:1])
+        vis["fake_gy"] = host(fake_T[..., 1:2])
+        vis["fake_N"] = host(compute_normal(fake_T, scale_nz=self.opt.scale_nz))
+        for k in ("aug_real_I", "aug_fake_I", "pred_fake_I"):
+            if k in out:
+                vis[k] = host(out[k])
+        if self.isTrain and "D2" in self.model_names:
+            vis["pred_fake_T_full"] = host(self._pred_fake_T_full())
+        n_log = int(self.opt.num_touch_patch_for_logging)
+        n_b = fake_T.shape[0]
+        for prefix, ckey, tkey, vkey, color in (
+                ("train", "T_coords", "T_images", "T_valid", (255, 0, 0)),
+                ("val", "val_T_coords", "val_T_images", "val_T_valid", (0, 255, 0))):
+            if ckey not in inp:
+                continue
+            valid = inp[vkey].reshape(n_b, -1)[0] > 0
+            if not bool(valid.any()):
+                continue
+            coords = inp[ckey].reshape(n_b, -1, 8)[0][valid][:n_log]
+            ox, oy, cut = patch_offsets(host(coords), self.mult)
+            vis[f"{prefix}_I_bb"] = bbox_overlay(vis["fake_I"], ox // self.mult,
+                                                 oy // self.mult, cut // self.mult, color)[None]
+            vis[f"{prefix}_gx_bb"] = bbox_overlay(vis["fake_gx"], ox, oy, cut, color)[None]
+            real_T = inp[tkey].reshape((n_b, -1) + tuple(inp[tkey].shape[-3:]))[0][valid][:n_log]
+            fake_T_patch = gather_patches_from_coords(fake_T[0:1], coords, 32, self.mult)
+            vis[f"{prefix}_real_gx_patches"] = patch_collage(host(real_T[..., 0:1]))[None]
+            vis[f"{prefix}_fake_gx_patches"] = patch_collage(host(fake_T_patch[..., 0:1]))[None]
+        return vis
 
     # ------------------------------------------------------------------
     def get_current_losses(self) -> Dict[str, float]:

@@ -1,19 +1,19 @@
 """Training entry point (``vts_tpu/train.py``).
 
-The epoch loop: one training step per batch, the loss line every
-``--print_freq`` samples (and on each epoch's first batch), the ``latest``
-checkpoint every ``--save_latest_freq`` samples; at each epoch's end the
+The epoch loop: one training step per batch (with the vision-aided D3 from
+``--vision_aided_warmup_epoch`` on), the loss line every ``--print_freq``
+samples (and on each epoch's first batch), the visuals and the HTML gallery
+under ``<checkpoints_dir>/<name>/web/`` every ``--display_freq`` samples
+(none under ``--no_html``), the ``latest`` checkpoint every
+``--save_latest_freq`` samples; at each epoch's end the
 validation metrics of the epoch's first sample with the reference's best
 vote — save ``best`` when at least half of the non-train metrics improve
 (lower is better for LPIPS, AE, MSE, SIFID; higher for PSNR, SSIM) — the
 epoch checkpoints, and the linear lr decay.  On CUDA the run turns TF32 off
 (cuDNN convs and matmuls in full fp32).
 
-The HTML gallery and visuals are not ported yet, so ``--no_html`` (the
-reference's own switch) is required.
-
 Run:  python -m vts_torch.train --model sinskit --dataroot synthetic://demo \\
-          --data_len 3 --no_html [--device cuda|cpu] ...
+          --data_len 3 [--device cuda|cpu] ...
 """
 
 from __future__ import annotations
@@ -54,9 +54,6 @@ def best_vote(metrics: Dict[str, float], best: Dict[str, float]) -> bool:
 def train(argv=None, opt=None):
     if opt is None:
         opt = TrainOptions().parse(argv)
-    if not opt.no_html:
-        raise NotImplementedError("the HTML gallery and visuals are not ported yet: "
-                                  "pass --no_html")
     device = resolve_device(opt.device)
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -98,6 +95,8 @@ def _train(opt, device):
             if total_iters % opt.print_freq == 0 or i == 0:
                 visualizer.print_current_losses(epoch, total_iters, model.get_current_losses(),
                                                 t_comp, t_data)
+            if total_iters % opt.display_freq == 0 and not opt.no_html:
+                visualizer.display_current_results(model.get_current_visuals(), epoch)
             if total_iters % opt.save_latest_freq == 0:
                 print(f"saving the latest model (epoch {epoch}, total_iters {total_iters})")
                 model.save_networks("latest")

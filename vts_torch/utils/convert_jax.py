@@ -111,6 +111,35 @@ def inception_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
     return sd
 
 
+# ------------------------------------------------------ CLIP and D3 heads ---
+# The port's CLIP tower and D3 heads keep the reference's layout, so a
+# state-dict key is the tree path, dot-joined (list indices included):
+#   blocks.3.attn.qkv_w ↔ params["blocks"][3]["attn"]["qkv_w"]
+
+def _tree_to_state_dict(tree, prefix: str = "") -> "OrderedDict[str, torch.Tensor]":
+    sd = OrderedDict()
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        key = f"{prefix}{k}"
+        if isinstance(v, (dict, list, tuple)):
+            sd.update(_tree_to_state_dict(v, key + "."))
+        else:
+            sd[key] = _t(v)
+    return sd
+
+
+def clip_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """CLIP tower tree (``vts_tpu.networks.clip_vit``) → the state dict of
+    :class:`vts_torch.networks.clip_vit.CLIPViT`."""
+    return _tree_to_state_dict(params)
+
+
+def d3_head_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """D3 heads tree (``{"taps": [head]*3, "embed": head}``) → the state dict of
+    :class:`vts_torch.losses.vision_aided.D3Heads`."""
+    return _tree_to_state_dict(params)
+
+
 # ------------------------------------------------------- discriminators ---
 # A D's torch state-dict key is its flax tree path, dot-joined:
 #   <scale>.Conv4x4_i.weight|bias   ↔ params[<scale>][Conv4x4_i][Conv_0][kernel|bias]

@@ -9,11 +9,15 @@ else the seeded init stays), runs one warm-up sample, then one sample under
 ``torch.profiler`` (CPU + CUDA activities).  ``--phase train``: builds the
 training model and the first batch from the ``vts_torch.train`` flags, runs
 two warm-up steps, then one training step (losses fetched to the host)
-under the profiler.  Prints, as one JSON line: the wall time, the
-device-busy time (the union of the CUDA kernel intervals) and the idle
-share, the peak device memory of the profiled run, the host time spent in
-the Fréchet ``sqrtm`` calls (test phase), and the device time per kernel
-name (top 25).  ``--trace`` also writes the chrome trace.
+under the profiler, at ``--vision_aided_warmup_epoch`` (D3 active, as in
+every epoch from there on) when the run's epochs reach it and
+``--use_vision_aided_loss`` is on, else at ``--epoch_count``.  Prints, as
+one JSON line: the wall time, the device-busy time (the union of the CUDA
+kernel intervals) and the idle share, the peak device memory of the
+profiled run, the host time spent in the Fréchet ``sqrtm`` calls (test
+phase), the epoch stepped and whether D3 was active (train phase), and the
+device time per kernel name (top 25).  ``--trace`` also writes the chrome
+trace.
 """
 
 from __future__ import annotations
@@ -99,14 +103,20 @@ def profile_train_step(argv, trace_path: str = None) -> dict:
     model.setup()
     model.set_input(batch)
 
+    epoch = opt.epoch_count
+    d3 = opt.use_vision_aided_loss and opt.vision_aided_warmup_epoch <= \
+        opt.n_epochs + opt.n_epochs_decay
+    if d3:
+        epoch = max(epoch, opt.vision_aided_warmup_epoch)
+
     def one_step():
-        model.optimize_parameters(opt.epoch_count)
+        model.optimize_parameters(epoch)
         model.get_current_losses()
         torch.cuda.synchronize()
 
     for _ in range(2):                             # warm-up
         one_step()
-    return _profile(one_step, trace_path)
+    return dict(_profile(one_step, trace_path), epoch=epoch, d3_active=bool(d3))
 
 
 def _profile(fn, trace_path: str = None) -> dict:
