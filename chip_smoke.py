@@ -45,6 +45,23 @@ Phases, each of which must pass or the script exits non-zero:
      1e-4, Adam first moments (the gradients) within 1e-4 of each leaf's
      max |g| (see :func:`grad_tol` for the two named sets of leaves held to
      a round-off floor);
+  4b. the production lane (the round-5 ``sched_anneal`` arm, cut in length
+     only): ``vts_torch.train`` on the same garment with ``--dtype bfloat16
+     --batch_size 4 --lpips_crop 768 --cache_data_device``, D3 from epoch 2
+     and ``--anneal_epoch 3 --anneal_set "lpips_crop=0,batch_size=2,
+     remat_g=on,lpips_remat=off"``, 3 epochs of 4 samples: every loss
+     finite, the ``[anneal]`` switch seen, every kernel launched, one more
+     step launching as ``PER_STEP_BF16`` says; the best G through
+     ``vts_torch.test --dtype bfloat16 --batch_size 2``, which runs at batch
+     1; then a 256² bf16 training step (--lpips_crop 128, batch 2) on cuda
+     and on cpu from the same weights and draws, held to the bf16 bound of
+     ``tests/test_torch_port_lanes.py`` with the cpu fp32 step as the
+     reference.  Before it (phase 2b), the kernels in bf16 at the lane's
+     shapes, before and after the anneal: K1 and K1 dx against their plain
+     versions in bf16 within one bf16 rounding of each output on top of the
+     fp32 limit (2^-7·|ref| + 1e-4·max|ref| + 1e-5), K2 bit-exact, K2 bwd
+     with a bf16 cotangent bit-exact against the serial CPU index_put_
+     rounded once to bf16;
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
@@ -54,13 +71,17 @@ Phases, each of which must pass or the script exits non-zero:
      beside them; the wall time of one test sample, and of one 1536²
      training step before D3's warmup and with D3 active (median of 5
      after 2 warm-ups each) with its peak memory and launches (and no
-     patch_offsets call on the host).
+     patch_offsets call on the host); the bf16 lane's kernels the same way
+     (bound at the bf16 tensor-core rate and bf16 bytes, library calls in
+     bf16), and the lane's untraced step with D3 active before and after the
+     anneal (median of 5 after 2 warm-ups, samples/s, peak memory).
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel and
 path: an ``eval`` row covers one test sample (its launches are the test
-run's, which holds one sample, less the gallery's) and a ``train`` row one
+run's, which holds one sample, less the gallery's), a ``train`` row one
 training step (its launches are those of a timed D3-active step, counted
-from 0); ``ms``, ``plain_ms``,
+from 0) and a ``train_bf16`` row one step of the production lane before its
+anneal (likewise); ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` sum the per-shape times over those launches,
 and ``max_abs_err`` is the worst of the checks at that path's shapes.  The
 last line is ``{"ok": true, "device": {...}}``.  Nothing is printed as a result unless
@@ -89,6 +110,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 K1_PEAK = PEAK_TF32_FLOPS / 3
 PEAK_HBM_BYTES = 3.35e12
+# dense bf16 on the tensor cores: the bound of the bf16 lane's rows
+PEAK_BF16_FLOPS = 989e12
 
 # K1 at the eval path: (N, H, W, C, Co, launches per test sample).  I_LPIPS runs
 # VGG on [real, fake] at the canvas; T_LPIPS on [fake, real] 2·K 224² patches,
@@ -129,6 +152,29 @@ PER_STEP = {"conv3x3_bias_relu": sum(r[5] for r in K1_TRAIN),
             "conv3x3_dx": sum(r[6] for r in K1_TRAIN),
             "gather_patches": len(K2_TRAIN), "scatter_patches": 1}
 SMALL_DATA = "synthetic://small?size=320&center_w=192&center_h=128&patches=6&val_patches=3"
+# The round-5 production lane (scripts/round5_queue.sh:50-53, r5_anneal.sh:29-35):
+# bf16, batch 4, the canvas LPIPS on one 768² window; after the anneal batch 2
+# on the full canvas.  K1 before the anneal, (N, H, W, C, Co, forward launches
+# per step, dx launches per step): the canvas LPIPS runs x and y on the four
+# images' 768² windows, the patch LPIPS gx and gy of 4·64 fake_T patches as
+# one 2·4·64 batch; dx for x only.  After the anneal (checked, not timed):
+# the canvas at batch 2 and 2·2·64 patches.
+LANE_ARGS = ["--dtype", "bfloat16", "--batch_size", "4", "--lpips_crop", "768",
+             "--cache_data_device", "--remat_g", "off", "--lpips_remat", "off"]
+LANE_ANNEAL = "lpips_crop=0,batch_size=2,remat_g=on,lpips_remat=off"
+K1_BF16 = [
+    (4, 768, 768, 64, 64, 2, 1),
+    (4, 384, 384, 64, 128, 2, 1),
+    (4, 384, 384, 128, 128, 2, 1),
+    (512, 32, 32, 64, 64, 2, 1),
+    (512, 16, 16, 64, 128, 2, 1),
+    (512, 16, 16, 128, 128, 2, 1),
+]
+K1_BF16_ANNEALED = [(2, 1536, 1536, 64, 64), (2, 768, 768, 64, 128), (2, 768, 768, 128, 128),
+                    (256, 32, 32, 64, 64)]
+PER_STEP_BF16 = {"conv3x3_bias_relu": sum(r[5] for r in K1_BF16),
+                 "conv3x3_dx": sum(r[6] for r in K1_BF16),
+                 "gather_patches": len(K2_TRAIN), "scatter_patches": 1}
 
 
 def check(cond, msg):
@@ -212,6 +258,38 @@ def fmt_ms(v):
     return "not measured" if v is None else f"{v:.5f} ms"
 
 
+def bf16_tol(ref):
+    """Elementwise limit of a bf16 kernel output against its plain version:
+    both sum in fp32 (the fp32 limit) and round once to bf16 (2^-8 of the
+    value each)."""
+    r = ref.float().abs()
+    return 2 ** -7 * r + 1e-4 * r.max() + 1e-5
+
+
+class Tee:
+    """A stdout that also keeps what is written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def rel_norm(a, b, ref):
+    """‖a − b‖ / ‖ref‖ over the leaves of three dicts of tensors."""
+    d = sum(((a[k].double().cpu() - b[k].double().cpu()) ** 2).sum().item() for k in ref)
+    r = sum((ref[k].double().cpu() ** 2).sum().item() for k in ref)
+    return math.sqrt(d / r) if r else 0.0
+
+
 def bound_ms(flops, nbytes, peak=PEAK_FP32_FLOPS):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -250,16 +328,19 @@ def grad_tol(name, g, net_max):
     return 1e-4 * g.abs().max().item() + (1e-5 * net_max if CANCELLING.search(name) else 0.0)
 
 
-def gather_bytes(ox, oy, chans, window_bytes, cut=32):
-    """Bytes one grouped gather from one image must move: each canvas pixel
-    the (K,) windows touch read once from every source, the patches written
-    once, the windows (offsets or coords) read once."""
+def gather_bytes(ox, oy, chans, window_bytes, cut=32, esize=4):
+    """Bytes one grouped gather must move: each canvas pixel that an image's
+    windows ((N, K) or (K,) offsets) touch read once from every source, the
+    patches written once, the windows (offsets or coords) read once."""
     ar = torch.arange(cut, device=ox.device)
-    iy = (oy.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, :, None].expand(-1, -1, cut)
-    ix = (ox.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, None, :].expand(-1, cut, -1)
-    touched = torch.zeros(CANVAS, CANVAS, dtype=torch.bool, device=ox.device)
-    touched[iy, ix] = True
-    return (int(touched.sum().item()) + ox.numel() * cut * cut) * sum(chans) * 4 + window_bytes
+    pixels = ox.numel() * cut * cut
+    for oxi, oyi in zip(ox.reshape(-1, ox.shape[-1]), oy.reshape(-1, oy.shape[-1])):
+        iy = (oyi.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, :, None].expand(-1, -1, cut)
+        ix = (oxi.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, None, :].expand(-1, cut, -1)
+        touched = torch.zeros(CANVAS, CANVAS, dtype=torch.bool, device=ox.device)
+        touched[iy, ix] = True
+        pixels += int(touched.sum().item())
+    return pixels * sum(chans) * esize + window_bytes
 
 
 def serial_scatter(grad, ox, oy, shape, mode):
@@ -544,6 +625,80 @@ def main() -> int:
                   f"K2 backward differs from the serial index_put_ ({mode}, {shape})")
     del runs, ref, ref_c
 
+    # --------------------------------------------------------------- 2b ---
+    print(f"[phase] phase 2b (bf16 kernel checks at the production lane's shapes) from "
+          f"{time.time() - t_start:.1f} s")
+    bf = torch.bfloat16
+    gdev = torch.Generator(device=dev).manual_seed(2)
+    lane_rows = []
+    for shape in K1_BF16 + [s_ + (0, 0) for s_ in K1_BF16_ANNEALED]:
+        n, h, w, c, co, fwd_per_step, dx_per_step = shape
+        x = torch.relu(torch.randn(n, h, w, c, generator=gdev, device=dev)).to(bf)
+        wt = (torch.randn(3, 3, c, co, generator=gdev, device=dev)
+              * math.sqrt(2.0 / (9 * c))).to(bf)
+        b = (torch.randn(co, generator=gdev, device=dev) * 0.1).to(bf)
+        gy = torch.randn(n, h, w, co, generator=gdev, device=dev).to(bf)
+        y = k1.conv3x3_bias_relu(x, wt, b)
+        ref = k1.conv3x3_bias_relu_plain(x, wt, b)
+        torch.cuda.synchronize()
+        check(y.dtype == bf and bool(((y.float() - ref.float()).abs() <= bf16_tol(ref)).all()),
+              f"K1 in bf16 disagrees with its plain version at {shape[:5]}")
+        f_err = (y.float() - ref.float()).abs().max().item()
+        dx = k1.conv3x3_dx(gy, y, wt)
+        ref = k1.conv3x3_dx_plain(gy, y, wt)
+        torch.cuda.synchronize()
+        check(dx.dtype == bf and bool(((dx.float() - ref.float()).abs() <= bf16_tol(ref)).all()),
+              f"K1 dx in bf16 disagrees with its plain version at {shape[:5]}")
+        err = (dx.float() - ref.float()).abs().max().item()
+        print(f"[K1 bf16 check] {(n, h, w, c)}->{co}: fwd max|d| {f_err:.3e}, dx max|d| "
+              f"{err:.3e} (limit 2^-7·|ref| + 1e-4·max|ref| + 1e-5 elementwise)"
+              + ("" if fwd_per_step else " (after the anneal)"))
+        if fwd_per_step:
+            lane_rows.append(dict(shape=[n, h, w, c, co], fwd=fwd_per_step, dx=dx_per_step,
+                                  f_err=f_err, err=err, tensors=(x, wt, b, y, gy)))
+        del dx, ref
+    # K2 and K2 bwd on bf16 sources and cotangents, N = 4 (and 2 after the anneal)
+    ties4 = torch.cat([ties, ties.roll(7, dims=1)]).contiguous()
+    ox4 = torch.cat([ox, ox.roll(5, dims=1)]).contiguous()
+    oy4 = torch.cat([oy, oy.roll(5, dims=1)]).contiguous()
+    k2_lane = []
+    for (group, chans, kk, windows) in K2_TRAIN:
+        for n_img in (4, 2):
+            ims = [torch.randn(n_img, CANVAS, CANVAS, c, generator=gdev, device=dev).to(bf)
+                   for c in chans]
+            if windows == "coords":
+                kw = dict(coords=ties4[:n_img, :kk].contiguous())
+                rx, ry = k2.patch_offsets(kw["coords"])[:2]
+            else:
+                kw = dict(offset_x=ox4[:n_img, :kk].contiguous(),
+                          offset_y=oy4[:n_img, :kk].contiguous())
+                rx, ry = kw["offset_x"], kw["offset_y"]
+            for mode in ("gather", "slice"):
+                outs = k2.gather_patches_group(ims, cutout=32, mode=mode, **kw)
+                for im, out in zip(ims, outs):
+                    check(out.dtype == bf and torch.equal(
+                        out, k2.gather_patches_plain(im, rx, ry, 32, mode=mode)),
+                        f"K2 group {group} in bf16 differs from its plain version ({mode}, "
+                        f"N = {n_img})")
+            if n_img == 4:
+                k2_lane.append(dict(group=group, images=ims, kw=kw, offsets=(rx, ry)))
+    for n_img in (4, 2):
+        g_in = torch.randn(n_img * K_TRAIN, 32, 32, 2, generator=gdev, device=dev).to(bf)
+        tc = ties4[:n_img, :K_TRAIN].contiguous()
+        shape = (n_img, CANVAS, CANVAS, 2)
+        runs = [k2.scatter_patches(g_in, None, None, shape, coords=tc) for _ in range(2)]
+        ref = serial_scatter(g_in, *k2.patch_offsets(tc)[:2], shape, "gather")
+        torch.cuda.synchronize()
+        check(runs[0].dtype == bf and torch.equal(runs[0], runs[1])
+              and torch.equal(runs[0].cpu(), ref),
+              f"K2 bwd in bf16 differs from the serial index_put_ rounded to bf16 ({shape})")
+        print(f"[K2 bwd bf16 check] {shape} K={K_TRAIN} from coords: bit-exact against the "
+              f"serial CPU index_put_ (fp32 sums, one rounding); two card runs equal")
+        if n_img == 4:
+            lane_scatter = dict(grad=g_in, coords=tc)
+    print("[K2 bf16 check] groups A, B, C on bf16 sources, N 4|2, gather/slice: bit-exact")
+    del runs, ref
+
     # ---------------------------------------------------------------- 3 ---
     print(f"[phase] phase 3 (test slice) from {time.time() - t_start:.1f} s")
     tmp_dir = tempfile.TemporaryDirectory(prefix="vts_torch_smoke_")
@@ -714,6 +869,96 @@ def main() -> int:
         del pair
     torch.backends.cudnn.deterministic = cudnn_det
 
+    # --------------------------------------------------------------- 4b ---
+    print(f"[phase] phase 4b (production lane) from {time.time() - t_start:.1f} s")
+    # the sched_anneal arm cut in length: 3 epochs of 4 samples (2 steps of 4,
+    # then after the anneal 2 of 2), D3 from epoch 2, the production logging
+    largv = ["--model", "sinskit", "--name", "lane",
+             "--dataroot", f"synthetic://smoke?size={PADDED}", "--device", "cuda",
+             "--data_len", "4", "--n_epochs", "3", "--n_epochs_decay", "0",
+             "--vision_aided_warmup_epoch", "2", "--anneal_epoch", "3",
+             "--anneal_set", LANE_ANNEAL, "--print_freq", "1000", "--display_freq", "5000",
+             "--save_latest_freq", "5000"] + LANE_ARGS + dirs
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    tee = Tee(sys.stdout)
+    real_stdout, sys.stdout = sys.stdout, tee
+    try:
+        lmodel = run_train(largv)
+    finally:
+        sys.stdout = real_stdout
+    torch.cuda.synchronize()
+    t_lane = time.time() - t0
+    lane_run_launches = read_counts()
+    losses = lmodel.get_current_losses()
+    anneal_lines = [ln for ln in tee.text().splitlines() if ln.startswith("[anneal]")]
+    print(f"[lane] 3 epochs (bf16, batch 4, LPIPS crop 768, D3 from epoch 2, anneal at epoch "
+          f"3) in {t_lane:.2f} s (first run, incl. data and model set-up); the last losses: "
+          + " ".join(f"{k}={v:.6g}" for k, v in losses.items()))
+    print(f"[lane] {anneal_lines}; launches during the run: {lane_run_launches}")
+    check(anneal_lines == ["[anneal] epoch 3: applied {'lpips_crop': 0, 'batch_size': 2, "
+                           "'remat_g': 'on', 'lpips_remat': 'off'}"],
+          f"the anneal did not switch once at epoch 3: {anneal_lines}")
+    check(lmodel.opt.batch_size == 2 and lmodel.opt.lpips_crop == 0,
+          "the lane did not end at batch 2 on the full canvas")
+    check(len(losses) >= 15 and {"G_D3", "D3_loss"} <= set(losses)
+          and all(math.isfinite(v) for v in losses.values()),
+          f"a lane loss is missing or not finite: {losses}")
+    check(all(lane_run_launches[k] > 0 for k in KERNELS),
+          f"a kernel was not launched by the lane: {lane_run_launches}")
+    reset_counts()
+    lmodel.optimize_parameters(3)
+    torch.cuda.synchronize()
+    check(read_counts() == PER_STEP_BF16, f"a lane step launched {read_counts()}, not "
+                                          f"{PER_STEP_BF16}")
+    check(lmodel._outputs["fake_I"].dtype == torch.bfloat16, "the lane's step is not bf16")
+    del lmodel
+    lt = run_test(["--model", "sinskit", "--epoch", "best", "--name", "lane",
+                   "--dataroot", f"synthetic://smoke?size={PADDED}", "--device", "cuda",
+                   "--dtype", "bfloat16", "--batch_size", "2", "--data_len", "2",
+                   "--num_test", "2", "--batch_size_G2", str(K_PATCH)] + dirs)
+    check(len(lt) == 2 and all(len(m) == 8 and all(math.isfinite(v) for v in m.values())
+                               for m in lt),
+          f"the lane's best G did not evaluate sample by sample: {lt}")
+    print("[lane] best G through vts_torch.test --dtype bfloat16 --batch_size 2, run at "
+          "batch 1, 2 samples: " + " ".join(f"{k}={v:.6g}" for k, v in sorted(lt[0].items())))
+
+    # a 256² bf16 step on cuda and on cpu, the cpu fp32 step as the reference
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    lane_small = strain + ["--use_vision_aided_loss", "false", "--batch_size", "2",
+                           "--lpips_crop", "128"]
+    trio = {}
+    for key, dt, device in (("cpu32", "float32", "cpu"), ("cpu16", "bfloat16", "cpu"),
+                            ("cuda16", "bfloat16", "cuda")):
+        o = TrainOptions().parse(lane_small + ["--dtype", dt, "--device", device], quiet=True)
+        trio[key] = create_model(o)
+        trio[key].setup()
+    sbatch = next(iter(create_dataset(o)))
+    draws = trio["cpu16"].draw(2, (256, 256))
+    for m in trio.values():
+        m.set_input(sbatch)
+        m.optimize_parameters(1, draws=draws)
+    l32, l16, lg = (trio[k].get_current_losses() for k in ("cpu32", "cpu16", "cuda16"))
+    worst = 0.0
+    for k in l32:
+        gap = abs(l16[k] - l32[k])
+        worst = max(worst, abs(lg[k] - l16[k]) / (2 * gap + 1e-3 * abs(l32[k]) + 1e-30))
+        check(abs(lg[k] - l16[k]) <= 2 * gap + 1e-3 * abs(l32[k]),
+              f"256² bf16 step: loss {k} on cuda {lg[k]} vs cpu {l16[k]} (fp32 {l32[k]})")
+    print(f"[lane ref] 256² bf16 step (batch 2, LPIPS crop 128), cuda vs cpu: worst loss "
+          f"|cuda16 - cpu16| / (2·|cpu16 - cpu32| + 1e-3·|cpu32|) {worst:.3f}")
+    for net in ("G", "D", "D2"):
+        mu32, mu16, mug = (trio[k].adam[net].mu for k in ("cpu32", "cpu16", "cuda16"))
+        d_dev, d_bf = rel_norm(mug, mu16, mu32), rel_norm(mu16, mu32, mu32)
+        print(f"[lane ref] 256² bf16 step, {net} grads: |cuda16 - cpu16|/|cpu32| {d_dev:.3e}, "
+              f"|cpu16 - cpu32|/|cpu32| {d_bf:.3e}")
+        check(d_dev <= 2 * d_bf + 1e-3, f"256² bf16 step: {net} gradient on cuda disagrees "
+                                        f"with cpu beyond the bf16 bound")
+    del trio
+    torch.backends.cudnn.deterministic = cudnn_det
+
     # ---------------------------------------------------------------- 5 ---
     print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s")
     rows = {}                     # (kernel, path) -> per-sample or per-step sums
@@ -741,11 +986,13 @@ def main() -> int:
     # call, kernel name, library call, line to print).
     deferred = []
 
-    def k1_line(what, ms, plain, lib_name, lib, bound, flops, nbytes):
+    def k1_line(what, ms, plain, lib_name, lib, bound, flops, note):
         return (f"{what}: kernel {ms:.4f} ms (device only {{dev}}), plain {plain:.4f} ms, "
                 f"{lib_name} {lib:.4f} ms (device only {{lib_dev}}), bound {bound:.4f} ms "
-                f"(operations, 3xTF32; fp32 CUDA cores {bound_ms(flops, nbytes)[0]:.4f}), "
-                f"{flops / ms / 1e9:.2f} TFLOP/s")
+                f"({note}), {flops / ms / 1e9:.2f} TFLOP/s")
+
+    def tf32_note(flops, nbytes):
+        return f"operations, 3xTF32; fp32 CUDA cores {bound_ms(flops, nbytes)[0]:.4f}"
 
     for row in k1_rows:
         n, h, w, c, co = row["shape"]
@@ -763,48 +1010,57 @@ def main() -> int:
         bound, _ = add("conv3x3_bias_relu", "eval", row["per_sample"], ms, plain, lib, flops,
                        nbytes, row["err"], row["shape"], K1_PEAK)
         line = k1_line(f"[time K1 eval] {(n, h, w, c)}->{co}", ms, plain, "F.conv2d+relu", lib,
-                       bound, flops, nbytes)
+                       bound, flops, tf32_note(flops, nbytes))
         deferred.append((("conv3x3_bias_relu", "eval"), row["per_sample"], len(shape_rows) - 1,
                          call, "conv3x3", lib_fn, line))
         del row["tensors"]
 
-    for row in dx_rows:
-        n, h, w, c, co = row["shape"]
-        x, wt, b, y, gy = row["tensors"]
-        w_oihw = wt.permute(3, 2, 0, 1).contiguous()
-        x_nchw, y_nchw, gy_nchw = (t.permute(0, 3, 1, 2) for t in (x, y, gy))
-        flops = 2.0 * 9 * n * h * w * c * co
-        f_call = lambda x=x, wt=wt, b=b: k1.conv3x3_bias_relu(x, wt, b)
-        f_lib_fn = lambda x_nchw=x_nchw, w_oihw=w_oihw, b=b: F.relu(
-            F.conv2d(x_nchw, w_oihw, b, padding=1))
-        f_ms = cuda_ms(f_call)
-        f_plain = cuda_ms(lambda: k1.conv3x3_bias_relu_plain(x, wt, b))
-        f_lib = cuda_ms(f_lib_fn)
-        f_bytes = 4.0 * (n * h * w * c + 9 * c * co + co + n * h * w * co)
-        d_call = lambda gy=gy, y=y, wt=wt: k1.conv3x3_dx(gy, y, wt)
-        d_lib_fn = lambda shape=(n, c, h, w), w_oihw=w_oihw, gy_nchw=gy_nchw, y_nchw=y_nchw: \
-            torch.nn.grad.conv2d_input(shape, w_oihw, gy_nchw * (y_nchw > 0), padding=1)
-        ms = cuda_ms(d_call)
-        plain = cuda_ms(lambda: k1.conv3x3_dx_plain(gy, y, wt))
-        lib = cuda_ms(d_lib_fn)
-        nbytes = 4.0 * (2 * n * h * w * co + 9 * c * co + n * h * w * c)
-        fb, _ = add("conv3x3_bias_relu", "train", row["fwd"], f_ms, f_plain, f_lib, flops,
-                    f_bytes, row["f_err"], row["shape"], K1_PEAK)
-        deferred.append((("conv3x3_bias_relu", "train"), row["fwd"], len(shape_rows) - 1,
-                         f_call, "conv3x3", f_lib_fn,
-                         k1_line(f"[time K1 train] {(n, h, w, c)}->{co}", f_ms, f_plain,
-                                 "F.conv2d+relu", f_lib, fb, flops, f_bytes)))
-        bb, _ = add("conv3x3_dx", "train", row["dx"], ms, plain, lib, flops, nbytes,
-                    row["err"], row["shape"], K1_PEAK)
-        deferred.append((("conv3x3_dx", "train"), row["dx"], len(shape_rows) - 1, d_call,
-                         "conv3x3", d_lib_fn,
-                         k1_line(f"[time K1 dx train] gy {(n, h, w, co)} -> dx {c}", ms, plain,
-                                 "conv2d_input+mask", lib, bb, flops, nbytes)))
-        print(f"[time K1 train] {(n, h, w, c)}->{co}: fwd {f_ms:.4f} ms (plain {f_plain:.4f}, "
-              f"F.conv2d+relu {f_lib:.4f}, bound {fb:.4f}); dx {ms:.4f} ms (plain "
-              f"{plain:.4f}, conv2d_input+mask {lib:.4f}, bound {bb:.4f}), "
-              f"dx {flops / ms / 1e9:.2f} TFLOP/s")
-        del row["tensors"]
+    def time_k1_train(rows, path, peak, tag):
+        """K1 and K1 dx at each training shape of ``rows``, in the rows'
+        dtype: bytes at its element size, the bound at ``peak``, the library
+        calls (cuDNN) in that dtype."""
+        for row in rows:
+            n, h, w, c, co = row["shape"]
+            x, wt, b, y, gy = row["tensors"]
+            es = x.element_size()
+            w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+            x_nchw, y_nchw, gy_nchw = (t.permute(0, 3, 1, 2) for t in (x, y, gy))
+            flops = 2.0 * 9 * n * h * w * c * co
+            f_call = lambda x=x, wt=wt, b=b: k1.conv3x3_bias_relu(x, wt, b)
+            f_lib_fn = lambda x_nchw=x_nchw, w_oihw=w_oihw, b=b: F.relu(
+                F.conv2d(x_nchw, w_oihw, b, padding=1))
+            f_ms, f_lib = cuda_ms(f_call), cuda_ms(f_lib_fn)
+            f_plain = cuda_ms(lambda: k1.conv3x3_bias_relu_plain(x, wt, b))
+            f_bytes = es * (n * h * w * c + 9 * c * co + co + n * h * w * co)
+            d_call = lambda gy=gy, y=y, wt=wt: k1.conv3x3_dx(gy, y, wt)
+            d_lib_fn = lambda shape=(n, c, h, w), w_oihw=w_oihw, gy_nchw=gy_nchw, \
+                y_nchw=y_nchw: torch.nn.grad.conv2d_input(shape, w_oihw, gy_nchw * (y_nchw > 0),
+                                                          padding=1)
+            ms, lib = cuda_ms(d_call), cuda_ms(d_lib_fn)
+            plain = cuda_ms(lambda: k1.conv3x3_dx_plain(gy, y, wt))
+            nbytes = es * (2 * n * h * w * co + 9 * c * co + n * h * w * c)
+            fb, _ = add("conv3x3_bias_relu", path, row["fwd"], f_ms, f_plain, f_lib, flops,
+                        f_bytes, row["f_err"], row["shape"], peak)
+            f_note = tf32_note(flops, f_bytes) if peak == K1_PEAK else "bf16 tensor cores"
+            deferred.append((("conv3x3_bias_relu", path), row["fwd"], len(shape_rows) - 1,
+                             f_call, "conv3x3", f_lib_fn,
+                             k1_line(f"[time K1 {tag}] {(n, h, w, c)}->{co}", f_ms, f_plain,
+                                     f"F.conv2d+relu {x.dtype}", f_lib, fb, flops, f_note)))
+            bb, _ = add("conv3x3_dx", path, row["dx"], ms, plain, lib, flops, nbytes,
+                        row["err"], row["shape"], peak)
+            d_note = tf32_note(flops, nbytes) if peak == K1_PEAK else "bf16 tensor cores"
+            deferred.append((("conv3x3_dx", path), row["dx"], len(shape_rows) - 1, d_call,
+                             "conv3x3", d_lib_fn,
+                             k1_line(f"[time K1 dx {tag}] gy {(n, h, w, co)} -> dx {c}", ms,
+                                     plain, f"conv2d_input+mask {x.dtype}", lib, bb, flops,
+                                     d_note)))
+            print(f"[time K1 {tag}] {(n, h, w, c)}->{co}: fwd {f_ms:.4f} ms (plain "
+                  f"{f_plain:.4f}, F.conv2d+relu {f_lib:.4f}, bound {fb:.4f}); dx {ms:.4f} ms "
+                  f"(plain {plain:.4f}, conv2d_input+mask {lib:.4f}, bound {bb:.4f}), dx "
+                  f"{flops / ms / 1e9:.2f} TFLOP/s")
+            del row["tensors"]
+
+    time_k1_train(dx_rows, "train", K1_PEAK, "train")
 
     def indexing(img1, ox1, oy1):
         """The library call: advanced indexing on window indices already made."""
@@ -814,9 +1070,12 @@ def main() -> int:
         return lambda: img1[iy, ix]
 
     def time_gather(path, per, ims, kw, offsets, what):
-        """One K2 launch on (1, 1536², C) images at K windows, as the main path
-        calls it; the library time sums indexing over the group's sources."""
+        """One K2 launch on (N, 1536², C) images at K windows each ((N, K) or,
+        for N = 1, (K,) offsets), as the main path calls it; the library time
+        sums indexing over the group's sources and images."""
         call = lambda: k2.gather_patches_group(ims, cutout=32, **kw)
+        n = ims[0].shape[0]
+        ox2, oy2 = (t.reshape(n, -1) for t in offsets)
         if "coords" in kw:
             plain = lambda: [k2.gather_patches_plain(
                 im, *k2.patch_offsets(kw["coords"])[:2], 32) for im in ims]
@@ -825,15 +1084,16 @@ def main() -> int:
         ms = cuda_ms(call, reps=50)
         host = host_ms(call)
         plain_ms = cuda_ms(plain, reps=50)
-        libs = [indexing(im[0], *offsets) for im in ims]
+        libs = [indexing(im[i], ox2[i], oy2[i]) for im in ims for i in range(n)]
         lib = sum(cuda_ms(f, reps=50) for f in libs)
         chans = [im.shape[-1] for im in ims]
-        kk = offsets[0].numel()
-        wbytes = kk * 8 * 4 if "coords" in kw else 2 * kk * 4
+        kk = ox2.shape[1]
+        wbytes = n * kk * (8 * 4 if "coords" in kw else 2 * 4)
         bound, _ = add("gather_patches", path, per, ms, plain_ms, lib, 0.0,
-                       gather_bytes(*offsets, chans, wbytes), 0.0,
-                       [1, CANVAS, CANVAS, chans, kk, 32])
-        line = (f"[time K2 {path}] {what}: (1,{CANVAS},{CANVAS},{chans}) K={kk} cut 32 from "
+                       gather_bytes(ox2, oy2, chans, wbytes, esize=ims[0].element_size()), 0.0,
+                       [n, CANVAS, CANVAS, chans, kk, 32])
+        line = (f"[time K2 {path}] {what}: ({n},{CANVAS},{CANVAS},{chans}) "
+                f"{str(ims[0].dtype)[6:]} K={kk} cut 32 from "
                 f"{'coords' if 'coords' in kw else 'offsets'}: kernel {ms:.4f} ms (host only "
                 f"{host:.4f} ms, device only {{dev}}), plain {plain_ms:.4f} ms, indexing "
                 f"{lib:.4f} ms (device only {{lib_dev}}), bound {bound:.5f} ms (bytes), "
@@ -850,6 +1110,42 @@ def main() -> int:
                     f"group {row['group']}")
         del row["images"]
 
+    def time_scatter(path, per, grad, wc, err, label=""):
+        """One K2 bwd launch of ``grad`` at the (N, K, 8) coords ``wc`` into an
+        (N, 1536², 2) canvas of grad's dtype, as the main path calls it; the
+        library call is zeros + index_add_ in that dtype.  A labelled call is
+        timed beside the path's and adds no row."""
+        n = wc.shape[0]
+        shape = (n, CANVAS, CANVAS, 2)
+        oxn, oyn = (t.reshape(n, -1) for t in k2.patch_offsets(wc)[:2])
+        call = lambda: k2.scatter_patches(grad, None, None, shape, coords=wc)
+        ms, host = cuda_ms(call, reps=50), host_ms(call)
+        plain = cuda_ms(lambda: k2.scatter_patches_plain(grad, *k2.patch_offsets(wc)[:2],
+                                                         shape), reps=50)
+        ar = torch.arange(32, device=dev)
+        iy = (oyn.long()[:, :, None] + ar).clamp(0, CANVAS - 1)[:, :, :, None]
+        ix = (oxn.long()[:, :, None] + ar).clamp(0, CANVAS - 1)[:, :, None, :]
+        flat = ((torch.arange(n, device=dev)[:, None, None, None] * CANVAS + iy) * CANVAS
+                + ix).reshape(-1)                             # (N·K·32·32,) pixel index
+        index_add = lambda: torch.zeros(n * CANVAS * CANVAS, 2, device=dev,
+                                        dtype=grad.dtype).index_add_(0, flat, grad.reshape(-1, 2))
+        lib = cuda_ms(index_add, reps=50)
+        kk, es = oxn.shape[1], grad.element_size()
+        canvas_bytes = n * CANVAS * CANVAS * 2 * es
+        nbytes = canvas_bytes + n * kk * 32 * 32 * 2 * es + n * kk * 8 * 4
+        if label:
+            bound, key, idx = bound_ms(0.0, nbytes)[0], None, None
+        else:
+            bound, _ = add("scatter_patches", path, per, ms, plain, lib, 0.0, nbytes, err,
+                           [n, CANVAS, CANVAS, 2, kk, 32])
+            key, idx = ("scatter_patches", path), len(shape_rows) - 1
+        line = (f"[time K2 bwd {path}{label}] {shape} {grad.dtype} K={kk} cut 32 from coords: "
+                f"kernel {ms:.4f} ms (host only {host:.4f} ms, device only {{dev}}), plain "
+                f"(index_put_) {plain:.4f} ms, zeros + index_add_ {lib:.4f} ms (device only "
+                f"{{lib_dev}}), bound {bound:.5f} ms (bytes: the canvas write, "
+                f"{canvas_bytes / 1e6:.1f} MB, dominates)")
+        deferred.append((key, per, idx, call, "scatter_tile_kernel", index_add, line))
+
     # K2 bwd at the check's windows (out-of-bounds ones and 10 on one spot,
     # as PR 2 timed it), and beside it at in-bounds windows, as the data
     # pipeline cuts them
@@ -858,38 +1154,20 @@ def main() -> int:
     inb[..., :2] = torch.randint(0, CANVAS - 32, (1, K_TRAIN, 2), generator=gen).float()
     inb[..., 5], inb[..., 6:] = 1.0, 0.0
     gp1 = gpatch[:K_TRAIN].contiguous()
-    shape1 = (1, CANVAS, CANVAS, 2)
-    for label, wc in (("", tc1), (" in-bounds windows", inb)):
-        oxt1, oyt1 = k2.patch_offsets(wc[0])[:2]
-        call = lambda wc=wc: k2.scatter_patches(gp1, None, None, shape1, coords=wc)
-        ms = cuda_ms(call, reps=50)
-        host = host_ms(call)
-        plain = cuda_ms(lambda: k2.scatter_patches_plain(
-            gp1, *k2.patch_offsets(wc)[:2], shape1), reps=50)
-        ar = torch.arange(32, device=dev)
-        iy = (oyt1.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, :, None]
-        ix = (oxt1.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, None, :]
-        flat = (iy * CANVAS + ix).reshape(-1)                       # (K·32·32,) pixel index
-        gflat = gp1.reshape(-1, 2)
-        index_add = lambda flat=flat: torch.zeros(CANVAS * CANVAS, 2,
-                                                  device=dev).index_add_(0, flat, gflat)
-        lib = cuda_ms(index_add, reps=50)
-        nbytes = CANVAS * CANVAS * 2 * 4 + K_TRAIN * 32 * 32 * 2 * 4 + K_TRAIN * 8 * 4
-        if label:
-            bound = bound_ms(0.0, nbytes)[0]
-            key, idx = None, None
-        else:
-            bound, _ = add("scatter_patches", "train", PER_STEP["scatter_patches"], ms, plain,
-                           lib, 0.0, nbytes, k2b_err, [1, CANVAS, CANVAS, 2, K_TRAIN, 32])
-            key, idx = ("scatter_patches", "train"), len(shape_rows) - 1
-        line = (f"[time K2 bwd{label}] (1,{CANVAS},{CANVAS},2) K={K_TRAIN} cut 32 from coords: "
-                f"kernel {ms:.4f} ms (host only {host:.4f} ms, device only {{dev}}), plain "
-                f"(index_put_) {plain:.4f} ms, zeros + index_add_ {lib:.4f} ms (device only "
-                f"{{lib_dev}}), bound {bound:.5f} ms (bytes: the canvas write, "
-                f"{CANVAS * CANVAS * 8 / 1e6:.1f} MB, dominates)")
-        deferred.append((key, PER_STEP["scatter_patches"], idx, call, "scatter_tile_kernel",
-                         index_add, line))
+    time_scatter("train", PER_STEP["scatter_patches"], gp1, tc1, k2b_err)
+    time_scatter("train", PER_STEP["scatter_patches"], gp1, inb, k2b_err, ", in-bounds windows")
     del img2, gpatch
+
+    # the production lane's kernels in bf16, at one step's shapes before the
+    # anneal: the bound at the bf16 tensor-core rate and bf16 bytes, the
+    # library calls in bf16
+    time_k1_train(lane_rows, "train_bf16", PEAK_BF16_FLOPS, "bf16")
+    for row in k2_lane:
+        time_gather("train_bf16", 1, row["images"], row["kw"], row["offsets"],
+                    f"group {row['group']}")
+        del row["images"]
+    time_scatter("train_bf16", PER_STEP_BF16["scatter_patches"], lane_scatter["grad"],
+                 lane_scatter["coords"], 0.0)
 
     # one test sample: G forward + the 8 metrics, after a warm-up
     print(f"[phase] sample wall from {time.time() - t_start:.1f} s")
@@ -977,6 +1255,47 @@ def main() -> int:
     d3_ms, resize_ms = cuda_ms(d3_part, reps=5), cuda_ms(resize_part, reps=20)
     d3_host = host_ms(d3_part, reps=5)
     del model, batch
+
+    # the production lane's step, untraced, D3 active: before the anneal
+    # (bf16, batch 4, the LPIPS window 768²) and after it (batch 2, the canvas)
+    print(f"[phase] lane step wall from {time.time() - t_start:.1f} s")
+    lopt = TrainOptions().parse(largv, quiet=True)
+    lbatch = next(iter(create_dataset(lopt)))
+    lmodel = create_model(lopt)
+    lmodel.setup()
+    lane_wall = {}
+    for key, label, nb, crop in (("before", "before the anneal", 4, 768),
+                                 ("after", "after the anneal", 2, 0)):
+        lmodel.opt.lpips_crop = crop
+        lmodel.set_input({k: v[:nb] for k, v in lbatch.items()})
+        walls, peaks = [], []
+        for i in range(7):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if i == 2:
+                reset_counts()
+            t0 = time.perf_counter()
+            lmodel.optimize_parameters(2)
+            lmodel.get_current_losses()
+            torch.cuda.synchronize()
+            if i == 2:
+                counts = read_counts()
+            if i >= 2:
+                walls.append((time.perf_counter() - t0) * 1e3)
+                peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        check(counts == PER_STEP_BF16, f"a lane step ({label}) launched {counts}, not "
+                                       f"{PER_STEP_BF16}")
+        if key == "before":
+            lane_step_launches = counts
+        lane_wall[key] = statistics.median(walls)
+        print(f"[time lane step] one {CANVAS}² production-lane step, {label} (bf16, batch {nb}, "
+              f"LPIPS {'window ' + str(crop) + '²' if crop else 'on the canvas'}, D3 active, "
+              f"ngf {NGF}, ndf 8, K {K_TRAIN} + 32): {lane_wall[key]:.1f} ms wall, median of "
+              f"{len(walls)} ({', '.join(f'{w:.1f}' for w in walls)}); "
+              f"{nb * 1e3 / lane_wall[key]:.3f} samples/s; peak memory {max(peaks):.2f} GiB; "
+              f"launches per step {counts}")
+    del lmodel, lbatch
+    torch.cuda.empty_cache()
     # device-only times of every kernel, and of their library calls
     print(f"[phase] device-only times from {time.time() - t_start:.1f} s")
     calls = []
@@ -1006,8 +1325,10 @@ def main() -> int:
                                    "vts_tpu/ops/patch.py:41 (XLA transpose of the gather; "
                                    "no Pallas kernel)")}
     kernels = []
+    per_path = {"eval": test_launches, "train": step_launches, "train_bf16": lane_step_launches}
+    in_run = {"eval": run_launches, "train": train_launches, "train_bf16": lane_run_launches}
     for (kname, path), acc in rows.items():
-        launches = (test_launches if path == "eval" else step_launches)[kname]
+        launches = per_path[path][kname]
         check(launches == acc["per"], f"{kname} ({path}): {launches} launches, timed {acc['per']}")
         b_ms, b_by = bound_ms(acc["flops"], acc["bytes"], acc["peak"])
         dev_t = sum(acc["dev"]) if acc["dev"] and None not in acc["dev"] else None
@@ -1022,8 +1343,7 @@ def main() -> int:
                             plain_ms=acc["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                             library_ms=acc["library_ms"], device_ms=dev_t, path=path,
                             bound_fp32_ms=bound_ms(acc["flops"], acc["bytes"])[0],
-                            launches_in_run=(run_launches if path == "eval"
-                                             else train_launches)[kname]))
+                            launches_in_run=in_run[path][kname]))
     print(f"[shapes] {json.dumps(shape_rows)}")
     print(f"[done] chip_smoke took {time.time() - t_start:.1f} s")
     tmp_dir.cleanup()

@@ -103,6 +103,29 @@ def test_conv3x3_dx_kernel_matches_plain(cuda, shape, relu):
     assert (gx - want).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("shape", [(2, 16, 24, 64, 128), (128, 32, 32, 64, 64),
+                                   (4, 24, 40, 128, 128), (1, 13, 7, 3, 5)])
+def test_conv3x3_dx_kernel_bf16(cuda, shape):
+    """K1 dx on bf16 gy, y and w (the --dtype bfloat16 LPIPS) against its
+    plain version in bf16: both sum in fp32 and round once, so they differ
+    by the fp32 limit plus one bf16 rounding of each, |Δ| ≤ 2^-7·|ref| +
+    1e-4·max|ref| + 1e-5; the autograd path launches it and returns bf16."""
+    n, h, w, c, co = shape
+    x, wt, b, gy = (t.to(cuda, torch.bfloat16) for t in _lpips_like(shape, sum(shape) + 7))
+    y = k1.conv3x3_bias_relu(x, wt, b)
+    before = k1.conv3x3_dx.launches
+    got = k1.conv3x3_dx(gy, y, wt)
+    torch.cuda.synchronize()
+    assert k1.conv3x3_dx.launches == before + 1 and got.dtype == torch.bfloat16
+    want = k1.conv3x3_dx_plain(gy, y, wt).float()
+    tol = 2 ** -7 * want.abs() + 1e-4 * want.abs().max() + 1e-5
+    assert ((got.float() - want).abs() <= tol).all()
+    xg = x.clone().requires_grad_()
+    (gx,) = torch.autograd.grad(k1.conv3x3_bias_relu(xg, wt, b), xg, gy)
+    assert k1.conv3x3_dx.launches == before + 2 and gx.dtype == torch.bfloat16
+    assert torch.equal(gx, got)
+
+
 def _lpips_like(shape, seed, spread=False):
     """ReLU'd activations, He-scaled weights, a cotangent, as the LPIPS
     convs see them; ``spread`` scales the activations by 1e-3…1e3."""
@@ -178,6 +201,29 @@ def test_scatter_kernel_matches_plain(cuda, mode, n):
     (gi,) = torch.autograd.grad(k2.gather_patches(img, ox, oy, 32, mode=mode), img, grad)
     assert k2.scatter_patches.launches == before + 4
     assert torch.equal(gi.cpu(), want)
+
+
+@pytest.mark.parametrize("mode", ["gather", "slice"])
+@pytest.mark.parametrize("n", [1, 2])
+def test_scatter_kernel_bf16(cuda, mode, n):
+    """K2 backward on a bf16 cotangent (the --dtype bfloat16 step): summed in
+    fp32 and rounded once to bf16, bit-exact against the serial CPU scatter
+    rounded the same way; a bf16 gather's gradient launches it."""
+    g = torch.Generator(device="cpu").manual_seed(n + 10)
+    ox = torch.randint(-20, 90, (n, 17), generator=g)
+    oy = torch.randint(-20, 70, (n, 17), generator=g)
+    ox[:, :5], oy[:, :5] = 30, 20
+    grad = torch.randn(n * 17, 32, 32, 2, generator=g).to(cuda, torch.bfloat16)
+    ox, oy = ox.to(cuda, torch.int32), oy.to(cuda, torch.int32)
+    before = k2.scatter_patches.launches
+    got = k2.scatter_patches(grad, ox, oy, (n, 70, 90, 2), mode=mode)
+    torch.cuda.synchronize()
+    assert k2.scatter_patches.launches == before + 1 and got.dtype == torch.bfloat16
+    want = serial_scatter(grad, ox, oy, (n, 70, 90, 2), mode)
+    assert want.dtype == torch.bfloat16 and torch.equal(got.cpu(), want)
+    img = torch.zeros(n, 70, 90, 2, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    (gi,) = torch.autograd.grad(k2.gather_patches(img, ox, oy, 32, mode=mode), img, grad)
+    assert k2.scatter_patches.launches == before + 2 and torch.equal(gi, got)
 
 
 @pytest.mark.parametrize("mode", ["gather", "slice"])
@@ -290,9 +336,9 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         k2.gather_patches(torch.randn(8, 8, 2, device=cuda), torch.zeros(3, dtype=torch.int32),
                           torch.zeros(3, dtype=torch.int32), 4)
     with pytest.raises(TypeError):
-        k1.conv3x3_dx(torch.randn(1, 8, 8, 4, device=cuda, dtype=torch.bfloat16),
-                      torch.randn(1, 8, 8, 4, device=cuda, dtype=torch.bfloat16),
-                      torch.randn(3, 3, 4, 4, device=cuda, dtype=torch.bfloat16))
+        k1.conv3x3_dx(torch.randn(1, 8, 8, 4, device=cuda, dtype=torch.float16),
+                      torch.randn(1, 8, 8, 4, device=cuda, dtype=torch.float16),
+                      torch.randn(3, 3, 4, 4, device=cuda, dtype=torch.float16))
     ox = torch.zeros(1, 3, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         k2.gather_patches_group((torch.randn(1, 8, 8, 2, device=cuda), torch.randn(1, 8, 8, 2)),

@@ -214,13 +214,18 @@ def test_cpu_train_then_test_smoke(tmp_path):
 
 
 def test_train_requires_no_html_and_refuses_unported_settings(tmp_path):
-    """The settings the port does not run raise when parsed: the live
-    dashboard (``--display_id`` > 0), the cropped LPIPS, bf16 and a mesh.
-    (The gallery is ported: ``--no_html`` is no longer required.)"""
+    """The settings the port does not run raise ``NotImplementedError`` naming
+    the flag when parsed: the live dashboard (``--display_id`` > 0), a mesh,
+    the plateau schedule, the hinge and WGAN losses, other norms and nets.
+    The cropped LPIPS and bf16 now run and parse; so does the gallery
+    (``--no_html`` is not required)."""
     from vts_torch.config import TrainOptions
     base = ["--checkpoints_dir", str(tmp_path), "--device", "cpu"]
-    for extra in (["--display_id", "1"], ["--lpips_crop", "64"], ["--dtype", "bfloat16"],
-                  ["--mesh", "data:2"]):
-        with pytest.raises(NotImplementedError):
+    for extra in (["--display_id", "1"], ["--mesh", "data:2"], ["--lr_policy", "plateau"],
+                  ["--gan_mode", "hinge"], ["--gan_mode", "wgangp"], ["--normD", "instance"],
+                  ["--netD", "pixel"], ["--init_type", "orthogonal"], ["--diffaugment", "bsc"],
+                  ["--T_resolution_multiplier", "2"], ["--eval_mode", "legacy"]):
+        with pytest.raises(NotImplementedError, match=extra[0]):
             TrainOptions().parse(base + extra, quiet=True)
-    assert TrainOptions().parse(base, quiet=True).display_id == 0
+    opt = TrainOptions().parse(base + ["--lpips_crop", "64", "--dtype", "bfloat16"], quiet=True)
+    assert (opt.display_id, opt.lpips_crop, opt.dtype) == (0, 64, "bfloat16")

@@ -7,7 +7,10 @@
     full-canvas D2 pass) agree within rtol 1e-4, atol 1e-5; the uint8
     panels (box overlays, patch collages) within one level, since
     ``tensor2im`` truncates and a round-off difference can cross a level;
-    the real patch panels, cut from the data, are equal;
+    the real patch panels, cut from the data, are equal; and so they are
+    after ``test()`` on that training model, where the full-canvas D2 pass
+    conditions on fake_I in place of the augmented image, as the
+    reference's does;
   * the port's ``tensor2im``, ``patch_collage``, ``bbox_overlay`` and
     ``HTML`` give the bytes of ``vts_tpu.utils``'s on the same arrays;
   * ``python -m vts_torch.train --device cpu`` without ``--no_html``
@@ -34,16 +37,19 @@ COMMON = ["--dataroot", DATA, "--crop_size", "256", "--center_w", "192", "--cent
 
 
 @pytest.fixture(scope="module")
-def visuals(env):  # noqa: F811
+def stepped(env):  # noqa: F811
     jmodel, _, model = run_step(env, 1)
+    return jmodel, model
+
+
+@pytest.fixture(scope="module")
+def visuals(stepped):
+    jmodel, model = stepped
     return jmodel.get_current_visuals(), model.get_current_visuals()
 
 
-def test_visuals_match_jax_after_a_step(visuals):
-    want, got = visuals
+def _assert_visuals_match(want, got):
     assert list(got) == list(want)
-    assert {"pred_fake_I", "pred_fake_T_full", "aug_fake_I", "fake_N", "train_I_bb",
-            "val_gx_bb", "train_fake_gx_patches", "val_real_gx_patches"} <= set(want)
     for k in want:
         a, b = np.asarray(want[k]), got[k]
         assert b.shape == a.shape and b.dtype == a.dtype, (k, b.shape, a.shape, b.dtype)
@@ -54,6 +60,24 @@ def test_visuals_match_jax_after_a_step(visuals):
             assert d.max() <= 1, (k, d.max())
         else:
             np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def test_visuals_match_jax_after_a_step(visuals):
+    want, got = visuals
+    assert {"pred_fake_I", "pred_fake_T_full", "aug_fake_I", "fake_N", "train_I_bb",
+            "val_gx_bb", "train_fake_gx_patches", "val_real_gx_patches"} <= set(want)
+    _assert_visuals_match(want, got)
+
+
+def test_visuals_match_jax_after_test_on_a_training_model(stepped, visuals):
+    """``test()`` leaves only fake_I and fake_T; the full-canvas D2 pass then
+    takes fake_I for the augmented image (vts_tpu/models/sinskit.py:1442)."""
+    jmodel, model = stepped
+    jmodel.test()
+    model.test()
+    want, got = jmodel.get_current_visuals(), model.get_current_visuals()
+    assert "pred_fake_T_full" in want and "aug_fake_I" not in want
+    _assert_visuals_match(want, got)
 
 
 @pytest.fixture(scope="module")

@@ -1,0 +1,119 @@
+"""The perceptual towers' weight loaders of the port against ``vts_tpu``'s on
+the CPU, on synthetic checkpoints that the tests write with ``torch.save``
+(no weights are fetched):
+
+  * LPIPS from a full ``lpips.LPIPS`` state dict (``net.slice*.N.*``,
+    ``lin*.model.1.weight``) and from the ``{'vgg', 'lins'}`` layout
+    (torchvision ``features.N.*``, ``lins.i.model.1.weight``);
+  * Inception block 0 from a torchvision ``inception_v3`` state dict;
+
+both packages' loaders give identical params, the LPIPS distances and the
+block-0 features agree within rtol 1e-5, and ``--lpips_weights`` /
+``--inception_weights`` reach the model in both phases.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+TV_IDX = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+VGG_OUT = [64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512]
+TAP_C = [64, 128, 256, 512, 512]
+INCEPTION = [("Conv2d_1a_3x3", 3, 32), ("Conv2d_2a_3x3", 32, 32), ("Conv2d_2b_3x3", 32, 64)]
+
+
+def _lpips_state(layout: str, seed: int = 0):
+    g = torch.Generator().manual_seed(seed)
+    vgg, lins = {}, {}
+    in_c = 3
+    for li, out_c in zip(TV_IDX, VGG_OUT):
+        s = 1 + sum(li >= b for b in (4, 9, 16, 23))
+        key = f"features.{li}" if layout == "vgg_lins" else f"net.slice{s}.{li}"
+        vgg[f"{key}.weight"] = torch.randn(out_c, in_c, 3, 3, generator=g) * (2 / (9 * in_c)) ** .5
+        vgg[f"{key}.bias"] = torch.randn(out_c, generator=g) * 0.05
+        in_c = out_c
+    for i, c in enumerate(TAP_C):
+        key = f"lins.{i}.model.1.weight" if layout == "vgg_lins" else f"lin{i}.model.1.weight"
+        lins[key] = torch.rand(1, c, 1, 1, generator=g) / c
+    return {"vgg": vgg, "lins": lins} if layout == "vgg_lins" else {**vgg, **lins}
+
+
+def _inception_state(seed: int = 0):
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, ci, co in INCEPTION:
+        sd[f"{name}.conv.weight"] = torch.randn(co, ci, 3, 3, generator=g) * (2 / (9 * ci)) ** .5
+        sd[f"{name}.bn.weight"] = 1 + 0.1 * torch.randn(co, generator=g)
+        sd[f"{name}.bn.bias"] = 0.1 * torch.randn(co, generator=g)
+        sd[f"{name}.bn.running_mean"] = 0.1 * torch.randn(co, generator=g)
+        sd[f"{name}.bn.running_var"] = 1 + torch.rand(co, generator=g)
+        sd[f"{name}.bn.num_batches_tracked"] = torch.tensor(7)
+    sd["fc.weight"] = torch.randn(10, 2048, generator=g)       # the rest of the network
+    return sd
+
+
+def _equal_trees(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _equal_trees(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _equal_trees(x, y)
+    else:
+        x, y = np.asarray(a), np.asarray(b)
+        assert x.dtype == y.dtype == np.float32 and np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("layout", ["lpips_LPIPS", "vgg_lins"])
+def test_lpips_loader_matches_jax(layout, tmp_path):
+    from vts_torch.losses.lpips import LPIPS, load_lpips_weights
+    from vts_tpu.losses.lpips import load_lpips_weights as jax_load
+    from vts_tpu.losses.lpips import lpips as jax_lpips
+    path = str(tmp_path / "lpips.pth")
+    torch.save(_lpips_state(layout), path)
+    got, want = load_lpips_weights(path), jax_load(path)
+    _equal_trees(got, want)
+    rng = np.random.default_rng(1)
+    for shape in ((2, 48, 40, 3), (3, 32, 32, 1)):
+        x = rng.uniform(-1, 1, shape).astype(np.float32)
+        y = rng.uniform(-1, 1, shape).astype(np.float32)
+        d = LPIPS(got)(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+        np.testing.assert_allclose(d, np.asarray(jax_lpips(want, jnp.asarray(x), jnp.asarray(y))),
+                                   rtol=1e-5)
+
+
+def test_inception_loader_matches_jax(tmp_path):
+    from vts_torch.metrics.inception import InceptionBlock0, load_inception_weights
+    from vts_tpu.metrics.inception import inception_block0
+    from vts_tpu.metrics.inception import load_inception_weights as jax_load
+    path = str(tmp_path / "inception_v3.pth")
+    torch.save(_inception_state(), path)
+    got, want = load_inception_weights(path), jax_load(path)
+    _equal_trees(got, want)
+    x = np.random.default_rng(2).uniform(0, 1, (2, 61, 53, 3)).astype(np.float32)
+    feats = InceptionBlock0(got)(torch.from_numpy(x)).numpy()
+    ref = np.asarray(inception_block0(want, jnp.asarray(x)))
+    np.testing.assert_allclose(feats, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("phase", ["train", "test"])
+def test_weight_flags_reach_the_model(phase, tmp_path):
+    from vts_torch.config import TestOptions, TrainOptions
+    from vts_torch.losses.lpips import load_lpips_weights
+    from vts_torch.metrics.inception import load_inception_weights
+    from vts_torch.models import create_model
+    lp, inc = str(tmp_path / "lpips.pth"), str(tmp_path / "inception.pth")
+    torch.save(_lpips_state("lpips_LPIPS", seed=3), lp)
+    torch.save(_inception_state(seed=4), inc)
+    opts = TrainOptions() if phase == "train" else TestOptions()
+    opt = opts.parse(["--device", "cpu", "--ngf", "4", "--ndf", "4", "--lpips_weights", lp,
+                      "--inception_weights", inc, "--checkpoints_dir", str(tmp_path)], quiet=True)
+    model = create_model(opt)
+    w5 = load_lpips_weights(lp)["conv"][5]["w"]
+    assert torch.equal(model.lpips_net.conv5_weight, torch.from_numpy(w5).permute(3, 2, 0, 1))
+    assert torch.equal(model.lpips_net.lin4, torch.from_numpy(load_lpips_weights(lp)["lin"][4]))
+    bn = load_inception_weights(inc)["Conv2d_2b_3x3"]["var"]
+    assert torch.equal(model.inception.Conv2d_2b_3x3_var, torch.from_numpy(bn))

@@ -7,8 +7,8 @@ The JAX side runs ``SinSKITModel._train_step`` jitted, with ``--canvas_fold
 1 --lpips_fold 1`` (exact re-expressions of its default folds) and, for a
 D3-active step, ``use_d3=True`` with the frozen LPIPS, CLIP and D3-head
 weights passed as arguments.  The port replays JAX's draws: the DiffAugment
-uniforms and the "more fake T" uniforms are drawn from the step's key
-exactly as the JAX step splits it.
+uniforms, the "more fake T" uniforms and the ``--lpips_crop`` window are
+drawn from the step's key exactly as the JAX step splits it.
 """
 
 import functools
@@ -24,8 +24,9 @@ DATAROOT = "synthetic://porttrain?size=320&center_w=192&center_h=128&patches=6&v
 K, K_VAL, MORE = 6, 4, 4
 
 
-def argv(tmp, batch=1, d3=False):
-    """Both packages' training flags; ``d3``: D3 on from epoch 1."""
+def argv(tmp, batch=1, d3=False, extra=()):
+    """Both packages' training flags; ``d3``: D3 on from epoch 1; ``extra``
+    appended."""
     return ["--model", "sinskit", "--dataroot", DATAROOT, "--name", "train",
             "--crop_size", "256", "--center_w", "192", "--center_h", "128",
             "--ngf", "4", "--ndf", "4", "--batch_size", str(batch),
@@ -34,7 +35,8 @@ def argv(tmp, batch=1, d3=False):
             "--use_vision_aided_loss", "true" if d3 else "false",
             "--vision_aided_warmup_epoch", "1", "--init_gain", "0.5",
             "--canvas_fold", "1", "--lpips_fold", "1",
-            "--checkpoints_dir", str(tmp / "ckpt"), "--results_dir", str(tmp / "res")]
+            "--checkpoints_dir", str(tmp / "ckpt"), "--results_dir", str(tmp / "res"),
+            *extra]
 
 
 @pytest.fixture(scope="module")
@@ -61,23 +63,30 @@ def np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def jax_batch(tmp, batch, d3=False):
+def jax_batch(tmp, batch, d3=False, extra=()):
     from vts_tpu.config import TrainOptions as JaxTrainOptions
     from vts_tpu.data import create_dataset as jax_create_dataset
-    jopt = JaxTrainOptions().parse(argv(tmp, batch, d3), quiet=True)
+    jopt = JaxTrainOptions().parse(argv(tmp, batch, d3, extra), quiet=True)
     jopt.num_threads = 0
     return jopt, next(iter(jax_create_dataset(jopt)))
 
 
-def jax_draws(rng, n):
-    """The uniforms of one JAX ``_train_step``, split from its key as the step
-    and its callees split it (sinskit.py:608, diffaug.py, patch.py:178-183)."""
+def jax_draws(rng, n, dtype=None, crop=None):
+    """The draws of one JAX ``_train_step``, split from its key as the step
+    and its callees split it (sinskit.py:608, diffaug.py, patch.py:178-183).
+    ``dtype``: the step's compute dtype, which DiffAugment draws its
+    uniforms in; ``crop`` = (c, h, w): the ``--lpips_crop`` window, drawn as
+    at sinskit.py:850-854 (``split(fold_in(k_more, 113))``, then ``randint``)."""
     _, k_aug_r, k_aug_f, k_more, _, _ = jax.random.split(rng, 6)
+    dt = dtype or jnp.float32
+
+    def uniform(key):
+        u = jax.random.uniform(key, (n, 1, 1, 1), dt).astype(jnp.float32)
+        return torch.tensor(np.asarray(u)).reshape(n)
 
     def aug(key):
         kb, ks = jax.random.split(key, 2)
-        return {"b": torch.tensor(np.asarray(jax.random.uniform(kb, (n, 1, 1, 1)))).reshape(n),
-                "s": torch.tensor(np.asarray(jax.random.uniform(ks, (n, 1, 1, 1)))).reshape(n)}
+        return {"b": uniform(kb), "s": uniform(ks)}
 
     keys = [k_more] if n == 1 else list(jax.random.split(k_more, n))
     more = []
@@ -85,14 +94,20 @@ def jax_draws(rng, n):
         k_row, k_col = jax.random.split(key)
         more.append(np.stack([np.asarray(jax.random.uniform(k_row, (MORE,))),
                               np.asarray(jax.random.uniform(k_col, (MORE,)))]))
-    return {"aug_real": aug(k_aug_r), "aug_fake": aug(k_aug_f),
-            "more": torch.from_numpy(np.stack(more))}
+    draws = {"aug_real": aug(k_aug_r), "aug_fake": aug(k_aug_f),
+             "more": torch.from_numpy(np.stack(more))}
+    if crop is not None:
+        c, h, w = crop
+        kcy, kcx = jax.random.split(jax.random.fold_in(k_more, 113))
+        draws["lpips_crop"] = (int(jax.random.randint(kcy, (), 0, max(h - c, 0) + 1)),
+                               int(jax.random.randint(kcx, (), 0, max(w - c, 0) + 1)))
+    return draws
 
 
-def port_model(tmp, batch, d3=False):
+def port_model(tmp, batch, d3=False, extra=()):
     from vts_torch.config import TrainOptions
     from vts_torch.models import create_model
-    opt = TrainOptions().parse(argv(tmp, batch, d3) + ["--device", "cpu", "--no_html"],
+    opt = TrainOptions().parse(argv(tmp, batch, d3, extra) + ["--device", "cpu", "--no_html"],
                                quiet=True)
     model = create_model(opt)
     model.setup()

@@ -1,21 +1,44 @@
 """Options for the port (``vts_tpu/config/options.py`` ∘ the sinskit flags of
 ``vts_tpu/models/sinskit.py`` ∘ the singleskit dataset flags).
 
-:class:`TestOptions` and :class:`TrainOptions` hold the flags the eval and
-training paths read, with the reference's sinskit defaults for each phase,
-plus ``--device`` (default ``cuda``).  The reference's TPU-only and
-cache flags (``--canvas_fold``, ``--lpips_fold``, ``--lpips_fold_axis``,
-``--platform``; in training also ``--step_mode``, ``--remat_g``,
-``--lpips_remat``, ``--lpips_conv``, ``--lpips_head``,
-``--steps_per_dispatch``, ``--device_sample_cache``, ``--lpips_tap_cache``,
-``--d3_logit_cache``) are accepted and have no effect: the port runs the
-plain math on one device, and their values do not change the result.
-``--train_d3_heads`` has no effect either: the reference steps the D3 heads
-under no setting (the flag only routes its cached real logits).  In
-training, ``--lpips_crop`` ≠ 0, ``--dtype bfloat16`` and ``--mesh`` ≠ ""
-change the result or need more than one device, are not ported, and raise;
-so does ``--display_id`` > 0 (the live dashboard is not ported).
-Unknown flags are an error.
+:class:`TestOptions` and :class:`TrainOptions` declare every flag that the
+reference's sinskit parser of the same phase declares, with its defaults
+for that phase, plus ``--device`` (default ``cuda``).  Each flag does one
+of three things:
+
+  * it is read, as in the reference (the data, model, loss, schedule,
+    checkpoint and gallery flags; ``--suffix`` renames the run as
+    ``<name>_<suffix.format(**opt)>``; ``--max_dataset_size`` caps the
+    epoch; ``--lpips_weights``/``--inception_weights`` load the perceptual
+    towers; in training also ``--dtype``, ``--lpips_crop`` and
+    ``--anneal_epoch``/``--anneal_set``);
+  * it is accepted and has no effect, because it changes no math on one
+    device: the TPU layout and cache flags (``--canvas_fold``,
+    ``--lpips_fold``, ``--lpips_fold_axis``, ``--lpips_conv``,
+    ``--lpips_head``, ``--step_mode``, ``--remat_g``, ``--lpips_remat``,
+    ``--steps_per_dispatch``, ``--device_sample_cache``,
+    ``--cache_data_device``, ``--lpips_tap_cache``, ``--d3_logit_cache``,
+    ``--platform``), the loader's ``--num_threads`` and ``--cache_dir``,
+    the loggers' ``--use_wandb``, ``--verbose``, ``--display_port``, and
+    flags the reference declares but never reads for this model
+    (``--easy_label``, ``--load_iter``, ``--direction``, ``--load_size``,
+    ``--no_flip``, ``--use_eval_mode``, ``--padded_size``, ...).  The test
+    phase's ``--dtype`` and ``--lpips_crop`` are of this kind: the eval
+    forward is fp32 whatever ``--dtype`` says, as in the reference; so are
+    the training-only flags that the test parser declares too (the D, loss
+    and schedule flags);
+  * it raises ``NotImplementedError`` naming the flag when set to what the
+    port does not run: another ``--model``, ``--dataset_mode``, ``--netG``,
+    ``--normG``, ``--init_type xavier_uniform|orthogonal|none``, dropout
+    (``--no_dropout false``), ``--positional_encoding_mode csg``,
+    ``--T_resolution_multiplier`` > 1, ``--eval_mode legacy``, zoom
+    ``--preprocess``, ``--display_id`` > 0 (the live dashboard),
+    ``--multihost``, ``--use_style_code``; in training also ``--netD`` and
+    ``--netD2`` other than multiscale, ``--normD`` other than batch,
+    ``--gan_mode wgan|wgangp|hinge``, DiffAugment letters other than b and
+    s, ``--lr_policy plateau``, ``--pool_size`` > 0 and ``--mesh``.
+
+So an option string of the reference is never an argparse error here.
 """
 
 from __future__ import annotations
@@ -34,6 +57,23 @@ def str2bool(v) -> bool:
     raise argparse.ArgumentTypeError(f"boolean value expected, got {v!r}")
 
 
+_NETG = ["resnet_9blocks", "resnet_6blocks", "resnet_4blocks", "unet_256", "unet_128",
+         "stylegan2", "smallstylegan2", "resnet_cat", "unet256_custom", "global", "local",
+         "encoder", "spade", "conv_encoder", "visgel"]
+_NETD = ["basic", "n_layers", "pixel", "patch", "multiscale", "stylegan2", "tilestylegan2"]
+_INIT = ["normal", "xavier", "xavier_uniform", "kaiming", "orthogonal", "none"]
+_GAN = ["vanilla", "lsgan", "wgan", "wgangp", "nonsaturating", "hinge"]
+
+
+def _no_effect(p: argparse.ArgumentParser, flags) -> None:
+    for flag, kind, default in flags:
+        if kind is bool:
+            p.add_argument(flag, action="store_true", help="accepted; no effect in the port")
+        else:
+            p.add_argument(flag, type=kind, default=default,
+                           help="accepted; no effect in the port")
+
+
 def _common(p: argparse.ArgumentParser, train: bool) -> None:
     """Flags of both phases; defaults follow the phase, as in the reference."""
     a = p.add_argument
@@ -45,15 +85,29 @@ def _common(p: argparse.ArgumentParser, train: bool) -> None:
     a("--results_dir", type=str, default="./results/")
     a("--phase", type=str, default=ph)
     a("--seed", type=int, default=0)
+    a("--suffix", type=str, default="", help="appended to --name as _<suffix.format(**opt)>")
     a("--device", type=str, default="cuda", help="cuda | cpu")
+    a("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
+      help="training compute dtype (params stay fp32); the eval forward is fp32")
+    a("--mesh", type=str, default="", help="training: a device mesh (not ported)")
+    a("--multihost", action="store_true", help="not ported")
     # model
     a("--model", type=str, default="sinskit")
-    a("--netG", type=str, default="unet256_custom")
+    a("--netG", type=str, default="unet256_custom", choices=_NETG)
+    a("--netD", type=str, default="multiscale", choices=_NETD)
+    a("--netD2", type=str, default="multiscale")
     a("--ngf", type=int, default=10)
+    a("--ndf", type=int, default=8)
+    a("--n_layers_D", type=int, default=3)
+    a("--n_layers_D2", type=int, default=3)
+    a("--num_D_D1", type=int, default=3)
+    a("--num_D_D2", type=int, default=3)
     a("--normG", type=str, default="instance")
-    a("--init_type", type=str, default="xavier")
+    a("--normD", type=str, default="batch")
+    a("--init_type", type=str, default="xavier", choices=_INIT)
     a("--init_gain", type=float, default=0.02)
     a("--no_dropout", type=str2bool, nargs="?", const=True, default=True)
+    a("--gan_mode", type=str, default="nonsaturating", choices=_GAN)
     a("--num_layer_separate", type=int, default=4)
     a("--sketch_nc", type=int, default=1)
     a("--image_nc", type=int, default=3)
@@ -66,55 +120,13 @@ def _common(p: argparse.ArgumentParser, train: bool) -> None:
     a("--eval_mode", type=str, default="batched", choices=["batched", "legacy"])
     a("--epoch", type=str, default="latest")
     a("--pretrained_name", type=str, default=None)
-    # data
-    a("--dataset_mode", type=str, default="singleskit")
-    a("--batch_size", type=int, default=1)
-    a("--serial_batches", action="store_true", default=not train)
-    a("--crop_size", type=int, default=1536)
-    a("--preprocess", type=str, default="crop" if train else "none")
-    a("--data_len", type=int, default=200 if train else 1)
-    a("--batch_size_G2", type=int, default=64 if train else 100)
-    a("--center_w", type=int, default=1280)
-    a("--center_h", type=int, default=960)
-    a("--use_bg_mask", type=str2bool, default=True)
-    a("--sample_bbox_per_patch", type=int, default=2 if train else 1)
-    # visuals and the HTML gallery
-    a("--display_winsize", type=int, default=256)
-    a("--display_id", type=int, default=0, help="> 0: the live dashboard (not ported)")
-    a("--num_touch_patch_for_logging", type=int, default=10 if train else 100)
-    a("--save_raw_arr_vis", type=str2bool, default=False)
-    a("--scale_nz", type=float, default=0.25)
-    for sub in ("S", "I", "T", "M"):
-        a(f"--subdir_{sub}", type=str, default=f"{ph}{sub}")
-    # accepted for command-line compatibility with vts_tpu; no effect here
-    for flag, kind, default in (("--canvas_fold", int, 8), ("--lpips_fold", int, 2),
-                                ("--lpips_fold_axis", str, "w"), ("--mesh", str, ""),
-                                ("--platform", str, "")):
-        a(flag, type=kind, default=default, help="TPU-only; ignored by the port")
-
-
-def _test_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
-    _common(p, train=False)
-    p.add_argument("--num_test", type=int, default=1)
-    return p
-
-
-def _train_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
-    _common(p, train=True)
-    a = p.add_argument
-    # discriminators and losses (vts_tpu/models/sinskit.py:75-127)
-    a("--netD", type=str, default="multiscale")
-    a("--netD2", type=str, default="multiscale")
-    a("--ndf", type=int, default=8)
-    a("--n_layers_D", type=int, default=3)
-    a("--n_layers_D2", type=int, default=3)
-    a("--num_D_D1", type=int, default=3)
-    a("--num_D_D2", type=int, default=3)
-    a("--normD", type=str, default="batch")
-    a("--gan_mode", type=str, default="nonsaturating",
-      choices=["vanilla", "lsgan", "wgan", "wgangp", "nonsaturating", "hinge"])
+    a("--lpips_weights", type=str, default="",
+      help="an lpips.LPIPS or {'vgg','lins'} torch checkpoint; empty: the seeded VGG")
+    a("--inception_weights", type=str, default="",
+      help="a torchvision inception_v3 checkpoint; empty: the seeded block 0")
+    a("--clip_weights", type=str, default="",
+      help="OpenAI CLIP checkpoint (visual.* keys) for D3; empty: the seeded tower")
+    # the sinskit losses (read in training)
     a("--use_cGAN", type=str2bool, default=True)
     a("--lambda_G1_GAN", type=float, default=1.0)
     a("--lambda_G1_L1", type=float, default=100.0)
@@ -129,52 +141,141 @@ def _train_parser() -> argparse.ArgumentParser:
     a("--smooth_GAN_label", type=str2bool, default=True)
     a("--use_vision_aided_loss", type=str2bool, default=True)
     a("--vision_aided_warmup_epoch", type=int, default=100)
-    a("--clip_weights", type=str, default="",
-      help="OpenAI CLIP checkpoint (visual.* keys) for D3; empty: the seeded tower")
-    a("--train_d3_heads", type=str2bool, default=False,
-      help="accepted; the D3 heads never step (as in the reference)")
+    a("--lr_G2", type=float, default=0.0005)
     a("--g2_gan_backprop", type=str2bool, default=False)
     a("--use_more_fakeT", type=str2bool, default=True)
     a("--add_fake_T_sample_size", type=int, default=32)
     a("--use_diffaug", type=str2bool, default=True)
     a("--diffaugment", type=str, default="bs")
+    a("--lpips_crop", type=int, default=0,
+      help="training: the canvas LPIPS on one random crop² window a step (0: the canvas)")
+    a("--train_d3_heads", type=str2bool, default=False,
+      help="accepted; the D3 heads never step (as in the reference)")
+    # data
+    a("--dataset_mode", type=str, default="singleskit")
+    a("--batch_size", type=int, default=1)
+    a("--serial_batches", action="store_true", default=not train)
+    a("--crop_size", type=int, default=1536)
+    a("--preprocess", type=str, default="crop" if train else "none")
+    a("--max_dataset_size", type=int, default=None)
+    a("--data_len", type=int, default=200 if train else 1)
+    a("--batch_size_G2", type=int, default=64 if train else 100)
     a("--batch_size_G2_val", type=int, default=128)
+    a("--center_w", type=int, default=1280)
+    a("--center_h", type=int, default=960)
+    a("--use_bg_mask", type=str2bool, default=True)
+    a("--sample_bbox_per_patch", type=int, default=2 if train else 1)
     a("--w_resampling", type=str2bool, default=True)
     a("--resampling_w_min", type=int, default=1)
     a("--resampling_w_max", type=int, default=10)
-    a("--subdir_valT", type=str, default="valT")
-    a("--lpips_crop", type=int, default=0)
-    a("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+    for sub in ("S", "I", "T", "M"):
+        a(f"--subdir_{sub}", type=str, default=f"{ph}{sub}")
+    a("--subdir_valT", type=str, default="valT" if train else "")
+    # visuals and the HTML gallery
+    a("--display_winsize", type=int, default=256)
+    a("--display_id", type=int, default=0, help="> 0: the live dashboard (not ported)")
+    a("--display_freq", type=int, default=100 if train else 400)
+    a("--print_freq", type=int, default=100)
+    a("--no_html", action="store_true",
+      help="training: write no visuals and no HTML gallery under <checkpoints_dir>/<name>/web")
+    a("--num_touch_patch_for_logging", type=int, default=10 if train else 100)
+    a("--save_raw_arr_vis", type=str2bool, default=False)
+    a("--scale_nz", type=float, default=0.25)
+    # accepted for command-line compatibility with vts_tpu; no effect here
+    p.add_argument("--no_flip", type=str2bool, nargs="?", const=True, default=True,
+                   help="accepted; no effect in the port (singleskit never flips)")
+    _no_effect(p, (
+        ("--easy_label", str, "experiment_name"), ("--platform", str, ""),
+        ("--coordinator_address", str, ""), ("--num_processes", int, -1),
+        ("--process_id", int, -1), ("--no_antialias", bool, False),
+        ("--no_antialias_up", bool, False), ("--direction", str, "AtoB"),
+        ("--num_threads", int, 0), ("--cache_data_device", bool, False),
+        ("--load_size", int, 286), ("--cache_dir", str, ""),
+        ("--display_port", int, 8097), ("--use_wandb", bool, False),
+        ("--verbose", bool, False), ("--load_iter", int, 0),
+        ("--model_phase", str, "train" if train else "eval"),
+        ("--padded_size", int, 1800), ("--save_S_patch", str2bool, not train),
+        ("--save_T_concat_tensor", str2bool, False), ("--random_scale_max", float, 3.0),
+        ("--separate_val_set", str2bool, False), ("--canvas_fold", int, 8),
+        ("--lpips_fold", int, 2), ("--lpips_fold_axis", str, "w"),
+        ("--lpips_head", str, "composed"), ("--lpips_conv", str, "xla"),
+        ("--step_mode", str, "fused"), ("--remat_g", str, "auto"),
+        ("--lpips_remat", str, "auto"), ("--device_sample_cache", str2bool, False),
+        ("--lpips_tap_cache", str2bool, False), ("--d3_logit_cache", str2bool, False)))
+
+
+def _test_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    _common(p, train=False)
+    p.add_argument("--num_test", type=int, default=1)
+    p.add_argument("--use_eval_mode", type=str2bool, default=True,
+                   help="accepted; no effect in the port (G has no batch statistics)")
+    return p
+
+
+def _train_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    _common(p, train=True)
+    a = p.add_argument
     # optimisation and schedule (vts_tpu/config/options.py TrainOptions)
     a("--lr", type=float, default=0.001)
-    a("--lr_G2", type=float, default=0.0005)
     a("--beta1", type=float, default=0.0)
     a("--beta2", type=float, default=0.99)
-    a("--lr_policy", type=str, default="linear", choices=["linear", "step", "cosine"])
+    a("--lr_policy", type=str, default="linear", choices=["linear", "step", "plateau", "cosine"])
     a("--lr_decay_iters", type=int, default=50)
     a("--epoch_count", type=int, default=1)
     a("--n_epochs", type=int, default=5)
     a("--n_epochs_decay", type=int, default=400)
     a("--continue_train", action="store_true")
     a("--val_for_each_epoch", type=str2bool, default=True)
+    a("--pool_size", type=int, default=0, help="> 0: an image pool (not ported)")
+    a("--anneal_epoch", type=int, default=0,
+      help="epoch at which --anneal_set is applied once (0: off)")
+    a("--anneal_set", type=str, default="",
+      help="comma list k=v applied to the options at --anneal_epoch; keys: lpips_crop, "
+           "batch_size, remat_g, lpips_remat, lpips_fold_axis, lpips_head")
     # logging and checkpoints
-    a("--print_freq", type=int, default=100)
-    a("--display_freq", type=int, default=100)
     a("--save_latest_freq", type=int, default=100)
     a("--save_epoch_freq", type=int, default=50)
-    a("--no_html", action="store_true",
-      help="write no visuals and no HTML gallery under <checkpoints_dir>/<name>/web")
-    # accepted for command-line compatibility with vts_tpu; no effect here
-    for flag, kind, default in (("--step_mode", str, "fused"), ("--remat_g", str, "auto"),
-                                ("--lpips_remat", str, "auto"), ("--lpips_conv", str, "xla"),
-                                ("--lpips_head", str, "composed"),
-                                ("--steps_per_dispatch", int, 1),
-                                ("--device_sample_cache", str2bool, False),
-                                ("--lpips_tap_cache", str2bool, False),
-                                ("--d3_logit_cache", str2bool, False),
-                                ("--num_threads", int, 0)):
-        a(flag, type=kind, default=default, help="TPU-only or cache flag; ignored by the port")
+    _no_effect(p, (
+        ("--evaluation_freq", int, 5000), ("--validation_freq", int, 100),
+        ("--save_by_iter", bool, False), ("--gan_mode_override", str, ""),
+        ("--steps_per_dispatch", int, 1), ("--train_for_each_epoch", str2bool, True),
+        ("--update_fixed_epoch", int, 0)))
     return p
+
+
+def _refuse(flag: str, what: str) -> None:
+    raise NotImplementedError(f"{flag} {what} is not ported yet")
+
+
+def _check_common(opt) -> None:
+    if opt.model.lower() not in ("sinskit", "sinskitg"):
+        _refuse("--model", repr(opt.model))
+    if opt.dataset_mode.lower() != "singleskit":
+        _refuse("--dataset_mode", repr(opt.dataset_mode))
+    if opt.netG != "unet256_custom":
+        _refuse("--netG", repr(opt.netG))
+    if opt.normG != "instance":
+        _refuse("--normG", repr(opt.normG))
+    if opt.init_type not in ("normal", "xavier", "kaiming"):
+        _refuse("--init_type", repr(opt.init_type))
+    if not opt.no_dropout:
+        _refuse("--no_dropout", "false (dropout in G)")
+    if opt.positional_encoding_mode != "spe":
+        _refuse("--positional_encoding_mode", repr(opt.positional_encoding_mode))
+    if int(opt.T_resolution_multiplier) != 1:
+        _refuse("--T_resolution_multiplier", f"{opt.T_resolution_multiplier} (> 1)")
+    if opt.use_style_code:
+        _refuse("--use_style_code", "true")
+    if opt.eval_mode != "batched":
+        _refuse("--eval_mode", "legacy")
+    if "zoom" in opt.preprocess:
+        _refuse("--preprocess", repr(opt.preprocess))
+    if opt.display_id > 0:
+        _refuse("--display_id", "> 0 (the live dashboard)")
+    if opt.multihost:
+        _refuse("--multihost", "(several hosts)")
 
 
 class _Options:
@@ -184,7 +285,9 @@ class _Options:
         raise NotImplementedError
 
     def check(self, opt) -> None:
-        """Raise on settings the port does not run."""
+        """Raise ``NotImplementedError`` naming the flag on settings the port
+        does not run."""
+        _check_common(opt)
 
     def parse(self, args=None, quiet: bool = False) -> argparse.Namespace:
         """``parse(argv)`` → an ``argparse.Namespace``; writes
@@ -194,6 +297,8 @@ class _Options:
         opt = parser.parse_args(args)
         opt.isTrain = self.isTrain
         self.check(opt)
+        if opt.suffix:
+            opt.name = opt.name + "_" + opt.suffix.format(**vars(opt))
         lines = ["----------------- Options ---------------"]
         for k, v in sorted(vars(opt).items()):
             default = parser.get_default(k)
@@ -223,11 +328,20 @@ class TrainOptions(_Options):
         return _train_parser()
 
     def check(self, opt) -> None:
-        if opt.lpips_crop:
-            raise NotImplementedError("--lpips_crop (a cropped canvas LPIPS) is not ported yet")
-        if opt.dtype != "float32":
-            raise NotImplementedError("--dtype bfloat16 is not ported yet (the port trains in fp32)")
+        _check_common(opt)
+        from ..losses.gan_masked import GAN_MODES
+        for flag, v in (("--netD", opt.netD), ("--netD2", opt.netD2)):
+            if v != "multiscale":
+                _refuse(flag, repr(v))
+        if opt.normD != "batch":
+            _refuse("--normD", repr(opt.normD))
+        if opt.gan_mode not in GAN_MODES:
+            _refuse("--gan_mode", opt.gan_mode)
+        if opt.use_diffaug and set(opt.diffaugment) - set("bs"):
+            _refuse("--diffaugment", f"{opt.diffaugment!r} (only the letters b and s are)")
+        if opt.lr_policy == "plateau":
+            _refuse("--lr_policy", "plateau")
+        if opt.pool_size > 0:
+            _refuse("--pool_size", "> 0 (an image pool)")
         if opt.mesh:
-            raise NotImplementedError("--mesh (data parallelism over devices) is not ported yet")
-        if opt.display_id > 0:
-            raise NotImplementedError("--display_id > 0 (the live dashboard) is not ported yet")
+            _refuse("--mesh", "(data parallelism over devices)")

@@ -82,9 +82,10 @@
 // cudaFuncSetAttribute), so one block runs per SM.  The library holds 108
 // HGMMA (4 instances x 27).
 //
-// bf16 (off the main path: --dtype bfloat16 is not ported) has no kernel of
-// its own: the wrapper widens its inputs to fp32 and rounds this kernel's
-// output to bf16.
+// bf16 (the --dtype bfloat16 lane) has no instance of its own: the wrappers
+// widen x and w (forward) or gy, y and w (dx) to fp32, exactly, and round
+// this kernel's output to bf16 once, as the Pallas kernel sums bf16 operands
+// in fp32 and writes its output's dtype.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

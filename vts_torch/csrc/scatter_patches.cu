@@ -1,5 +1,7 @@
-// K2 backward: scatter-add of patch cotangents into an image-sized fp32
-// canvas, the transpose of the batched patch gather of gather_patches.cu.
+// K2 backward: scatter-add of patch cotangents into an image-sized canvas,
+// the transpose of the batched patch gather of gather_patches.cu.  Two
+// instances: fp32 in and out, and bf16 in and out (the --dtype bfloat16
+// step), which sums in fp32 and rounds each canvas element once.
 //
 //   canvas[n, y(i), x(j), c] = sum over k, i, j of g[n*K + k, i, j, c]
 //
@@ -15,7 +17,8 @@
 // LPIPS gradients reach fake_T (vts_tpu/models/sinskit.py:867-887).
 //
 // Bound on the H100: bytes, one write of the canvas (at 1536^2 x 2 fp32,
-// 18.9 MB) against 0.5 MB of patch cotangents at K = 64 windows of 32^2 x 2.
+// 18.9 MB; half that in bf16) against 0.5 MB of patch cotangents at K = 64
+// windows of 32^2 x 2.
 //
 // Design: each block owns a 32 x 32-pixel tile of one image's canvas, all
 // channels, and writes every element of it exactly once, so there is no
@@ -34,7 +37,8 @@
 // tile that many windows overlap still takes one load latency per window.
 // The order is that of a serial index_put_(accumulate=True) over the
 // gather's index tensor, so the result is the same bit for bit from run to
-// run and equals that serial sum.
+// run and equals that serial sum (in bf16: that fp32 sum, rounded once).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,8 +52,17 @@ constexpr int TILE = 32;
 constexpr int PIX = TILE * TILE / THREADS;   // pixels a thread owns
 constexpr int CG = 2;                        // channels a thread sums at a time
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T narrow(float v);
+template <> __device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-scatter_tile_kernel(const float* __restrict__ g, Windows win, float* __restrict__ canvas,
+scatter_tile_kernel(const T* __restrict__ g, Windows win, T* __restrict__ canvas,
                     int K, int H, int W, int C, int cut, int slice_mode) {
   extern __shared__ int hits[];           // 3 x K: window, origin x, origin y
   int* hit_k = hits;
@@ -92,20 +105,21 @@ scatter_tile_kernel(const float* __restrict__ g, Windows win, float* __restrict_
     __syncthreads();
   }
 
-  float* dst = canvas + (size_t)n * H * W * C;
+  T* dst = canvas + (size_t)n * H * W * C;
   const int rowe = tw * C;                  // elements in one tile row
   if (nhit == 0) {
-    if ((W * C) % 4 == 0 && (reinterpret_cast<uintptr_t>(canvas) & 15) == 0) {
-      const int rowv = rowe / 4;
+    constexpr int VEC = 16 / sizeof(T);     // elements in one 16-byte store
+    if ((W * C) % VEC == 0 && (reinterpret_cast<uintptr_t>(canvas) & 15) == 0) {
+      const int rowv = rowe / VEC;
       for (int e = threadIdx.x; e < th * rowv; e += THREADS) {
         const int r = e / rowv;
-        float* p = dst + ((size_t)(y0 + r) * W + x0) * C;
-        reinterpret_cast<float4*>(p)[e - r * rowv] = make_float4(0.f, 0.f, 0.f, 0.f);
+        T* p = dst + ((size_t)(y0 + r) * W + x0) * C;
+        reinterpret_cast<uint4*>(p)[e - r * rowv] = make_uint4(0u, 0u, 0u, 0u);
       }
     } else {
       for (int e = threadIdx.x; e < th * rowe; e += THREADS) {
         const int r = e / rowe;
-        dst[((size_t)(y0 + r) * W + x0) * C + (e - r * rowe)] = 0.f;
+        dst[((size_t)(y0 + r) * W + x0) * C + (e - r * rowe)] = narrow<T>(0.f);
       }
     }
     return;
@@ -115,7 +129,7 @@ scatter_tile_kernel(const float* __restrict__ g, Windows win, float* __restrict_
   // consecutive columns) and up to CG channels of them at a time, in
   // registers.  Windows are the outer loop, so the loads of one window for
   // all of a thread's elements are independent and in flight together.
-  const float* gn = g + (size_t)n * K * cut * cut * C;
+  const T* gn = g + (size_t)n * K * cut * cut * C;
   for (int c0 = 0; c0 < C; c0 += CG) {
     float acc[PIX][CG];
 #pragma unroll
@@ -124,7 +138,7 @@ scatter_tile_kernel(const float* __restrict__ g, Windows win, float* __restrict_
       for (int c = 0; c < CG; ++c) acc[p][c] = 0.f;
     for (int h = 0; h < nhit; ++h) {
       const int oy = hit_y[h], ox = hit_x[h];
-      const float* gk = gn + (size_t)hit_k[h] * cut * cut * C + c0;
+      const T* gk = gn + (size_t)hit_k[h] * cut * cut * C + c0;
 #pragma unroll
       for (int p = 0; p < PIX; ++p) {
         const int pix = threadIdx.x + p * THREADS;
@@ -143,17 +157,17 @@ scatter_tile_kernel(const float* __restrict__ g, Windows win, float* __restrict_
         jhi = min(jhi, cut - 1);
         if (y >= y0 + th || x >= x0 + tw || ilo > ihi || jlo > jhi) continue;
         if (ilo == ihi && jlo == jhi) {             // an interior pixel: one term
-          const float* t = gk + ((size_t)ilo * cut + jlo) * C;
+          const T* t = gk + ((size_t)ilo * cut + jlo) * C;
 #pragma unroll
           for (int c = 0; c < CG; ++c)
-            if (c0 + c < C) acc[p][c] += t[c];
+            if (c0 + c < C) acc[p][c] += widen(t[c]);
         } else {                                    // an edge pixel of a clamped window
           for (int i = ilo; i <= ihi; ++i)
             for (int j = jlo; j <= jhi; ++j) {
-              const float* t = gk + ((size_t)i * cut + j) * C;
+              const T* t = gk + ((size_t)i * cut + j) * C;
 #pragma unroll
               for (int c = 0; c < CG; ++c)
-                if (c0 + c < C) acc[p][c] += t[c];
+                if (c0 + c < C) acc[p][c] += widen(t[c]);
             }
         }
       }
@@ -164,23 +178,18 @@ scatter_tile_kernel(const float* __restrict__ g, Windows win, float* __restrict_
       const int y = y0 + pix / TILE;
       const int x = x0 + pix % TILE;
       if (y >= y0 + th || x >= x0 + tw) continue;
-      float* d = dst + ((size_t)y * W + x) * C + c0;
+      T* d = dst + ((size_t)y * W + x) * C + c0;
 #pragma unroll
       for (int c = 0; c < CG; ++c)
-        if (c0 + c < C) d[c] = acc[p][c];
+        if (c0 + c < C) d[c] = narrow<T>(acc[p][c]);
     }
   }
 }
 
-}  // namespace
-
-// g (N*K, cut, cut, C) fp32 → canvas (N, H, W, C) fp32, every element written.
-// The windows are off_x/off_y, or coords with mult when off_x is null.
-// Returns a CUDA error code.
-extern "C" int scatter_patches_f32(const float* g, const int* off_x, const int* off_y,
-                                   const float* coords, int mult, float* canvas, int N, int K,
-                                   int H, int W, int C, int cut, int slice_mode,
-                                   cudaStream_t stream) {
+template <typename T>
+int launch_scatter(const T* g, const int* off_x, const int* off_y, const float* coords, int mult,
+                   T* canvas, int N, int K, int H, int W, int C, int cut, int slice_mode,
+                   cudaStream_t stream) {
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || K < 0 || cut <= 0 || cut > H || cut > W ||
       (K > 0 && off_x == nullptr && coords == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -188,12 +197,33 @@ extern "C" int scatter_patches_f32(const float* g, const int* off_x, const int* 
   const size_t smem = (size_t)3 * K * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        scatter_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        scatter_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((unsigned)((W + TILE - 1) / TILE), (unsigned)((H + TILE - 1) / TILE),
                   (unsigned)N);
-  scatter_tile_kernel<<<grid, THREADS, smem, stream>>>(g, win, canvas, K, H, W, C, cut,
-                                                      slice_mode);
+  scatter_tile_kernel<T><<<grid, THREADS, smem, stream>>>(g, win, canvas, K, H, W, C, cut,
+                                                         slice_mode);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// g (N*K, cut, cut, C) → canvas (N, H, W, C), every element written; both
+// fp32, or both bf16 (summed in fp32, rounded once).  The windows are
+// off_x/off_y, or coords with mult when off_x is null.  Return a CUDA error code.
+extern "C" int scatter_patches_f32(const float* g, const int* off_x, const int* off_y,
+                                   const float* coords, int mult, float* canvas, int N, int K,
+                                   int H, int W, int C, int cut, int slice_mode,
+                                   cudaStream_t stream) {
+  return launch_scatter(g, off_x, off_y, coords, mult, canvas, N, K, H, W, C, cut, slice_mode,
+                        stream);
+}
+
+extern "C" int scatter_patches_bf16(const __nv_bfloat16* g, const int* off_x, const int* off_y,
+                                    const float* coords, int mult, __nv_bfloat16* canvas, int N,
+                                    int K, int H, int W, int C, int cut, int slice_mode,
+                                    cudaStream_t stream) {
+  return launch_scatter(g, off_x, off_y, coords, mult, canvas, N, K, H, W, C, cut, slice_mode,
+                        stream);
 }

@@ -4,7 +4,9 @@
 that yields batch dicts of stacked numpy arrays (leading batch axis).  As in
 the reference, training shuffles with a generator seeded by ``seed + epoch``
 (``set_epoch``) and drops the last partial batch; the test loader
-(``serial_batches``) goes in order and keeps it.  Loading is single-process.
+(``serial_batches``) goes in order and keeps it; ``--max_dataset_size`` caps
+the samples an epoch visits.  Loading is single-process.  Dataset names are
+looked up lowercased, as the reference's registry does.
 """
 
 from __future__ import annotations
@@ -30,8 +32,9 @@ class DataLoader:
     """Batch iterator over a map-style dataset: shuffled per epoch or in order."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0):
+                 drop_last: bool = False, seed: int = 0, max_dataset_size: int = None):
         self.dataset = dataset
+        self.n = min(len(dataset), max_dataset_size) if max_dataset_size else len(dataset)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -42,11 +45,11 @@ class DataLoader:
         self.epoch = epoch
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = self.n
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        order = np.arange(len(self.dataset))
+        order = np.arange(self.n)
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
         for i in range(0, len(order), self.batch_size):
@@ -57,8 +60,9 @@ class DataLoader:
 
 
 def create_dataset(opt) -> DataLoader:
-    if opt.dataset_mode not in DATASETS:
+    name = opt.dataset_mode.lower()
+    if name not in DATASETS:
         raise NotImplementedError(f"dataset_mode {opt.dataset_mode!r} is not ported yet")
-    return DataLoader(DATASETS[opt.dataset_mode](opt), batch_size=int(opt.batch_size),
+    return DataLoader(DATASETS[name](opt), batch_size=int(opt.batch_size),
                       shuffle=not opt.serial_batches, drop_last=bool(opt.isTrain),
-                      seed=int(opt.seed))
+                      seed=int(opt.seed), max_dataset_size=opt.max_dataset_size)

@@ -17,10 +17,18 @@ folded conv1_1 bias makes a zero region a constant activation).  The TPU
 layout work of the reference (folds, custom VJPs, tap caches, the factored
 head) is not ported.
 
+``dtype=torch.bfloat16`` (the ``--dtype bfloat16`` training losses) runs the
+backbone as the reference's ``lpips(dtype=bf16)`` does: the inputs and the
+conv weights and biases in bf16 (K1 sums in fp32 and rounds once), the taps
+and the head's normalize and difference in bf16, the channel sums of the
+head accumulated in fp32.  ``dtype=None`` is fp32 throughout.
+
 Weights: ``init_lpips_params(seed)`` rebuilds the reference's deterministic
-fallback parameters bit for bit (numpy ``default_rng``), as numpy arrays in
-the reference layout (conv HWIO); :class:`LPIPS` holds them as torch buffers
-(conv OIHW) via :func:`vts_torch.utils.convert_jax.lpips_params_to_torch`.
+fallback parameters bit for bit (numpy ``default_rng``), and
+:func:`load_lpips_weights` converts a torch checkpoint as the reference's
+loader does, both as numpy arrays in the reference layout (conv HWIO);
+:class:`LPIPS` holds them as torch buffers (conv OIHW) via
+:func:`vts_torch.utils.convert_jax.lpips_params_to_torch`.
 """
 
 from __future__ import annotations
@@ -63,6 +71,47 @@ def init_lpips_params(seed: int = 0) -> Dict:
         in_c = out_c
     for c in _TAP_CHANNELS:
         params["lin"].append(np.full((c,), 1.0 / c, np.float32))
+    return params
+
+
+def load_lpips_weights(path: str) -> Dict:
+    """A torch checkpoint → the params tree, as ``vts_tpu/losses/lpips.py``'s
+    loader: a full ``lpips.LPIPS`` state dict (``net.slice*.N.weight`` and
+    ``lin*.model.1.weight`` keys), or a dict holding a torchvision vgg16
+    state dict under ``'vgg'`` (``features.N.weight``) and the five lin
+    heads under ``'lins'``."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    if isinstance(sd, dict) and "vgg" in sd:
+        vgg_sd, lins = sd["vgg"], sd["lins"]
+    else:
+        vgg_sd, lins = sd, sd
+
+    def host(v):
+        return np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v)
+
+    def grab(keys):
+        for k in keys:
+            if k in vgg_sd:
+                return host(vgg_sd[k])
+        raise KeyError(keys)
+
+    # torchvision indices of vgg16.features' 13 convs, and the lpips slice of each
+    tv_idx = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+    params = {"conv": [], "lin": []}
+    for li in tv_idx:
+        s = 1 + sum(li >= b for b in (4, 9, 16, 23))
+        w = grab([f"features.{li}.weight", f"net.slice{s}.{li}.weight"])
+        b = grab([f"features.{li}.bias", f"net.slice{s}.{li}.bias"])
+        params["conv"].append({"w": np.ascontiguousarray(w.transpose(2, 3, 1, 0)), "b": b})
+    for i in range(5):
+        for key in (f"lin{i}.model.1.weight", f"lins.{i}.model.1.weight", f"lin{i}.weight"):
+            if key in lins:
+                params["lin"].append(host(lins[key]).reshape(-1))
+                break
+        else:
+            raise KeyError(f"lin head {i} not found in checkpoint")
     return params
 
 
@@ -112,31 +161,41 @@ class LPIPS(nn.Module):
         return w1, b1
 
     def vgg16_taps(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """The 5 post-ReLU tap activations, NHWC."""
+        """The 5 post-ReLU tap activations, NHWC, computed in x's dtype."""
         taps = []
         w0, b0 = self._scale_folded_conv1(x.shape[-1])
-        h = x
+        h, dt = x, x.dtype
+
+        def conv(h, w, b):
+            if dt == torch.float32:
+                return conv_nhwc(h, w, b)
+            return conv_nhwc(h, w.to(dt), None) + b.to(dt)
+
         for i, (_, pool) in enumerate(_VGG16_PLAN):
             w = getattr(self, f"conv{i}_weight")
             b = getattr(self, f"conv{i}_bias")
             if i == 0:
-                h = torch.relu(conv_nhwc(h, w0, b0))
+                h = torch.relu(conv(h, w0, b0))
             elif i in _KERNEL_CONVS:
-                h = conv3x3_bias_relu(h, w.permute(2, 3, 1, 0).contiguous(), b, relu=True)
+                h = conv3x3_bias_relu(h, w.permute(2, 3, 1, 0).to(dt).contiguous(), b.to(dt),
+                                      relu=True)
             else:
-                h = torch.relu(conv_nhwc(h, w, b))
+                h = torch.relu(conv(h, w, b))
             if i in _TAPS:
                 taps.append(h)
             if pool and i != len(_VGG16_PLAN) - 1:   # the last pool feeds no tap
                 h = _max_pool_2x2(h)
         return taps
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor, y_no_grad: bool = False) -> torch.Tensor:
-        """(N,) distances.  ``y_no_grad``: run y as its own forward under
+    def forward(self, x: torch.Tensor, y: torch.Tensor, y_no_grad: bool = False,
+                dtype: torch.dtype = None) -> torch.Tensor:
+        """(N,) fp32 distances.  ``y_no_grad``: run y as its own forward under
         ``torch.no_grad()`` (values are the same; the backbone has no
-        cross-sample ops)."""
-        x = x.float()
-        y = y.float()
+        cross-sample ops).  ``dtype``: the backbone's compute dtype (fp32 if
+        None)."""
+        dt = dtype or torch.float32
+        x = x.to(dt)
+        y = y.to(dt)
         if y_no_grad:
             tx = self.vgg16_taps(x)
             with torch.no_grad():
@@ -147,14 +206,16 @@ class LPIPS(nn.Module):
             tx, ty = [t[:n] for t in both], [t[n:] for t in both]
         total = 0.0
         for i, (a, b) in enumerate(zip(tx, ty)):
-            d = _normalize(a) - _normalize(b)
+            d = (_normalize(a) - _normalize(b)).float()
             val = torch.sum(d * d * getattr(self, f"lin{i}"), dim=-1)
             total = total + torch.mean(val, dim=(1, 2))
         return total
 
 
 def _normalize(t: torch.Tensor) -> torch.Tensor:
-    """Channel normalize with eps added to the norm: x / (||x|| + 1e-10)."""
-    ss = torch.sum(t * t, dim=-1, keepdim=True)
-    return t * (1.0 / (torch.sqrt(ss) + 1e-10))
+    """Channel normalize with eps added to the norm: x / (||x|| + 1e-10), the
+    norm from an fp32 sum of squares, the product in t's dtype."""
+    tf = t.float()
+    ss = torch.sum(tf * tf, dim=-1, keepdim=True)
+    return t * (1.0 / (torch.sqrt(ss) + 1e-10)).to(t.dtype)
 

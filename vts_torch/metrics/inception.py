@@ -3,8 +3,10 @@
 Conv2d_1a_3x3 (s2) → Conv2d_2a_3x3 → Conv2d_2b_3x3 (pad 1), each followed by
 an eval-mode BatchNorm (eps 1e-3) and ReLU; no maxpool, no input resize.
 ``init_inception_params(seed)`` rebuilds the reference's deterministic
-fallback weights bit for bit (numpy, conv HWIO); :class:`InceptionBlock0`
-holds them as torch buffers (conv OIHW)."""
+fallback weights bit for bit (numpy, conv HWIO), and
+:func:`load_inception_weights` converts a torchvision ``inception_v3``
+checkpoint as the reference's loader does; :class:`InceptionBlock0` holds
+either as torch buffers (conv OIHW)."""
 
 from __future__ import annotations
 
@@ -41,6 +43,23 @@ def init_inception_params(seed: int = 0) -> Dict:
         }
         in_c = out_c
     return params
+
+
+def load_inception_weights(path: str) -> Dict:
+    """A torchvision ``inception_v3`` state dict (``Conv2d_1a_3x3.conv.weight``,
+    ``Conv2d_1a_3x3.bn.running_mean``, ...) → the params tree."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+
+    def g(key):
+        v = sd[key]
+        return np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v)
+
+    return {name: {"w": np.ascontiguousarray(g(f"{name}.conv.weight").transpose(2, 3, 1, 0)),
+                   "scale": g(f"{name}.bn.weight"), "bias": g(f"{name}.bn.bias"),
+                   "mean": g(f"{name}.bn.running_mean"), "var": g(f"{name}.bn.running_var")}
+            for name, *_ in _BLOCK0}
 
 
 class InceptionBlock0(nn.Module):

@@ -1,13 +1,14 @@
-"""Model factory (``vts_tpu/models/__init__.py``): sinskit only, so far."""
+"""Model factory (``vts_tpu/models/__init__.py``): sinskit only, so far.
+Names are looked up lowercased, as the reference's registry does."""
 
 from __future__ import annotations
 
 from .sinskit import SinSKITModel
 
-MODELS = {"sinskit": SinSKITModel, "sinskitG": SinSKITModel}
+MODELS = {"sinskit": SinSKITModel, "sinskitg": SinSKITModel}
 
 
 def create_model(opt):
-    if opt.model not in MODELS:
+    if opt.model.lower() not in MODELS:
         raise NotImplementedError(f"model {opt.model!r} is not ported yet")
-    return MODELS[opt.model](opt)
+    return MODELS[opt.model.lower()](opt)

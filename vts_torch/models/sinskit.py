@@ -22,12 +22,29 @@ patches (logged, no G gradient, unless ``--g2_gan_backprop``), DiffAugment
 feeds only D2's visual conditioning, and D2's conditioning is detached.
 
 Every random draw of a step — DiffAugment's brightness and saturation for
-real and fake, and the uniforms that place the "more fake T" windows — comes
-from a ``torch.Generator`` seeded by ``--seed``, or is injected with
-``optimize_parameters(draws=...)`` (see :meth:`SinSKITModel.draw`).
+real and fake, the uniforms that place the "more fake T" windows, and the
+``--lpips_crop`` window — comes from a ``torch.Generator`` seeded by
+``--seed``, or is injected with ``optimize_parameters(draws=...)`` (see
+:meth:`SinSKITModel.draw`).
 
-Not ported yet, and raising: WGAN-GP, style codes, ``T_resolution_multiplier
-> 1`` and the legacy per-metric evaluation.
+``--lpips_crop`` c > 0 computes the canvas LPIPS on one c² window of fake_I
+and I a step (shared by the batch), when c is below the canvas side, as the
+reference does; its backward puts the window's cotangent into a zero canvas.
+
+``--dtype bfloat16`` follows the reference's casts one for one: G, D1 and D2
+convolve in bf16 with fp32 params; G's output, the masks it is multiplied
+by, the canvas copies of S and I, DiffAugment and every patch gathered from
+them stay bf16; a concatenation takes the wider type; G_L1 takes its mean in
+fp32, G2's L1 widens the fake patches, the GAN losses widen the logits, and
+LPIPS runs its backbone in bf16 with fp32 head sums.  The eval forward
+(:meth:`test`) is fp32.
+
+The LPIPS and Inception towers are ``--lpips_weights`` and
+``--inception_weights`` when given, else the reference's seeded ones.
+
+The settings not ported yet (WGAN-GP, style codes, ``T_resolution_multiplier
+> 1``, the legacy per-metric evaluation, ...) are refused by the options
+(:mod:`vts_torch.config.options`).
 """
 
 from __future__ import annotations
@@ -40,12 +57,12 @@ import torch
 from ..data.coords import patch_offsets
 from ..device import resolve_device
 from ..losses.gan import feature_matching_loss, gan_loss
-from ..losses.gan_masked import GAN_MODES, masked_mean, masked_patch_sum, per_sample_gan_loss
-from ..losses.lpips import LPIPS, init_lpips_params
+from ..losses.gan_masked import masked_mean, masked_patch_sum, per_sample_gan_loss
+from ..losses.lpips import LPIPS, init_lpips_params, load_lpips_weights
 from ..losses.vision_aided import D3Heads, d3_logits, init_d3_head_params, softplus
 from ..metrics.evaluate import DEFAULT_EVAL_METRICS
 from ..metrics.evaluate_batch import compute_evaluation_metrics_batched
-from ..metrics.inception import InceptionBlock0, init_inception_params
+from ..metrics.inception import InceptionBlock0, init_inception_params, load_inception_weights
 from ..networks import define_D, define_G
 from ..networks.blocks import make_initializer
 from ..networks.clip_vit import CLIPViT, init_clip_params, load_clip_weights
@@ -69,32 +86,31 @@ class SinSKITModel:
     / test → get_current_losses / compute_metrics → save/load_networks."""
 
     def __init__(self, opt):
-        if int(opt.T_resolution_multiplier) != 1:
-            raise NotImplementedError("T_resolution_multiplier > 1 is not ported yet")
-        if opt.eval_mode != "batched":
-            raise NotImplementedError("--eval_mode legacy is not ported yet")
+        lpc = int(opt.lpips_crop)
+        if lpc < 0 or (lpc and (lpc % 16 or lpc < 64)):
+            raise ValueError(f"--lpips_crop must be 0 (full canvas) or a multiple of 16 "
+                             f">= 64, got {lpc}")
+        if lpc and opt.step_mode == "split":
+            raise ValueError("--lpips_crop is implemented for the fused step only; "
+                             "--step_mode split would silently ignore it")
         self.opt = opt
         self.isTrain = bool(opt.isTrain)
         self.device = resolve_device(opt.device)
+        self.dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
         self.mult = 1
         pe_nc = 2 * opt.positional_encoding_dim if opt.use_positional_encoding else 0
         self.input_nc = opt.sketch_nc + pe_nc
-        self.netG = define_G(opt, self.input_nc, opt.image_nc + opt.touch_nc)
+        self.netG = define_G(opt, self.input_nc, opt.image_nc + opt.touch_nc, dtype=self.dtype)
         self.model_names = ["G"]
         if self.isTrain:
-            if opt.gan_mode not in GAN_MODES:
-                raise NotImplementedError(f"--gan_mode {opt.gan_mode} is not ported yet")
-            if opt.use_diffaug and set(opt.diffaugment) - set("bs"):
-                raise NotImplementedError(f"--diffaugment {opt.diffaugment!r}: only the "
-                                          f"letters 'b' and 's' are ported yet")
             d1_in = opt.image_nc + (opt.sketch_nc if opt.use_cGAN else 0)
-            self.netD = define_D(opt, d1_in, netD=opt.netD, num_D=opt.num_D_D1)
+            self.netD = define_D(opt, d1_in, netD=opt.netD, num_D=opt.num_D_D1, dtype=self.dtype)
             d2_in = opt.touch_nc
             if opt.use_cGAN_G2:
                 d2_in += (opt.sketch_nc if opt.use_cGAN_G2_S else 0) \
                     + (opt.image_nc + 1 if opt.use_cGAN_G2_I else 0)
             self.netD2 = define_D(opt, d2_in, netD=opt.netD2, n_layers=opt.n_layers_D2,
-                                  num_D=opt.num_D_D2)
+                                  num_D=opt.num_D_D2, dtype=self.dtype)
             if opt.lambda_G1_GAN > 0:
                 self.model_names.append("D")
             if opt.lambda_G2_GAN > 0:
@@ -103,8 +119,11 @@ class SinSKITModel:
             self.clip: Optional[CLIPViT] = None
             self.d3_heads: Optional[D3Heads] = None
             self.generator = torch.Generator().manual_seed(int(opt.seed))
-        self.lpips_net = LPIPS(init_lpips_params(0)).to(self.device)
-        self.inception = InceptionBlock0(init_inception_params(0)).to(self.device)
+        lw, iw = opt.lpips_weights, opt.inception_weights
+        self.lpips_net = LPIPS(load_lpips_weights(lw) if lw else init_lpips_params(0)).to(
+            self.device)
+        self.inception = InceptionBlock0(
+            load_inception_weights(iw) if iw else init_inception_params(0)).to(self.device)
         self.eval_metrics = list(DEFAULT_EVAL_METRICS)
         self.adam: Dict[str, Adam] = {}
         self._input: Dict[str, torch.Tensor] = {}
@@ -186,18 +205,28 @@ class SinSKITModel:
         self.data_phase = phase
 
     # ------------------------------------------------------------------
-    def draw(self, n: int) -> Dict:
-        """The random numbers of one step for a batch of n, from the model's
-        generator: ``{"aug_real": {letter: (n,)}, "aug_fake": {letter: (n,)},
-        "more": (n, 2, add_fake_T_sample_size)}`` — uniforms in [0, 1).  The
-        same structure, filled from elsewhere, is what
+    def _crop_active(self, h: int, w: int) -> bool:
+        return 0 < int(self.opt.lpips_crop) < max(h, w)
+
+    def draw(self, n: int, size=None) -> Dict:
+        """The random numbers of one step for a batch of n (canvas ``size`` =
+        (h, w)), from the model's generator: ``{"aug_real": {letter: (n,)},
+        "aug_fake": {letter: (n,)}, "more": (n, 2, add_fake_T_sample_size)}``
+        — uniforms in [0, 1) — and, when ``--lpips_crop`` crops that canvas,
+        ``"lpips_crop": (oy, ox)``, integers in [0, h − c] and [0, w − c].
+        The same structure, filled from elsewhere, is what
         :meth:`optimize_parameters` takes as ``draws``."""
         opt = self.opt
         policy = opt.diffaugment if opt.use_diffaug else ""
-        return {"aug_real": diffaug.draw(policy, n, self.generator),
-                "aug_fake": diffaug.draw(policy, n, self.generator),
-                "more": torch.rand((n, 2, opt.add_fake_T_sample_size),
-                                   generator=self.generator)}
+        out = {"aug_real": diffaug.draw(policy, n, self.generator),
+               "aug_fake": diffaug.draw(policy, n, self.generator),
+               "more": torch.rand((n, 2, opt.add_fake_T_sample_size), generator=self.generator)}
+        if size is not None and self._crop_active(*size):
+            c = int(opt.lpips_crop)
+            out["lpips_crop"] = tuple(
+                int(torch.randint(0, max(side - c, 0) + 1, (), generator=self.generator))
+                for side in size)
+        return out
 
     def optimize_parameters(self, epoch: int = 1, draws: Optional[Dict] = None) -> None:
         """One training step at the lr of ``epoch``, with D3 from
@@ -205,7 +234,7 @@ class SinSKITModel:
         opt = self.opt
         f = lr_factor(opt.lr_policy, epoch - 1, opt)
         if draws is None:
-            draws = self.draw(self._input["S"].shape[0])
+            draws = self.draw(self._input["S"].shape[0], tuple(self._input["S"].shape[1:3]))
         use_d3 = self.use_d3 and epoch >= opt.vision_aided_warmup_epoch
         self._losses, self._outputs = self._train_step(self._input, opt.lr * f,
                                                        opt.lr_G2 * f, draws, use_d3)
@@ -231,24 +260,27 @@ class SinSKITModel:
         n, h, w, _ = S.shape
         nc = opt.image_nc
         losses: Dict[str, torch.Tensor] = {}
+        # the canvas constants in the compute dtype, as the reference pre-casts them
+        cd = self.dtype
+        S_d, I_d, M_d = S.to(cd), I.to(cd), M.to(cd)
 
-        # ---- 1. G forward, graph kept ----
+        # ---- 1. G forward, graph kept; its output stays in the compute dtype ----
         pe = self._pe(n, h, w)
         x_in = torch.cat([S, pe], dim=-1) if pe is not None else S
-        out = self.netG(x_in).float()
-        fake_I, fake_T = out[..., :nc] * M, out[..., nc:] * M
+        out = self.netG(x_in)
+        fake_I, fake_T = out[..., :nc] * M_d, out[..., nc:] * M_d
         fake_I_d, fake_T_d = fake_I.detach(), fake_T.detach()
         if opt.use_diffaug:
-            aug_real_I = diffaug.diff_augment(I, opt.diffaugment, draws=draws["aug_real"]) * M
+            aug_real_I = diffaug.diff_augment(I_d, opt.diffaugment, draws=draws["aug_real"]) * M_d
             aug_fake_I = diffaug.diff_augment(fake_I_d, opt.diffaugment,
-                                              draws=draws["aug_fake"]) * M
+                                              draws=draws["aug_fake"]) * M_d
         else:
-            aug_real_I, aug_fake_I = I, fake_I_d
+            aug_real_I, aug_fake_I = I_d, fake_I_d
 
         # ---- 2. D1 update ----
         if "D" in self.model_names:
-            fake_in = torch.cat([S, fake_I_d], -1) if opt.use_cGAN else fake_I_d
-            real_in = torch.cat([S, I], -1) if opt.use_cGAN else I
+            fake_in = torch.cat([S_d, fake_I_d], -1) if opt.use_cGAN else fake_I_d
+            real_in = torch.cat([S_d, I_d], -1) if opt.use_cGAN else I_d
             pred_fake = self.netD(fake_in)
             pred_fake_I = pred_fake[-1][-1].detach()      # D1's last logit map, a visual
             l_fake = torch.mean(gan_loss(pred_fake, False, mode, real_lbl)) * opt.lambda_G1_GAN
@@ -265,7 +297,7 @@ class SinSKITModel:
         k, pc = real_T.shape[0], real_T.shape[1]
         # one K2 launch for the four stacks at the batch's coords
         fake_T_patch_d, S_patch, real_I_patch, fake_I_patch = gather_patches_group(
-            (fake_T_d, S, aug_real_I, aug_fake_I), coords=coords, cutout=32)
+            (fake_T_d, S_d, aug_real_I, aug_fake_I), coords=coords, cutout=32)
         realI_cond = torch.cat([real_I_patch, batch["I_masks"]], -1)
         fakeI_cond = torch.cat([fake_I_patch, batch["I_masks"]], -1)
 
@@ -287,7 +319,7 @@ class SinSKITModel:
             # one K2 launch for the three stacks at the "more fake T" offsets
             # (pc == 32: T_resolution_multiplier is 1)
             more_I, more_T, more_S = gather_patches_group(
-                (fake_I_d, fake_T_d, S), offset_x=ox, offset_y=oy, cutout=32)
+                (fake_I_d, fake_T_d, S_d), offset_x=ox, offset_y=oy, cutout=32)
             more_I = torch.cat([more_I, torch.ones_like(more_I[..., :1])], -1)
             more_cond = d2_cond(more_T, more_S, more_I)
 
@@ -320,23 +352,32 @@ class SinSKITModel:
         # ---- 6. G update against the updated discriminators ----
         aux: Dict[str, torch.Tensor] = {}
         if opt.lambda_G1_GAN > 0:
-            g_in = torch.cat([S, fake_I], -1) if opt.use_cGAN else fake_I
+            g_in = torch.cat([S_d, fake_I], -1) if opt.use_cGAN else fake_I
             aux["G_GAN"] = torch.mean(gan_loss(self.netD(g_in, update_stats=False), True,
                                                mode, real_lbl)) * opt.lambda_G1_GAN
         if opt.lambda_G1_L1 > 0:
-            aux["G_L1"] = torch.mean(torch.abs(fake_I - I)) * opt.lambda_G1_L1
+            aux["G_L1"] = torch.mean(torch.abs(fake_I - I_d), dtype=torch.float32) \
+                * opt.lambda_G1_L1
         if opt.lambda_G1_lpips > 0:
-            aux["G_lpips"] = torch.mean(self.lpips_net(fake_I, I, y_no_grad=True)) \
+            lp_x, lp_y = fake_I, I_d
+            if self._crop_active(h, w):
+                # one c² window of both (the reference's dynamic_slice); the
+                # slice's backward puts its cotangent into a zero canvas
+                c = int(opt.lpips_crop)
+                oy, ox = (int(v) for v in draws["lpips_crop"])
+                lp_x = lp_x[:, oy:oy + min(c, h), ox:ox + min(c, w)]
+                lp_y = lp_y[:, oy:oy + min(c, h), ox:ox + min(c, w)]
+            aux["G_lpips"] = torch.mean(self.lpips_net(lp_x, lp_y, y_no_grad=True, dtype=cd)) \
                 * opt.lambda_G1_lpips
         f_T_patch = gather_patches_from_coords(fake_T, coords, 32)
         if opt.lambda_G2_L1 > 0:
-            l1map = torch.abs(f_T_patch - real_T) * valid[:, None, None, None]
+            l1map = torch.abs(f_T_patch.float() - real_T) * valid[:, None, None, None]
             # per-image patch SUM, batch MEAN (reference .sum(1).mean())
             aux["G2_L1"] = torch.sum(torch.mean(l1map, dim=(1, 2, 3))) * opt.lambda_G2_L1 / n
         if opt.lambda_G2_lpips > 0:
             lp = self.lpips_net(torch.cat([f_T_patch[..., 0:1], f_T_patch[..., 1:2]], 0),
                                 torch.cat([real_T[..., 0:1], real_T[..., 1:2]], 0),
-                                y_no_grad=True)
+                                y_no_grad=True, dtype=cd)
             aux["G2_lpips"] = (masked_patch_sum(lp[:k], valid) / max(n, 1)
                                + masked_patch_sum(lp[k:], valid) / max(n, 1)) \
                 * opt.lambda_G2_lpips
@@ -376,7 +417,7 @@ class SinSKITModel:
         n, h, w, _ = S.shape
         pe = self._pe(n, h, w)
         x = torch.cat([S, pe], dim=-1) if pe is not None else S
-        out = self.netG(x).float()
+        out = self.netG(x, dtype=torch.float32)
         nc = self.opt.image_nc
         return out[..., :nc] * M, out[..., nc:] * M
 
@@ -390,17 +431,22 @@ class SinSKITModel:
     @torch.no_grad()
     def _pred_fake_T_full(self) -> torch.Tensor:
         """D2 on the whole canvas, [fake_T, S, (aug_fake_I, M)] as in its
-        patch conditioning: the last scale's logit map, as the reference
-        takes it.  Batch statistics, running ones kept; run only when visuals
-        are asked for, outside the training step."""
+        patch conditioning, each in fake_T's dtype: the last scale's logit
+        map, as the reference takes it.  After :meth:`test`, which leaves no
+        augmented image, fake_I stands in for it, as there.  Batch
+        statistics, running ones kept; run only when visuals are asked for,
+        outside the training step."""
         opt, out, inp = self.opt, self._outputs, self._input
         S = inp["S"]
-        parts = [out["fake_T"]]
+        fake_T = out["fake_T"]
+        parts = [fake_T]
         if opt.use_cGAN_G2:
             if opt.use_cGAN_G2_S:
-                parts.append(S)
+                parts.append(S.to(fake_T.dtype))
             if opt.use_cGAN_G2_I:
-                parts.append(torch.cat([out["aug_fake_I"], inp.get("M", torch.ones_like(S))], -1))
+                aug_I = out.get("aug_fake_I", out["fake_I"])
+                M = inp.get("M", torch.ones_like(S))
+                parts.append(torch.cat([aug_I, M.to(aug_I.dtype)], -1).to(fake_T.dtype))
         return self.netD2(torch.cat(parts, -1), update_stats=False)[-1][-1]
 
     def get_current_visuals(self) -> Dict[str, np.ndarray]:

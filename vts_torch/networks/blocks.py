@@ -1,6 +1,14 @@
 """U-Net and PatchGAN building blocks (``vts_tpu/networks/blocks.py``), NHWC
 at every ``forward``; the convs run on NCHW views of the same memory.
 
+The compute dtype is a ``forward`` argument, as flax's ``dtype=`` is a
+module attribute: params stay fp32, and a conv casts its input, kernel and
+bias to the compute dtype, convolves (a bf16 conv output is rounded once)
+and adds the bias in that dtype, as ``nn.Conv(dtype=…)`` does.  The norms
+take their statistics in fp32 from whatever they are given: instance norm
+then does its arithmetic in x's dtype, batch norm in fp32 with one rounding
+to x's dtype, as flax's ``BatchNorm(dtype=…)``.
+
 Layouts: ``Conv4x4`` holds a torch OIHW weight; ``ConvT4x4`` holds the
 (in, out, kh, kw) weight of ``ConvTranspose2d(k=4, s=2, p=1)`` — the
 reference's flax ``ConvTranspose(padding=2)`` kernel spatially flipped and
@@ -107,7 +115,7 @@ class BatchNorm(nn.Module):
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
                 self.var.copy_(m * self.var + (1 - m) * var)
         mul = torch.rsqrt(var + self.eps) * self.scale
-        return ((x - mean.to(x.dtype)) * mul.to(x.dtype) + self.bias.to(x.dtype))
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
 
 
 def avg_pool_3x3_s2_nopad_count(x):
@@ -125,9 +133,9 @@ def avg_pool_3x3_s2_nopad_count(x):
     for dy in range(3):
         for dx in range(3):
             win = (slice(None), slice(dy, dy + 2 * ho - 1, 2), slice(dx, dx + 2 * wo - 1, 2))
-            total = total + xp[win]
+            total = total + xp[win].float()
             cnt = cnt + ones[win]
-    return total / cnt
+    return total.to(x.dtype) / cnt
 
 
 class Conv4x4(nn.Module):
@@ -147,9 +155,13 @@ class Conv4x4(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x):
-        return _to_nhwc(F.conv2d(_to_nchw(x), self.weight, self.bias, stride=self.stride,
-                                 padding=self.padding))
+    def forward(self, x, dtype: torch.dtype = torch.float32):
+        if dtype == torch.float32:
+            return _to_nhwc(F.conv2d(_to_nchw(x.float()), self.weight, self.bias,
+                                     stride=self.stride, padding=self.padding))
+        y = _to_nhwc(F.conv2d(_to_nchw(x.to(dtype)), self.weight.to(dtype), None,
+                              stride=self.stride, padding=self.padding))
+        return y if self.bias is None else y + self.bias.to(dtype)
 
 
 class ConvT4x4(nn.Module):
@@ -166,9 +178,13 @@ class ConvT4x4(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x):
-        return _to_nhwc(F.conv_transpose2d(_to_nchw(x), self.weight, self.bias,
-                                           stride=2, padding=1))
+    def forward(self, x, dtype: torch.dtype = torch.float32):
+        if dtype == torch.float32:
+            return _to_nhwc(F.conv_transpose2d(_to_nchw(x.float()), self.weight, self.bias,
+                                               stride=2, padding=1))
+        y = _to_nhwc(F.conv_transpose2d(_to_nchw(x.to(dtype)), self.weight.to(dtype), None,
+                                        stride=2, padding=1))
+        return y if self.bias is None else y + self.bias.to(dtype)
 
 
 class Down(nn.Module):
@@ -182,10 +198,10 @@ class Down(nn.Module):
         self.conv = Conv4x4(in_c, out_c, use_bias)
         self.norm = None if (outermost or innermost) else InstanceNorm()
 
-    def forward(self, x):
+    def forward(self, x, dtype: torch.dtype = torch.float32):
         if not self.outermost:
             x = leaky_relu(x, 0.2)
-        x = self.conv(x)
+        x = self.conv(x, dtype)
         return x if self.norm is None else self.norm(x)
 
 
@@ -201,8 +217,8 @@ class Up(nn.Module):
         self.convt = ConvT4x4(in_c, out_c, True if outermost else use_bias)
         self.norm = None if outermost else InstanceNorm()
 
-    def forward(self, x, skip=None):
+    def forward(self, x, skip=None, dtype: torch.dtype = torch.float32):
         if self.takes_skip and skip is not None:
             x = torch.cat([x, skip], dim=-1)
-        x = self.convt(torch.relu(x))
+        x = self.convt(torch.relu(x), dtype)
         return torch.tanh(x) if self.outermost else self.norm(x)

@@ -14,6 +14,8 @@ Submodules carry the reference's flax names (``scale2``, ``Conv4x4_0``,
 (:mod:`vts_torch.utils.convert_jax`).  ``forward(x, update_stats)`` passes
 ``update_stats`` to every batch norm: the G-loss pass through D uses batch
 statistics and keeps the running ones as they were, as the reference does.
+The convs run in the net's ``dtype`` (bf16 under ``--dtype bfloat16``, params
+fp32); the pyramid pools the input in the dtype it comes in.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ from .blocks import BatchNorm, Conv4x4, avg_pool_3x3_s2_nopad_count, leaky_relu
 
 class NLayerDiscriminator(nn.Module):
     def __init__(self, in_c: int, ndf: int = 64, n_layers: int = 3, norm_type: str = "batch",
-                 use_sigmoid: bool = False, get_interm_feat: bool = False):
+                 use_sigmoid: bool = False, get_interm_feat: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if norm_type != "batch":
             raise NotImplementedError(f"D norm {norm_type!r} is not ported yet (only batch)")
         self.n_layers = n_layers
@@ -48,13 +52,13 @@ class NLayerDiscriminator(nn.Module):
 
     def forward(self, x, update_stats: bool = True):
         feats: List[torch.Tensor] = []
-        h = leaky_relu(self.Conv4x4_0(x), 0.2)
+        h = leaky_relu(self.Conv4x4_0(x, self.dtype), 0.2)
         feats.append(h)
         for i in range(1, self.n_layers + 1):
-            h = getattr(self, f"Conv4x4_{i}")(h)
+            h = getattr(self, f"Conv4x4_{i}")(h, self.dtype)
             h = leaky_relu(getattr(self, f"BatchNorm_{i - 1}")(h, update_stats), 0.2)
             feats.append(h)
-        h = getattr(self, f"Conv4x4_{self.n_layers + 1}")(h)
+        h = getattr(self, f"Conv4x4_{self.n_layers + 1}")(h, self.dtype)
         if self.use_sigmoid:
             h = torch.sigmoid(h)
         feats.append(h)
@@ -64,13 +68,13 @@ class NLayerDiscriminator(nn.Module):
 class MultiscaleDiscriminator(nn.Module):
     def __init__(self, in_c: int, ndf: int = 64, n_layers: int = 3, num_D: int = 3,
                  norm_type: str = "batch", use_sigmoid: bool = False,
-                 get_interm_feat: bool = False):
+                 get_interm_feat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_D = num_D
         self.get_interm_feat = get_interm_feat
         for i in range(num_D):
             self.add_module(f"scale{num_D - 1 - i}", NLayerDiscriminator(
-                in_c, ndf, n_layers, norm_type, use_sigmoid, get_interm_feat=True))
+                in_c, ndf, n_layers, norm_type, use_sigmoid, get_interm_feat=True, dtype=dtype))
 
     def forward(self, x, update_stats: bool = True):
         results = []

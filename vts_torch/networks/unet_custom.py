@@ -8,6 +8,8 @@
   The top ``num_layer_separate`` decoder levels are duplicated into a
   tactile branch (``up{i}_T``), forked right before level
   ``num_layer_separate − 1``; the output is cat(visual 3, tactile 2).
+The convs run in the net's ``dtype`` (bf16 under ``--dtype bfloat16``, params
+fp32) unless ``forward`` is given another: the eval forward passes fp32.
 
 The style-code, ``t_mult > 1`` and garment-packing branches of the
 reference are not ported yet and raise.
@@ -25,8 +27,10 @@ class CustomUNet(nn.Module):
     def __init__(self, in_nc: int, ngf: int = 10, out_nc: int = 5, num_downs: int = 8,
                  num_layer_separate: int = 4, norm_type: str = "instance",
                  use_dropout: bool = False, use_style_code: bool = False,
-                 t_mult: int = 1, init_type: str = "xavier", init_gain: float = 0.02):
+                 t_mult: int = 1, init_type: str = "xavier", init_gain: float = 0.02,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if out_nc != 5:
             raise ValueError("architecture emits 3 RGB + 2 touch channels")
         if norm_type != "instance" or use_dropout or use_style_code or t_mult != 1:
@@ -69,7 +73,8 @@ class CustomUNet(nn.Module):
             if hasattr(m, "reset_parameters") and m is not self:
                 m.reset_parameters(init, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = None) -> torch.Tensor:
+        dt = dtype or self.dtype
         nd = self.num_downs
         if x.shape[1] % (2 ** nd) or x.shape[2] % (2 ** nd):
             raise ValueError(f"input spatial size {x.shape[1]}x{x.shape[2]} must be "
@@ -77,7 +82,7 @@ class CustomUNet(nn.Module):
         skips = []
         h = x
         for i in range(nd):
-            h = self.down[f"down{i}"](h)
+            h = self.down[f"down{i}"](h, dt)
             skips.append(h)
         h_vis = skips[nd - 1]
         h_tac = None
@@ -85,7 +90,7 @@ class CustomUNet(nn.Module):
             if i <= self.num_layer_separate - 1 and h_tac is None:
                 h_tac = h_vis                      # fork point
             skip = skips[i] if 0 < i < nd - 1 else None
-            h_vis = self.up[f"up{i}"](h_vis, skip)
+            h_vis = self.up[f"up{i}"](h_vis, skip, dt)
             if h_tac is not None:
-                h_tac = self.up[f"up{i}_T"](h_tac, skip)
+                h_tac = self.up[f"up{i}_T"](h_tac, skip, dt)
         return torch.cat([h_vis, h_tac], dim=-1)

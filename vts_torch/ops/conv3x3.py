@@ -9,9 +9,12 @@ convolved with the spatially flipped, in/out-transposed weight, as
 fp32 it runs on the TF32 tensor cores in three passes (3xTF32: each operand
 split into a tf32 hi and its remainder lo, lo·hi + hi·lo + hi·hi summed in
 fp32), which keeps fp32 accuracy; a pre-pass kernel splits the weight into
-a workspace the wrapper allocates.  A bf16 forward runs the same kernel
-on its inputs widened to fp32 and rounds the output to bf16.  The source
-notes say what bounds it on the H100 and how it is laid out.
+a workspace the wrapper allocates.  In bf16 (the ``--dtype bfloat16``
+LPIPS) both directions run the same kernel on their inputs widened to fp32
+(exact: a bf16 product fits the fp32 sum, and a bf16 operand is its own
+tf32 hi with a zero lo) and round the output to bf16 once, as the Pallas
+kernel sums bf16 operands in fp32 and writes its output's dtype.  The
+source notes say what bounds it on the H100 and how it is laid out.
 
 :func:`conv3x3_bias_relu` is differentiable (a ``torch.autograd.Function``,
 entered only when an input requires a gradient): its backward launches the
@@ -107,7 +110,8 @@ def conv3x3_dx(gy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                relu: bool = True) -> torch.Tensor:
     """Input gradient of :func:`conv3x3_bias_relu`.  gy, y (N, H, W, Co) the
     output's cotangent and the saved output (read only when ``relu``), w
-    (3, 3, C, Co) the forward HWIO weight → dx (N, H, W, C), fp32."""
+    (3, 3, C, Co) the forward HWIO weight, all fp32 or all bf16 → dx
+    (N, H, W, C) in gy's dtype, summed in fp32."""
     if gy.dim() != 4 or y.shape != gy.shape or w.dim() != 4 or w.shape[:2] != (3, 3) \
             or w.shape[-1] != gy.shape[-1]:
         raise ValueError(f"conv3x3_dx: bad shapes gy {tuple(gy.shape)}, y {tuple(y.shape)}, "
@@ -116,23 +120,26 @@ def conv3x3_dx(gy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         return conv3x3_dx_plain(gy, y, w, relu)
     if gy.device.type != "cuda" or y.device != gy.device or w.device != gy.device:
         raise ValueError("conv3x3_dx: gy, y, w must lie on one CUDA device")
-    if gy.dtype != torch.float32 or y.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"conv3x3_dx: the dx kernel takes float32, got gy {gy.dtype}, "
-                        f"y {y.dtype}, w {w.dtype}")
+    if gy.dtype not in (torch.float32, torch.bfloat16) or y.dtype != gy.dtype \
+            or w.dtype != gy.dtype:
+        raise TypeError(f"conv3x3_dx: gy, y and w must all be float32 or bfloat16, got gy "
+                        f"{gy.dtype}, y {y.dtype}, w {w.dtype}")
     n, h, wd, k = gy.shape
     c = w.shape[2]
-    gy = gy.contiguous()
-    y = y.contiguous() if relu else gy
-    w = w.contiguous()
+    dtype = gy.dtype
+    # bf16 runs the fp32 kernel: exact widening in, one rounding out
+    gy = gy.float().contiguous()
+    y = y.float().contiguous() if relu else gy
+    w = w.float().contiguous()
     dx = torch.empty((n, h, wd, c), dtype=torch.float32, device=gy.device)
     if dx.numel() == 0:
-        return dx
+        return dx.to(dtype)
     ws = _workspace(k, c, gy.device)
     launch(entry("conv3x3", "conv3x3_dx_f32", _F32_ARGTYPES), gy.device,
            gy.data_ptr(), y.data_ptr(), w.data_ptr(), ws.data_ptr(), dx.data_ptr(),
            n, h, wd, c, k, int(bool(relu)))
     conv3x3_dx.launches += 1
-    return dx
+    return dx.to(dtype)
 
 
 conv3x3_dx.launches = 0
@@ -154,7 +161,7 @@ class _Conv3x3BiasRelu(torch.autograd.Function):
         y, w, x = ctx.saved_tensors
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = conv3x3_dx(gy, y, w, ctx.relu).to(y.dtype)
+            dx = conv3x3_dx(gy.to(y.dtype), y, w, ctx.relu)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             # dw/db: plain einsums, as in the reference (XLA there, never
             # requested by the training path: the LPIPS weights are frozen)
@@ -174,7 +181,7 @@ def conv3x3_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       relu: bool = True) -> torch.Tensor:
     """relu(conv3x3_s1_p1(x, w) + b), NHWC.  x (N, H, W, C) fp32 or bf16,
     w (3, 3, C, Co) in x's dtype, b (Co,).  Any H, W, C, Co.  Differentiable:
-    the input gradient runs :func:`conv3x3_dx` (fp32)."""
+    the input gradient runs :func:`conv3x3_dx` in x's dtype."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
         return _Conv3x3BiasRelu.apply(x, w, b, bool(relu))
     return _forward(x, w, b, bool(relu))

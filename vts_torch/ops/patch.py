@@ -36,7 +36,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # gather_patches_group: 4 images, 4 outputs, 4 channel counts + nsrc, off_x,
 # off_y, coords, mult, N, K, H, W, cut, mode, element size, stream
 _GROUP_ARGTYPES = [_P] * 8 + [_I] * 5 + [_P] * 3 + [_I] * 8 + [_P]
-# scatter_patches_f32: g, off_x, off_y, coords, mult, canvas, N, K, H, W, C, cut, mode, stream
+# scatter_patches_{f32,bf16}: g, off_x, off_y, coords, mult, canvas, N, K, H, W, C, cut,
+# mode, stream
 _SCATTER_ARGTYPES = [_P] * 4 + [_I, _P] + [_I] * 7 + [_P]
 _MODES = {"gather": 0, "slice": 1}
 MAX_GROUP = 4
@@ -213,7 +214,7 @@ def _window_indices(offset_x, offset_y, h: int, w: int, cutout: int, mode: str):
 def scatter_patches_plain(grad: torch.Tensor, offset_x: torch.Tensor, offset_y: torch.Tensor,
                           image_shape, mode: str = "gather") -> torch.Tensor:
     """Plain version of :func:`scatter_patches`: ``index_put_`` with
-    ``accumulate=True`` into a zeroed fp32 canvas.  On the CPU that adds in
+    ``accumulate=True`` into a zeroed fp32 canvas, rounded to grad's dtype.  On the CPU that adds in
     the order of the index tensor (window, row, column) when it runs
     serially: under ``torch.use_deterministic_algorithms(True)``, on one
     thread, or below PyTorch's parallel grain; otherwise it adds with atomics
@@ -228,19 +229,20 @@ def scatter_patches_plain(grad: torch.Tensor, offset_x: torch.Tensor, offset_y: 
     canvas = torch.zeros((n, h, w, c), dtype=torch.float32, device=grad.device)
     g = grad.float().reshape(n, k, cutout, cutout, c)
     canvas.index_put_((bi, iy[..., :, None], ix[..., None, :]), g, accumulate=True)
-    return canvas
+    return canvas.to(grad.dtype)
 
 
 def scatter_patches(grad: torch.Tensor, offset_x: Optional[torch.Tensor],
                     offset_y: Optional[torch.Tensor], image_shape, mode: str = "gather", *,
                     coords: Optional[torch.Tensor] = None,
                     scale_multiplier: int = 1) -> torch.Tensor:
-    """Transpose of :func:`gather_patches`: the (N·K, cut, cut, C) cotangent
-    summed into an fp32 (N, H, W, C) canvas at the same windows, given by
-    offsets or (with ``offset_x = offset_y = None``) by packed ``coords``.
-    Overlapping and clamped windows accumulate.  On CUDA each canvas element
-    is summed by one thread in a fixed order (window, row, column), so the
-    result is the same from run to run."""
+    """Transpose of :func:`gather_patches`: the (N·K, cut, cut, C) cotangent,
+    fp32 or bf16, summed in fp32 into an (N, H, W, C) canvas of its dtype at
+    the same windows, given by offsets or (with ``offset_x = offset_y =
+    None``) by packed ``coords``.  Overlapping and clamped windows
+    accumulate; a bf16 canvas element is rounded once, from its fp32 sum.
+    On CUDA each canvas element is summed by one thread in a fixed order
+    (window, row, column), so the result is the same from run to run."""
     if mode not in _MODES:
         raise NotImplementedError(mode)
     n, h, w, c = (int(v) for v in image_shape)
@@ -254,17 +256,20 @@ def scatter_patches(grad: torch.Tensor, offset_x: Optional[torch.Tensor],
         return scatter_patches_plain(grad, *win.offsets(), (n, h, w, c), mode)
     if dev.type != "cuda":
         raise ValueError("scatter_patches: the cotangent must lie on a CUDA device")
-    if grad.dtype != torch.float32:
-        raise TypeError(f"scatter_patches: the scatter kernel takes float32, got {grad.dtype}")
+    fn = {torch.float32: "scatter_patches_f32", torch.bfloat16: "scatter_patches_bf16"}.get(
+        grad.dtype)
+    if fn is None:
+        raise TypeError(f"scatter_patches: the scatter kernel takes float32 or bfloat16, "
+                        f"got {grad.dtype}")
     cutout = grad.shape[1]
     if cutout > h or cutout > w:
         raise ValueError(f"scatter_patches: cutout {cutout} does not fit {h}x{w}")
     g = grad if grad.is_contiguous() else grad.contiguous()
     keep, (ox, oy, cp) = win.kernel_args(dev)     # alive until the launch, as in the gather
-    canvas = torch.empty((n, h, w, c), dtype=torch.float32, device=dev)
+    canvas = torch.empty((n, h, w, c), dtype=grad.dtype, device=dev)
     if canvas.numel() == 0:
         return canvas
-    launch(entry("scatter_patches", "scatter_patches_f32", _SCATTER_ARGTYPES), dev,
+    launch(entry("scatter_patches", fn, _SCATTER_ARGTYPES), dev,
            g.data_ptr(), ox, oy, cp, win.mult, canvas.data_ptr(), n, win.k, h, w, c, cutout,
            _MODES[mode])
     scatter_patches.launches += 1

@@ -1,7 +1,11 @@
 """Inference / evaluation entry point (``vts_tpu/test.py``).
 
-Loads the tagged generator checkpoint, runs the fp32 eval forward per
-sample, computes the 8 metrics and pickles them to
+Deterministic single-sample evaluation, as in the reference: whatever was
+passed, the driver runs at batch 1, in order (``serial_batches``), with no
+flip, no loader threads and no dashboard.  It loads the tagged generator
+checkpoint, runs the fp32 eval forward per sample (``--dtype bfloat16``
+does not change it: the reference's eval forward is fp32 too), computes
+the 8 metrics and pickles them to
 ``<results_dir>/<name>/<phase>_<epoch>/eval_metrics[_i].pkl``, and writes the
 HTML gallery there: per sample its visuals as PNGs, the raw tactile field
 (``*_fake_gxgy_raw.npz``) and the patch coords (``*_patch_coords.json``),
@@ -41,6 +45,11 @@ def save_metrics(web_dir: str, metrics: Dict[str, float], index=None) -> str:
 def test(argv=None, opt=None) -> List[Dict[str, float]]:
     if opt is None:
         opt = TestOptions().parse(argv)
+    opt.num_threads = 0
+    opt.batch_size = 1
+    opt.serial_batches = True
+    opt.no_flip = True
+    opt.display_id = 0
     device = resolve_device(opt.device)
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False

@@ -9,8 +9,11 @@ under ``<checkpoints_dir>/<name>/web/`` every ``--display_freq`` samples
 validation metrics of the epoch's first sample with the reference's best
 vote — save ``best`` when at least half of the non-train metrics improve
 (lower is better for LPIPS, AE, MSE, SIFID; higher for PSNR, SSIM) — the
-epoch checkpoints, and the linear lr decay.  On CUDA the run turns TF32 off
-(cuDNN convs and matmuls in full fp32).
+epoch checkpoints, and the linear lr decay.  With ``--anneal_epoch`` and
+``--anneal_set``, the options named there change once, at the start of that
+epoch (``[anneal]`` line): the step reads them anew every time, and the
+loader takes the new batch size.  On CUDA the run turns TF32 off (cuDNN
+convs and matmuls in full fp32).
 
 Run:  python -m vts_torch.train --model sinskit --dataroot synthetic://demo \\
           --data_len 3 [--device cuda|cpu] ...
@@ -18,6 +21,7 @@ Run:  python -m vts_torch.train --model sinskit --dataroot synthetic://demo \\
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Dict
 
@@ -51,6 +55,50 @@ def best_vote(metrics: Dict[str, float], best: Dict[str, float]) -> bool:
     return improved >= len(names) // 2
 
 
+# --anneal_set keys (vts_tpu/train.py:52-59): the step's cost knobs and the
+# batch size; anything that changes the training problem is refused
+_ANNEAL_KEYS = {
+    "lpips_crop": int,
+    "batch_size": int,
+    "remat_g": str,
+    "lpips_remat": str,
+    "lpips_fold_axis": str,
+    "lpips_head": str,
+}
+_ANNEAL_CHOICES = {
+    "remat_g": ("auto", "on", "off", "True", "False", "1", "0"),
+    "lpips_remat": ("auto", "on", "off", "True", "False", "1", "0"),
+    "lpips_fold_axis": ("hw", "w"),
+    "lpips_head": ("composed", "factored"),
+}
+
+
+def apply_anneal(opt, spec: str) -> Dict[str, object]:
+    """Parse ``--anneal_set`` ("k=v,k=v"), apply it to ``opt`` and return the
+    changes; a bad entry raises ``ValueError`` before anything is applied.
+    As the reference's, except that ``lpips_fold_axis`` and ``lpips_head``
+    are checked against their choices too (the reference applies a typo)."""
+    changed: Dict[str, object] = {}
+    for item in (s.strip() for s in spec.split(",")):
+        if not item:
+            continue
+        key, sep, val = item.partition("=")
+        key = key.strip()
+        if not sep or key not in _ANNEAL_KEYS:
+            raise ValueError(f"--anneal_set: bad entry {item!r} (keys: {sorted(_ANNEAL_KEYS)})")
+        changed[key] = _ANNEAL_KEYS[key](val.strip())
+    if changed.get("lpips_crop", 0) % 16:
+        raise ValueError("--anneal_set: lpips_crop must be 0 or a multiple of 16")
+    if changed.get("batch_size", 1) < 1:
+        raise ValueError("--anneal_set: batch_size must be >= 1")
+    for k, choices in _ANNEAL_CHOICES.items():
+        if k in changed and changed[k] not in choices:
+            raise ValueError(f"--anneal_set: {k} must be one of {'|'.join(choices)}")
+    for k, v in changed.items():
+        setattr(opt, k, v)
+    return changed
+
+
 def train(argv=None, opt=None):
     if opt is None:
         opt = TrainOptions().parse(argv)
@@ -65,6 +113,12 @@ def train(argv=None, opt=None):
 
 
 def _train(opt, device):
+    anneal_pending = bool(opt.anneal_epoch) and bool(opt.anneal_set)
+    if anneal_pending:
+        if opt.step_mode == "split":
+            raise NotImplementedError("--anneal_epoch is implemented for the fused step only "
+                                      "(as in the reference)")
+        apply_anneal(copy.copy(opt), opt.anneal_set)      # a bad spec fails before training
     dataset = create_dataset(opt)
     print(f"The number of training images = {len(dataset.dataset)}")
     model = create_model(opt)
@@ -76,6 +130,12 @@ def _train(opt, device):
     first = True
     for epoch in range(opt.epoch_count, opt.n_epochs + opt.n_epochs_decay + 1):
         epoch_start = time.time()
+        if anneal_pending and epoch >= opt.anneal_epoch:
+            anneal_pending = False
+            changed = apply_anneal(opt, opt.anneal_set)
+            if "batch_size" in changed:
+                dataset.batch_size = int(opt.batch_size)
+            print(f"[anneal] epoch {epoch}: applied {changed}")
         dataset.set_epoch(epoch)
         t_data_mark = time.time()
         for i, data in enumerate(dataset):

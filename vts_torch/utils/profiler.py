@@ -11,11 +11,14 @@ training model and the first batch from the ``vts_torch.train`` flags, runs
 two warm-up steps, then one training step (losses fetched to the host)
 under the profiler, at ``--vision_aided_warmup_epoch`` (D3 active, as in
 every epoch from there on) when the run's epochs reach it and
-``--use_vision_aided_loss`` is on, else at ``--epoch_count``.  Prints, as
+``--use_vision_aided_loss`` is on, else at ``--epoch_count``; the training
+flags pass through as given, so the production lane's ``--dtype bfloat16
+--batch_size 4 --lpips_crop 768`` profiles that lane's step.  Prints, as
 one JSON line: the wall time, the device-busy time (the union of the CUDA
 kernel intervals) and the idle share, the peak device memory of the
 profiled run, the host time spent in the Fréchet ``sqrtm`` calls (test
-phase), the epoch stepped and whether D3 was active (train phase), and the
+phase), the epoch stepped, whether D3 was active, the batch, dtype and LPIPS
+crop (train phase), and the
 device time per kernel name (top 25).  ``--trace`` also writes the chrome
 trace.
 """
@@ -116,7 +119,8 @@ def profile_train_step(argv, trace_path: str = None) -> dict:
 
     for _ in range(2):                             # warm-up
         one_step()
-    return dict(_profile(one_step, trace_path), epoch=epoch, d3_active=bool(d3))
+    return dict(_profile(one_step, trace_path), epoch=epoch, d3_active=bool(d3),
+                batch=opt.batch_size, dtype=opt.dtype, lpips_crop=opt.lpips_crop)
 
 
 def _profile(fn, trace_path: str = None) -> dict:
