@@ -59,13 +59,17 @@ Phases, each of which must pass or the script exits non-zero:
      reference.  Before it (phase 2b), the kernels in bf16 at the lane's
      shapes, before and after the anneal: K1 and K1 dx against their plain
      versions in bf16 within one bf16 rounding of each output on top of the
-     fp32 limit (2^-7·|ref| + 1e-4·max|ref| + 1e-5), K2 bit-exact, K2 bwd
-     with a bf16 cotangent bit-exact against the serial CPU index_put_
-     rounded once to bf16;
+     fp32 limit (2^-7·|ref| + 1e-4·max|ref| + 1e-5), and at two of those
+     shapes against fp64 (within the same limit, with a relative bias against
+     the fp64 result rounded once to bf16 under 1e-6); one bf16 call of each
+     traced by torch.profiler shows the conv kernel and no copy kernel; K2
+     bit-exact, K2 bwd with a bf16 cotangent bit-exact against the serial
+     CPU index_put_ rounded once to bf16;
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
-     their fp32 CUDA-core bound beside it), and the device-only time of
+     their fp32 CUDA-core bound beside it; a row's bound is the sum over its
+     shapes of launches × that shape's bound), and the device-only time of
      every kernel and library call from one torch.profiler session, with
      the D3 part of a step (both CLIP passes, the backward, resize_mm)
      beside them; the wall time of one test sample, and of one 1536²
@@ -73,8 +77,10 @@ Phases, each of which must pass or the script exits non-zero:
      after 2 warm-ups each) with its peak memory and launches (and no
      patch_offsets call on the host); the bf16 lane's kernels the same way
      (bound at the bf16 tensor-core rate and bf16 bytes, library calls in
-     bf16), and the lane's untraced step with D3 active before and after the
-     anneal (median of 5 after 2 warm-ups, samples/s, peak memory).
+     bf16, the route K1's bf16 instance replaced — widened to the fp32
+     kernel and rounded back — beside it), and the lane's untraced step with
+     D3 active before and after the anneal (median of 5 after 2 warm-ups,
+     samples/s, peak memory).
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel and
 path: an ``eval`` row covers one test sample (its launches are the test
@@ -657,6 +663,56 @@ def main() -> int:
             lane_rows.append(dict(shape=[n, h, w, c, co], fwd=fwd_per_step, dx=dx_per_step,
                                   f_err=f_err, err=err, tensors=(x, wt, b, y, gy)))
         del dx, ref
+    # K1 and K1 dx in bf16 against fp64 at two lane shapes (C 128 and 64: two
+    # 64-channel chunks and one): max |Δ| over the bf16 limit, and the bias
+    # mean(Δ·sign(ref)) / mean|ref| against the fp64 result rounded once to
+    # bf16, what an exact sum would store; the plain version (fp32 sums that
+    # round to nearest) beside it.
+    def bf16_acc_line(got, ref64):
+        d = got.double() - ref64.to(bf).double()
+        bias = (d * torch.sign(ref64)).mean().item() / ref64.abs().mean().item()
+        err = ((got.double() - ref64).abs() / bf16_tol(ref64)).max().item()
+        return err, bias
+
+    for (n, h, w, c, co) in ((4, 384, 384, 128, 128), (512, 32, 32, 64, 64)):
+        x = torch.relu(torch.randn(n, h, w, c, generator=gdev, device=dev)).to(bf)
+        wt = (torch.randn(3, 3, c, co, generator=gdev, device=dev)
+              * math.sqrt(2.0 / (9 * c))).to(bf)
+        b = (torch.randn(co, generator=gdev, device=dev) * 0.1).to(bf)
+        gy = torch.randn(n, h, w, co, generator=gdev, device=dev).to(bf)
+        w64 = wt.double().permute(3, 2, 0, 1)
+        y = k1.conv3x3_bias_relu(x, wt, b)
+        y64 = torch.relu(F.conv2d(x.double().permute(0, 3, 1, 2), w64, b.double(), padding=1)
+                         ).permute(0, 2, 3, 1)
+        g64 = torch.where(y > 0, gy, torch.zeros_like(gy)).double().permute(0, 3, 1, 2)
+        dx64 = F.conv_transpose2d(g64, w64, padding=1).permute(0, 2, 3, 1)
+        del g64
+        for what, got, plain, ref in (
+                ("K1 bf16", y, k1.conv3x3_bias_relu_plain(x, wt, b), y64),
+                ("K1 dx bf16", k1.conv3x3_dx(gy, y, wt), k1.conv3x3_dx_plain(gy, y, wt), dx64)):
+            (e_k, b_k), (e_p, b_p) = bf16_acc_line(got, ref), bf16_acc_line(plain, ref)
+            print(f"[{what} vs fp64] {(n, h, w, c)}->{co}: kernel max|d|/limit {e_k:.4f} bias "
+                  f"{b_k:+.2e}; plain max|d|/limit {e_p:.4f} bias {b_p:+.2e}")
+            check(e_k <= 1.0 and abs(b_k) < 1e-6, f"{what} strays from fp64 at {(n, h, w, c, co)}")
+        del x, y, y64, dx64, gy, got, plain
+
+    # a bf16 call launches its kernel and nothing else: no cast or copy
+    from torch.profiler import ProfilerActivity, profile
+    x, wt, b, y, gy = lane_rows[0]["tensors"]
+    for what, fn in (("K1 bf16", lambda: k1.conv3x3_bias_relu(x, wt, b)),
+                     ("K1 dx bf16", lambda: k1.conv3x3_dx(gy, y, wt))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        print(f"[{what} trace] one call's device kernels: {names}")
+        check(any("conv3x3_bf16" in nm for nm in names)
+              and not any("copy" in nm.lower() for nm in names),
+              f"{what}: a call's trace shows {names}, not the conv kernel alone")
+
     # K2 and K2 bwd on bf16 sources and cotangents, N = 4 (and 2 after the anneal)
     ties4 = torch.cat([ties, ties.roll(7, dims=1)]).contiguous()
     ox4 = torch.cat([ox, ox.roll(5, dims=1)]).contiguous()
@@ -967,13 +1023,15 @@ def main() -> int:
     def add(kname, path, per, ms, plain, lib, flops, nbytes, err, shape, peak=PEAK_FP32_FLOPS):
         acc = rows.setdefault((kname, path), dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
                                                   flops=0.0, bytes=0.0, err=0.0, per=0,
-                                                  dev=[], peak=peak))
+                                                  dev=[], peak=peak, bound=0.0,
+                                                  by=dict(operations=0.0, bytes=0.0)))
+        bound, by = bound_ms(flops, nbytes, peak)
         for k_, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                      ("flops", flops), ("bytes", nbytes)):
+                      ("flops", flops), ("bytes", nbytes), ("bound", bound)):
             acc[k_] += per * v
+        acc["by"][by] += per * bound
         acc["err"] = max(acc["err"], err)
         acc["per"] += per
-        bound, by = bound_ms(flops, nbytes, peak)
         shape_rows.append(dict(kernel=kname, path=path, shape=shape, launches=per, ms=ms,
                                plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
                                bound_fp32_ms=bound_ms(flops, nbytes)[0],
@@ -1038,6 +1096,16 @@ def main() -> int:
                                                           padding=1)
             ms, lib = cuda_ms(d_call), cuda_ms(d_lib_fn)
             plain = cuda_ms(lambda: k1.conv3x3_dx_plain(gy, y, wt))
+            if x.dtype == torch.bfloat16:
+                # the route before the bf16 instance: widen to fp32, run the
+                # 3xTF32 kernel, round once (timed here, used nowhere)
+                dt = x.dtype
+                wide_f = cuda_ms(lambda: k1.conv3x3_bias_relu(x.float(), wt.float(),
+                                                              b.float()).to(dt))
+                wide_d = cuda_ms(lambda: k1.conv3x3_dx(gy.float(), y.float(),
+                                                       wt.float()).to(dt))
+                print(f"[time K1 {tag} widened] {(n, h, w, c)}->{co}: fwd {wide_f:.4f} ms, dx "
+                      f"{wide_d:.4f} ms (bf16 widened to the fp32 kernel and rounded back)")
             nbytes = es * (2 * n * h * w * co + 9 * c * co + n * h * w * c)
             fb, _ = add("conv3x3_bias_relu", path, row["fwd"], f_ms, f_plain, f_lib, flops,
                         f_bytes, row["f_err"], row["shape"], peak)
@@ -1330,7 +1398,10 @@ def main() -> int:
     for (kname, path), acc in rows.items():
         launches = per_path[path][kname]
         check(launches == acc["per"], f"{kname} ({path}): {launches} launches, timed {acc['per']}")
-        b_ms, b_by = bound_ms(acc["flops"], acc["bytes"], acc["peak"])
+        # the least time of the row's launches: each shape's own bound (bytes
+        # or operations, whichever is larger there) times its launches, summed;
+        # bound_by names the kind that makes up most of it
+        b_ms, b_by = acc["bound"], max(acc["by"], key=acc["by"].get)
         dev_t = sum(acc["dev"]) if acc["dev"] and None not in acc["dev"] else None
         src, repl = sources[kname]
         print(f"[time {kname} {path}] per {'test sample' if path == 'eval' else 'training step'}: "

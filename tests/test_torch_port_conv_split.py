@@ -16,6 +16,14 @@ JAX package's Pallas conv (interpret mode) and lax.conv, forward and VJP:
 the design keeps fp32 accuracy.  One TF32 pass misses that limit, which is
 why there are three; one accumulator carried over all of K biases the
 outputs toward zero, which is why each chunk has its own.
+
+bf16 (the ``--dtype bfloat16`` lane) runs the kernel's bf16 instance: one
+bf16 pass, each 16-channel step of each tap one tensor-core sum of 16 exact
+products (added with round toward zero), a fresh fragment per 64 channels,
+the chunks added in fp32 with round to nearest, then bias and ReLU in fp32
+and one round to nearest bf16.  The last tests emulate that and hold it to
+the Pallas conv in bf16 within one bf16 rounding, and show why the chunk is
+64 channels.
 """
 
 import jax
@@ -158,3 +166,78 @@ def test_per_chunk_sums_keep_the_bias_off(cin, cout):
     chunked, single = bias(_conv_3xtf32(x, w)), bias(_conv_3xtf32(x, w, per_chunk=False))
     assert abs(chunked) < 1e-6, chunked
     assert single < -1e-6, single
+
+
+def _bf16(a):
+    """Round float32 to the nearest bfloat16 (ties to even), kept as float32."""
+    u = np.asarray(a, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def _conv_bf16(x, w, chunk=64):
+    """x (N, H, W, C), w (3, 3, C, Co), bf16 values in float32 → the bf16
+    instance's fp32 sums (no bias): per ``chunk`` channels a fresh
+    accumulator; per 16-channel step and tap the 16 exact products summed
+    and added to it with round toward zero; the chunks added in fp32 with
+    round to nearest."""
+    n, h, wd, c = x.shape
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0))).astype(np.float64)
+    w64 = w.astype(np.float64)
+    acc = np.zeros((n, h, wd, w.shape[-1]), np.float32)
+    for c0 in range(0, c, chunk):
+        part = np.zeros_like(acc)
+        for k0 in range(c0, min(c0 + chunk, c), 16):
+            for dy in range(3):
+                for dx in range(3):
+                    part = _add_rz(part, xp[:, dy:dy + h, dx:dx + wd, k0:k0 + 16]
+                                   @ w64[dy, dx, k0:k0 + 16])
+        acc = acc + part
+    return acc
+
+
+def _bf16_inputs(cin, cout):
+    x, w, b, gy = _inputs(cin, cout, False)
+    return _bf16(x), _bf16(w), b, _bf16(gy)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (64, 128), (128, 128)])
+def test_bf16_one_pass_meets_the_bf16_limit(cin, cout):
+    """The bf16 instance's arithmetic against the Pallas conv in bf16
+    (interpret), forward and VJP: both sum exact products in fp32 and round
+    once, so they differ by at most one bf16 rounding, 2^-7·|ref| + 1e-5."""
+    x, w, b, gy = _bf16_inputs(cin, cout)
+    bf = jnp.bfloat16
+    xj, wj, gyj = (jnp.asarray(a, bf) for a in (x, w, gy))
+    y_pallas, vjp = jax.vjp(lambda a: conv3x3_relu(a, wj, jnp.asarray(b), relu=True, th=8,
+                                                   interpret=True), xj)
+    (dx_pallas,) = vjp(gyj)
+    y_pallas, dx_pallas = (np.asarray(t).astype(np.float32) for t in (y_pallas, dx_pallas))
+
+    y = _bf16(np.maximum(_conv_bf16(x, w) + b, 0.0))
+    g = np.where(y_pallas > 0, gy, 0.0).astype(np.float32)
+    wt = np.ascontiguousarray(np.flip(w, (0, 1)).transpose(0, 1, 3, 2))
+    dx = _bf16(_conv_bf16(g, wt))
+    for got, ref in ((y, y_pallas), (dx, dx_pallas)):
+        assert np.all(np.abs(got - ref) <= 2 ** -7 * np.abs(ref) + 1e-5)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (128, 128), (256, 64)])
+def test_bf16_chunks_keep_the_bias_off(cin, cout):
+    """Why the bf16 instance sums each 64 channels in a fresh fragment: its
+    fp32 sums' relative bias against fp64 of the same bf16 operands stays
+    near -2.6e-7 whatever C is, while one tensor-core accumulator over all
+    of K drifts with C (9·C/16 truncations) and passes the 1e-6 that
+    chip_smoke.py holds the kernel to at C = 256.  (A 128-channel chunk
+    reads ~-6e-7; 64 keeps a margin for the model of the cores' rounding.)"""
+    x, w, _, _ = _bf16_inputs(cin, cout)
+    ref = _conv_f64(x, w)
+
+    def bias(got):
+        return ((got - ref) * np.sign(ref)).mean() / np.abs(ref).mean()
+
+    chunked, single = bias(_conv_bf16(x, w)), bias(_conv_bf16(x, w, chunk=cin))
+    assert abs(chunked) < 1e-6, chunked
+    assert single <= chunked, (single, chunked)
+    if cin > 128:
+        assert single < -1e-6, single

@@ -48,15 +48,54 @@ def test_conv3x3_kernel_matches_plain(cuda, shape, relu):
     assert (got - want).abs().max().item() <= tol
 
 
-def test_conv3x3_kernel_bf16(cuda):
-    g = torch.Generator(device="cpu").manual_seed(0)
-    x = torch.randn(2, 20, 24, 64, generator=g).to(cuda, torch.bfloat16)
-    wt = (torch.randn(3, 3, 64, 128, generator=g) * 0.1).to(cuda, torch.bfloat16)
-    b = torch.randn(128, generator=g).to(cuda)
-    got = k1.conv3x3_bias_relu(x, wt, b).float()
-    want = k1.conv3x3_bias_relu_plain(x.float(), wt.float(), b)
-    # bf16 output rounding: 2^-8 relative
-    assert ((got - want).abs() <= 2 ** -8 * want.abs() + 1e-3).all()
+# bf16 K1 shapes: the lane's channel counts and odd ones (C 3, 20, 72; Co 6,
+# 40, 128), H and W not multiples of 8 or 16, and N past the grid's z limit
+BF16_SHAPES = [(2, 20, 24, 64, 128), (1, 13, 7, 3, 6), (2, 19, 21, 20, 40),
+               (3, 37, 29, 72, 128), (4, 24, 40, 128, 128), (66000, 1, 3, 20, 40)]
+
+
+def _bf16_limit(ref):
+    """One bf16 rounding of each output on top of the fp32 limit: the kernel
+    and the plain version both sum exact products in fp32 and round once."""
+    r = ref.float().abs()
+    return 2 ** -7 * r + 1e-4 * r.max() + 1e-5
+
+
+def _peak_rise(fn):
+    """fn()'s result and the rise of torch.cuda.max_memory_allocated over the
+    memory allocated before the call."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _rounded(nbytes):
+    return (nbytes + 511) // 512 * 512          # the caching allocator's block
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_conv3x3_kernel_bf16(cuda, shape):
+    """K1 on bf16 x and w (the --dtype bfloat16 LPIPS), b fp32 or bf16,
+    against its plain version in bf16: one launch of the bf16 instance, no
+    fp32 copy of an input (the call allocates the output and nothing but a
+    staged weight's worth), bf16 out, the same bits from two calls."""
+    n, h, w, c, co = shape
+    x, wt, b, _ = (t.to(cuda, torch.bfloat16) for t in _lpips_like(shape, sum(shape)))
+    if c % 2:
+        b = b.float()
+    before = k1.conv3x3_bias_relu.launches
+    got, rise = _peak_rise(lambda: k1.conv3x3_bias_relu(x, wt, b))
+    assert k1.conv3x3_bias_relu.launches == before + 1 and got.dtype == torch.bfloat16
+    assert rise <= _rounded(got.numel() * 2) + wt.numel() * 2, rise
+    want = k1.conv3x3_bias_relu_plain(x, wt, b)
+    assert ((got.float() - want.float()).abs() <= _bf16_limit(want)).all()
+    # against the fp32 sum before its rounding: half a bf16 step, 2^-8 relative
+    want32 = k1.conv3x3_bias_relu_plain(x.float(), wt.float(), b.float())
+    assert ((got.float() - want32).abs() <= 2 ** -8 * want32.abs() + 1e-3).all()
+    assert torch.equal(got, k1.conv3x3_bias_relu(x, wt, b))
 
 
 @pytest.mark.parametrize("mode", ["gather", "slice"])
@@ -104,26 +143,28 @@ def test_conv3x3_dx_kernel_matches_plain(cuda, shape, relu):
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 24, 64, 128), (128, 32, 32, 64, 64),
-                                   (4, 24, 40, 128, 128), (1, 13, 7, 3, 5)])
+                                   (1, 13, 7, 3, 5)] + BF16_SHAPES[2:])
 def test_conv3x3_dx_kernel_bf16(cuda, shape):
     """K1 dx on bf16 gy, y and w (the --dtype bfloat16 LPIPS) against its
     plain version in bf16: both sum in fp32 and round once, so they differ
     by the fp32 limit plus one bf16 rounding of each, |Δ| ≤ 2^-7·|ref| +
-    1e-4·max|ref| + 1e-5; the autograd path launches it and returns bf16."""
+    1e-4·max|ref| + 1e-5; one launch of the bf16 instance, no fp32 copy of
+    an input, the same bits from two calls; the autograd path launches it
+    and returns bf16."""
     n, h, w, c, co = shape
     x, wt, b, gy = (t.to(cuda, torch.bfloat16) for t in _lpips_like(shape, sum(shape) + 7))
     y = k1.conv3x3_bias_relu(x, wt, b)
     before = k1.conv3x3_dx.launches
-    got = k1.conv3x3_dx(gy, y, wt)
-    torch.cuda.synchronize()
+    got, rise = _peak_rise(lambda: k1.conv3x3_dx(gy, y, wt))
     assert k1.conv3x3_dx.launches == before + 1 and got.dtype == torch.bfloat16
-    want = k1.conv3x3_dx_plain(gy, y, wt).float()
-    tol = 2 ** -7 * want.abs() + 1e-4 * want.abs().max() + 1e-5
-    assert ((got.float() - want).abs() <= tol).all()
+    assert rise <= _rounded(got.numel() * 2) + wt.numel() * 2, rise
+    want = k1.conv3x3_dx_plain(gy, y, wt)
+    assert ((got.float() - want.float()).abs() <= _bf16_limit(want)).all()
     xg = x.clone().requires_grad_()
     (gx,) = torch.autograd.grad(k1.conv3x3_bias_relu(xg, wt, b), xg, gy)
     assert k1.conv3x3_dx.launches == before + 2 and gx.dtype == torch.bfloat16
     assert torch.equal(gx, got)
+    assert torch.equal(got, k1.conv3x3_dx(gy, y, wt))
 
 
 def _lpips_like(shape, seed, spread=False):

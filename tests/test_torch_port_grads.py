@@ -33,17 +33,41 @@ def _t(a):
     return torch.from_numpy(np.array(a, copy=True))
 
 
-@pytest.mark.parametrize("cin,cout", [(64, 128), (128, 128), (64, 64)])
+@pytest.mark.parametrize("cin,cout,dtype", [(64, 128, "float32"), (128, 128, "float32"),
+                                             (64, 64, "float32"), (64, 128, "bfloat16"),
+                                             (128, 64, "bfloat16")],
+                         ids=["64-128", "128-128", "64-64", "64-128-bf16", "128-64-bf16"])
 @pytest.mark.parametrize("relu", [True, False])
-def test_conv3x3_dx_plain_matches_pallas_vjp(cin, cout, relu):
+def test_conv3x3_dx_plain_matches_pallas_vjp(cin, cout, dtype, relu):
     """K1 dx: the plain version and the CPU autograd path vs the VJP of the
     Pallas kernel (interpret) at the tests/test_pallas.py shapes; 1e-5 of the
-    max |dx|.  dw/db of the autograd path vs the reference's einsums too."""
+    max |dx|.  dw/db of the autograd path vs the reference's einsums too.
+    In bf16 (x, w and gy bf16, b fp32; dx only): the plain dx on the Pallas
+    output vs the VJP's, both exact products summed in fp32 in different
+    orders and rounded once to bf16, 2^-7·|ref| + 1e-5; the CPU autograd
+    path returns the plain dx bit for bit."""
     rng = np.random.default_rng(cin * 7 + cout + relu)
     x = rng.normal(size=(2, 16, 24, cin)).astype(np.float32)
     w = (rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32)
     b = rng.normal(size=(cout,)).astype(np.float32)
     gy = rng.normal(size=(2, 16, 24, cout)).astype(np.float32)
+    if dtype == "bfloat16":
+        xj, wj, gyj = (jnp.asarray(a, jnp.bfloat16) for a in (x, w, gy))
+        y, vjp = jax.vjp(lambda a: conv3x3_relu(a, wj, jnp.asarray(b), relu=relu, th=8,
+                                                interpret=True), xj)
+        (dx,) = vjp(gyj)
+        dx = np.asarray(dx).astype(np.float32)
+        bf = torch.bfloat16
+        gyt, wt = _t(gy).to(bf), _t(w).to(bf)
+        yt = _t(np.asarray(y).astype(np.float32)).to(bf)
+        plain = k1.conv3x3_dx_plain(gyt, yt, wt, relu=relu)
+        assert plain.dtype == bf
+        assert np.all(np.abs(plain.float().numpy() - dx) <= 2 ** -7 * np.abs(dx) + 1e-5)
+        xt = _t(x).to(bf).requires_grad_()
+        out = k1.conv3x3_bias_relu(xt, wt, _t(b), relu=relu)
+        (gx,) = torch.autograd.grad(out, xt, gyt)
+        assert torch.equal(gx, k1.conv3x3_dx_plain(gyt, out.detach(), wt, relu=relu))
+        return
     y, vjp = jax.vjp(lambda a, c, d: conv3x3_relu(a, c, d, relu=relu, th=8, interpret=True),
                      jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
     dx, dw, db = (np.asarray(t) for t in vjp(jnp.asarray(gy)))

@@ -26,15 +26,31 @@ def _lax_conv(x, w, b, relu):
     return jnp.maximum(y, 0.0) if relu else y
 
 
-@pytest.mark.parametrize("cin,cout", [(64, 128), (128, 128), (64, 64)])
+@pytest.mark.parametrize("cin,cout,dtype", [(64, 128, "float32"), (128, 128, "float32"),
+                                             (64, 64, "float32"), (64, 128, "bfloat16"),
+                                             (128, 128, "bfloat16")],
+                         ids=["64-128", "128-128", "64-64", "64-128-bf16", "128-128-bf16"])
 @pytest.mark.parametrize("relu", [True, False])
-def test_conv3x3_plain_matches_pallas_and_lax(cin, cout, relu):
+def test_conv3x3_plain_matches_pallas_and_lax(cin, cout, dtype, relu):
     """(a) K1's plain version vs the Pallas kernel (interpret) and lax.conv at
-    the tests/test_pallas.py shapes plus 64→64; 1e-5."""
+    the tests/test_pallas.py shapes plus 64→64; 1e-5.  In bf16 (x and w
+    bf16, b fp32) vs the Pallas kernel only: both sum exact products in fp32,
+    in different orders, and round once to bf16, so they differ by at most
+    one bf16 rounding of each, 2^-7·|ref| + 1e-5."""
     rng = np.random.default_rng(cin + cout + relu)
     x = rng.normal(size=(2, 16, 24, cin)).astype(np.float32)
     w = (rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32)
     b = rng.normal(size=(cout,)).astype(np.float32)
+    if dtype == "bfloat16":
+        xt, wt = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, w))
+        got = k1.conv3x3_bias_relu_plain(xt, wt, torch.from_numpy(b), relu=relu)
+        assert got.dtype == torch.bfloat16
+        got = got.float().numpy()
+        pallas = np.asarray(conv3x3_relu(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
+                                         jnp.asarray(b), relu=relu, th=8, interpret=True)
+                            ).astype(np.float32)
+        assert np.all(np.abs(got - pallas) <= 2 ** -7 * np.abs(pallas) + 1e-5)
+        return
     got = k1.conv3x3_bias_relu_plain(torch.from_numpy(x), torch.from_numpy(w),
                                      torch.from_numpy(b), relu=relu).numpy()
     pallas = np.asarray(conv3x3_relu(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),

@@ -77,15 +77,61 @@
 // - Epilogue: bias + ReLU for the forward, neither for dx; fp32 stores of
 //   8 consecutive channels per 4 lanes (full 32-byte sectors).
 // - Batches past the grid's z limit are launched in chunks.
-// ptxas -v (sm_90a): the four instances use 180-182 registers, no stack and
+// ptxas -v (sm_90a): the four fp32 instances use 180-182 registers, no stack and
 // no spills; their dynamic shared memory is 105-176 KB (set with
 // cudaFuncSetAttribute), so one block runs per SM.  The library holds 108
 // HGMMA (4 instances x 27).
 //
-// bf16 (the --dtype bfloat16 lane) has no instance of its own: the wrappers
-// widen x and w (forward) or gy, y and w (dx) to fp32, exactly, and round
-// this kernel's output to bf16 once, as the Pallas kernel sums bf16 operands
-// in fp32 and writes its output's dtype.
+// bf16 (the --dtype bfloat16 lane) has its own instance, conv3x3_bf16_kernel,
+// which reads the lane's bf16 tensors as they lie: no widening, no weight
+// pre-pass, no workspace, one launch per call.  It computes what the Pallas
+// kernel computes for bf16 operands: exact bf16 x bf16 products summed in
+// fp32, the bias (fp32 or bf16) and the ReLU in fp32, one round to nearest
+// bf16 on the store; dx masks gy by [y > 0] and has no bias.
+// Bound on the H100: operations at the bf16 rate, 989 TFLOP/s: 0.176 ms for
+// the lane's (4, 768^2, 64 -> 64) forward against 0.045 ms of bytes; dx at
+// that shape moves two inputs and one output, 0.068 ms of bytes, also under
+// its 0.176 ms of operations.
+// - Math: one bf16 pass, wgmma m64n128k16 (6x fewer tensor-core instructions
+//   than 3xTF32 at k8): per 16-channel stage and warpgroup nine wgmmas, one
+//   per tap, each a descriptor shift inside one halo as above.  The forward's
+//   weight is A in M-major form (transpose immediate 1: HWIO has Co
+//   contiguous), dx's A K-major with the tap flipped in the descriptor.  Each
+//   64 channels (four stages, 36 wgmmas) sum in a fresh fragment, added in
+//   fp32 registers with round to nearest: the emulation in
+//   tests/test_torch_port_conv_split.py puts that chunk's bias at -2.6e-7
+//   for any C, where one accumulator over all of K passes 1e-6 at C = 256
+//   (a 128-channel chunk would read -6e-7; 64 keeps a margin).
+// - Loads: TMA.  One thread per block issues, per stage, 16 box copies of
+//   the weight (8 x 8 channels x 9 taps each, straight into core-matrix
+//   order: [k group][m group][tap][8 rows x 16 bytes]) and two of the halo
+//   (8 channels each; four with dx's saved output), counted on one mbarrier
+//   per slot; the boxes' zero fill is the pad of 1 and the channel tail.  A
+//   ring of four slots, two stages loaded ahead, wgmma.wait_group 1: a
+//   stage's products run while the next barrier and copies are issued.
+//   When C or Co is not a multiple of 8, or a tensor is not 16-byte
+//   aligned, every thread loads elements instead (same layout, any shape).
+// - What bounds it in practice is the weight's bytes per pixel: every block
+//   re-reads a stage's 18 KB of weights from L2 for its pixels, more than
+//   its 10 KB of halo.  So a block is WGN warpgroups side by side (8 x 16
+//   pixels each) sharing one stage: WGN = 3 (24 x 16 pixels, a third less
+//   weight traffic per pixel, faster on the lane's 768^2 and 384^2 images)
+//   unless that pads the image width more than WGN = 2 does (the 16^2 and
+//   32^2 patches).  Copies issued by every thread with cp.async instead of
+//   TMA ran no faster.
+// - dx's ReLU mask: the only pass over a staged halo, gy * [y > 0] as bit
+//   selects on bf16 pairs, then fence.proxy.async for wgmma.
+// - Epilogue: bias and ReLU in fp32, round to bf16, staged through shared
+//   memory as [pixel][64 channels] and written 16 bytes per thread.
+// - Grid: 64 output channels (y) by pixel tiles (x) by images (z, in chunks
+//   past its limit); no split-K, no atomics, so two launches give the same
+//   bits.
+// ptxas -v (sm_90a): forward 142 registers (TMA, WGN 2 and 3) and 160 (the
+// element path), dx 157 / 155 / 162, no stack, no spills; dynamic shared
+// memory 113 / 131 KB (forward, WGN 2 / 3) and 154 / 190 KB (dx), one block
+// per SM.
+#include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -410,6 +456,428 @@ int launch_f32(const float* in, const float* mask, const float* w, const float* 
              : launch_tc<DX, 1>(in, mask, ws, bias, out, N, H, W, Cin, Cout, relu, vec, stream);
 }
 
+// ------------------------------------------------------------------------
+// bf16: one bf16 wgmma pass (forward and dx)
+// ------------------------------------------------------------------------
+
+constexpr int BK = 16;                     // channels per stage (one bf16 wgmma depth)
+constexpr int BSTAGES = 4;                 // ring of stages in shared memory
+constexpr int BAHEAD = BSTAGES - 2;        // stages loaded ahead of the one multiplied
+constexpr int BCHUNK = 4;                  // stages per fresh fragment: 64 channels
+constexpr int BHR = 18;                    // halo rows of a 16-row tile
+constexpr int B_WTS = 16 * 1152;           // bytes of one stage's weights: 16 (g, h) blocks
+                                           // of 9 taps x one 128-byte core matrix
+constexpr int B_OUT_LD = 72;               // bf16 per pixel of the staged output tile (64 + pad)
+
+// The block of WGN warpgroups, side by side 8 x 16 tiles that share one
+// stage's weights and one halo.
+template <int WGN>
+struct BTile {
+  static constexpr int THREADS = 128 * WGN;
+  static constexpr int TW = 8 * WGN;                  // tile width in pixels (16 rows)
+  static constexpr int HC = TW + 2;                   // halo columns
+  static constexpr int HBOX = BHR * HC * 16;          // bytes of one 8-channel halo, [row][col][8 ch]
+  static constexpr int HK = (HBOX + 127) / 128 * 128; // its room, 128-byte aligned for TMA
+  static constexpr int HALO = 2 * HK;                 // one stage's halo: two k groups
+  static constexpr int MASK_ITERS = (BHR * HC + THREADS - 1) / THREADS;  // pixels a thread masks
+  template <bool DX>
+  static constexpr int smem() { return BSTAGES * (B_WTS + (DX ? 2 : 1) * HALO) + BSTAGES * 8; }
+};
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], bf16 in, fp32 accumulate; B
+// K-major, A K-major (TRANS_A 0) or M-major (TRANS_A 1).
+template <int TRANS_A>
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
+}
+
+// 1 where the bf16 bits u hold a value > 0: as int16, 0 < u <= +inf (0x7F80);
+// -0, negatives and NaN give 0.
+__device__ __forceinline__ uint32_t bf16_pos(uint32_t u) {
+  const int s = (int)(int16_t)(uint16_t)u;
+  return s > 0 && s <= 0x7F80;
+}
+
+// gy * [y > 0] on 8 bf16 lanes
+__device__ __forceinline__ uint4 mask8(uint4 v, uint4 m) {
+  uint32_t* pv = reinterpret_cast<uint32_t*>(&v);
+  const uint32_t* pm = reinterpret_cast<const uint32_t*>(&m);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t keep = (bf16_pos(pm[i]) ? 0x0000FFFFu : 0u) |
+                          (bf16_pos(pm[i] >> 16) ? 0xFFFF0000u : 0u);
+    pv[i] &= keep;
+  }
+  return v;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.b32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// One TMA box copy global -> shared, counted on bar (zero fill outside the tensor)
+__device__ __forceinline__ void tma3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                      uint64_t* bar) {
+  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%2, %3, %4}], [%5];\n"
+               :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+                  "r"(c2), "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void tma4d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                      int c3, uint64_t* bar) {
+  asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+               :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+                  "r"(c2), "r"(c3), "r"(smem_u32(bar)) : "memory");
+}
+
+// in: (N, H, W, Cin) bf16; out: (N, H, W, Cout) bf16.  Forward (DX false):
+// in = x, w = (3, 3, Cin, Cout) HWIO (A M-major), out = relu?(conv + bias),
+// bias fp32 or bf16 (bias_bf16).  DX: in = gy (Cin = the forward's output
+// channels), mask = the saved forward output y (read when relu), w = the
+// forward's (3, 3, Cout, Cin), read with k contiguous and the tap flipped
+// (A K-major), out = dx.  Block: WGN warpgroups over the 64 output channels
+// of blockIdx.y and an (8 * WGN) x 16 pixel tile of image n0 + blockIdx.z,
+// one 8 x 16 part each.  TMA: the stages arrive by box copies from the tensor maps
+// (tm_in, tm_mask, tm_w); otherwise every thread loads elements.
+template <bool DX, bool TMA, int WGN>
+__global__ void __launch_bounds__(BTile<WGN>::THREADS, 1)
+conv3x3_bf16_kernel(const __grid_constant__ CUtensorMap tm_in,
+                    const __grid_constant__ CUtensorMap tm_mask,
+                    const __grid_constant__ CUtensorMap tm_w, const uint16_t* __restrict__ in,
+                    const uint16_t* __restrict__ mask, const uint16_t* __restrict__ w,
+                    const void* __restrict__ bias, int bias_bf16, uint16_t* __restrict__ out,
+                    int n0, int H, int W, int Cin, int Cout, int tiles_x, int relu) {
+  using T = BTile<WGN>;
+  constexpr int BHC = T::HC, BTW = T::TW, B_THREADS = T::THREADS;
+  constexpr int B_HBOX = T::HBOX, B_HK = T::HK, B_HALO = T::HALO;
+  constexpr int SLOT = B_WTS + (DX ? 2 : 1) * B_HALO;
+  // A: [k group h][m group g][tap][core matrix]: k groups LBO apart, m groups SBO
+  constexpr uint32_t A_LBO = 8 * 1152, A_SBO = 1152;
+  constexpr uint32_t B_LBO = B_HK, B_SBO = BHC * 16;
+  extern __shared__ __align__(1024) uint8_t bsmem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bsmem + BSTAGES * SLOT);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int x0 = (blockIdx.x % tiles_x) * BTW;
+  const int y0 = (blockIdx.x / tiles_x) * 16;
+  const int m0 = blockIdx.y * 64;
+  const int n = n0 + blockIdx.z;
+  const int stages = (Cin + BK - 1) / BK;
+  const bool masked = DX && relu;
+
+  if (TMA && tid == 0) {
+    for (int i = 0; i < BSTAGES; ++i) mbar_init(bars + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Stage s (channels 16s..16s+15) into slot s % BSTAGES.  Weights: k group
+  // h, m group g, tap t at (h*8 + g)*1152 + t*128 bytes, one core matrix of
+  // 8 rows x 16 bytes: a row is 8 output channels of one input channel
+  // (forward, HWIO as it lies) or 8 input channels of one output channel
+  // (dx).  Halo: k group h at h*B_HK, 16 bytes (8 channels) per pixel,
+  // [row][col].  Zeros outside the image and past the channels.
+  auto load = [&](int s) {
+    uint8_t* slot = bsmem + (s % BSTAGES) * SLOT;
+    const int k0 = s * BK;
+    if constexpr (TMA) {
+      if (tid == 0) {
+        uint64_t* bar = bars + s % BSTAGES;
+        mbar_expect_tx(bar, B_WTS + (masked ? 4 : 2) * B_HBOX);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int g = 0; g < 8; ++g)
+            tma3d(slot + (h * 8 + g) * 1152, &tm_w, DX ? k0 + 8 * h : m0 + 8 * g,
+                  DX ? m0 + 8 * g : k0 + 8 * h, 0, bar);
+          tma4d(slot + B_WTS + h * B_HK, &tm_in, k0 + 8 * h, x0 - 1, y0 - 1, n, bar);
+          if (masked)
+            tma4d(slot + B_WTS + B_HALO + h * B_HK, &tm_mask, k0 + 8 * h, x0 - 1, y0 - 1, n, bar);
+        }
+      }
+    } else {
+      // element by element: any Cin, Cout and alignment
+      for (int i = tid; i < 9 * 128; i += B_THREADS) {
+        const int r = i & 7, tap = (i >> 3) % 9, gh = (i >> 3) / 9;
+        const int g = gh & 7, h = gh >> 3;
+        // (row of the weight tensor, first of the 8 contiguous elements)
+        const int rk = DX ? m0 + 8 * g + r : k0 + 8 * h + r;
+        const int e0 = DX ? k0 + 8 * h : m0 + 8 * g;
+        const int rows = DX ? Cout : Cin, cols = DX ? Cin : Cout;
+        const uint16_t* src = w + ((size_t)tap * rows + rk) * cols + e0;
+        uint16_t v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = rk < rows && e0 + e < cols ? src[e] : 0;
+        *reinterpret_cast<uint4*>(slot + gh * 1152 + tap * 128 + r * 16) =
+            *reinterpret_cast<const uint4*>(v);
+      }
+      const size_t plane = (size_t)H * W * Cin;
+      const uint16_t* inn = in + n * plane;
+      const uint16_t* mn = mask + n * plane;
+      for (int i = tid; i < 2 * BHR * BHC; i += B_THREADS) {
+        const int h = i / (BHR * BHC), p = i % (BHR * BHC);
+        const int gh = y0 - 1 + p / BHC, gw = x0 - 1 + p % BHC, gc = k0 + 8 * h;
+        const bool inside = gh >= 0 && gh < H && gw >= 0 && gw < W;
+        const size_t off = inside ? ((size_t)gh * W + gw) * Cin + gc : 0;
+        uint16_t v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const bool ok = inside && gc + e < Cin;
+          v[e] = ok && (!masked || bf16_pos(mn[off + e])) ? inn[off + e] : 0;
+        }
+        *reinterpret_cast<uint4*>(slot + B_WTS + h * B_HK + 16 * p) =
+            *reinterpret_cast<const uint4*>(v);
+      }
+    }
+  };
+
+  // Each 64-channel chunk sums in a fresh fragment (the tensor cores round
+  // toward zero); the chunks add in fp32 registers, rounding to nearest.
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+#pragma unroll
+  for (int q = 0; q < BAHEAD; ++q)
+    if (q < stages) load(q);
+  for (int c0 = 0; c0 < stages; c0 += BCHUNK) {
+    const int c1 = c0 + BCHUNK < stages ? c0 + BCHUNK : stages;
+    fence_operand(part);
+    for (int s = c0; s < c1; ++s) {
+      uint8_t* slot = bsmem + (s % BSTAGES) * SLOT;
+      if constexpr (TMA) {
+        mbar_wait(bars + s % BSTAGES, (s / BSTAGES) & 1);     // stage s has landed
+        if (masked) {
+          uint4* hx = reinterpret_cast<uint4*>(slot + B_WTS);
+          const uint4* mx = reinterpret_cast<const uint4*>(slot + B_WTS + B_HALO);
+#pragma unroll
+          for (int it = 0; it < T::MASK_ITERS; ++it) {
+            const int p = tid + it * B_THREADS;
+            if (p < BHR * BHC) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                hx[h * (B_HK / 16) + p] = mask8(hx[h * (B_HK / 16) + p], mx[h * (B_HK / 16) + p]);
+            }
+          }
+        }
+      }
+      // the element path's and the mask's shared-memory stores, visible to wgmma
+      if (!TMA || masked) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      // slot (s + BAHEAD) % BSTAGES last held stage s - 2, whose products
+      // every warpgroup has waited for (wait_group 1 at the end of stage s - 1)
+      if (s + BAHEAD < stages) load(s + BAHEAD);
+
+      const uint32_t a0 = smem_u32(slot);
+      const uint32_t b0 = smem_u32(slot + B_WTS) + wg * 8 * 16;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint32_t shift = ((tap / 3) * BHC + tap % 3) * 16;
+        wgmma_bf16_n128<DX ? 0 : 1>(part, make_desc(a0 + (DX ? 8 - tap : tap) * 128, A_LBO, A_SBO),
+                                    make_desc(b0 + shift, B_LBO, B_SBO),
+                                    s == c0 && tap == 0 ? 0 : 1);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_operand(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+  }
+  __syncthreads();                                  // every product read its slot
+
+  // Epilogue: bias (+ ReLU) in fp32, one round to nearest bf16, staged in
+  // shared memory as [pixel][64 channels] (padded to 72), then written 16
+  // bytes (8 channels of one pixel) a thread at a time.
+  const int lane = tid & 31, warp = (tid & 127) >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int cl = warp * 16 + g;                     // local channel of acc[4j + e]
+  float bv0 = 0.f, bv1 = 0.f;
+  if (!DX) {
+    const int c0 = m0 + cl, c1 = c0 + 8;
+    if (bias_bf16) {
+      const uint16_t* bb = static_cast<const uint16_t*>(bias);
+      bv0 = c0 < Cout ? __uint_as_float((uint32_t)bb[c0] << 16) : 0.f;
+      bv1 = c1 < Cout ? __uint_as_float((uint32_t)bb[c1] << 16) : 0.f;
+    } else {
+      const float* bb = static_cast<const float*>(bias);
+      bv0 = c0 < Cout ? bb[c0] : 0.f;
+      bv1 = c1 < Cout ? bb[c1] : 0.f;
+    }
+  }
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(bsmem);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v0 = acc[4 * j + e] + bv0, v1 = acc[4 * j + 2 + e] + bv1;
+      if (!DX && relu) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
+      const int p = j * BTW + wg * 8 + 2 * t + e;   // pixel of the BTW x 16 tile
+      tile[p * B_OUT_LD + cl] = __float2bfloat16_rn(v0);
+      tile[p * B_OUT_LD + cl + 8] = __float2bfloat16_rn(v1);
+    }
+  }
+  __syncthreads();
+  uint16_t* on = out + n * (size_t)H * W * Cout;
+  for (int i = tid; i < 16 * BTW * 8; i += B_THREADS) {
+    const int p = i / 8, cv = i % 8;
+    const int oh = y0 + p / BTW, ow = x0 + p % BTW, co = m0 + 8 * cv;
+    if (oh >= H || ow >= W || co >= Cout) continue;
+    const uint16_t* src = reinterpret_cast<const uint16_t*>(tile) + p * B_OUT_LD + 8 * cv;
+    uint16_t* dst = on + ((size_t)oh * W + ow) * Cout + co;
+    if (TMA) {                                      // Cout % 8 == 0 and 16-byte aligned
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && co + e < Cout; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime so that
+// the library does not link -lcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map: dims innermost first, strides in bytes of dims 1.., the
+// box, zero fill outside.  0, or an error code the wrapper reports.
+int bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+             const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+                        const_cast<void*>(base), dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
+}
+
+template <bool DX, bool TMA, int WGN>
+int launch_bf16_kernel(const CUtensorMap* maps, const uint16_t* in, const uint16_t* mask,
+                       const uint16_t* w, const void* bias, int bias_bf16, uint16_t* out, int N,
+                       int H, int W, int Cin, int Cout, int relu, cudaStream_t stream) {
+  using T = BTile<WGN>;
+  constexpr int SMEM = T::template smem<DX>();
+  static_assert(SMEM >= 16 * T::TW * B_OUT_LD * 2, "the output tile reuses the ring");
+  auto kernel = conv3x3_bf16_kernel<DX, TMA, WGN>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (W + T::TW - 1) / T::TW;
+  const int tiles = tiles_x * ((H + 15) / 16);
+  for (int n0 = 0; n0 < N; n0 += MAX_GRID_Z) {
+    const int nn = N - n0 < MAX_GRID_Z ? N - n0 : MAX_GRID_Z;
+    dim3 grid((unsigned)tiles, (unsigned)((Cout + 63) / 64), (unsigned)nn);
+    kernel<<<grid, T::THREADS, SMEM, stream>>>(maps[0], maps[1], maps[2], in, mask, w, bias,
+                                               bias_bf16, out, n0, H, W, Cin, Cout, tiles_x,
+                                               relu);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// TMA when every row the boxes read starts 16-byte aligned (Cin, Cout
+// multiples of 8, aligned tensors), the element path otherwise.  With TMA,
+// three warpgroups (24-pixel-wide tiles, a third less weight traffic per
+// pixel) unless that pads the image's width more than 16-pixel tiles do.
+template <bool DX>
+int launch_bf16(const uint16_t* in, const uint16_t* mask, const uint16_t* w, const void* bias,
+                int bias_bf16, uint16_t* out, int N, int H, int W, int Cin, int Cout, int relu,
+                cudaStream_t stream) {
+  const bool masked = DX && relu;
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool tma = Cin % 8 == 0 && Cout % 8 == 0 && aligned(in) && aligned(w) && aligned(out) &&
+                   (!masked || aligned(mask));
+  CUtensorMap maps[3] = {};
+  if (!tma)
+    return launch_bf16_kernel<DX, false, 2>(maps, in, mask, w, bias, bias_bf16, out, N, H, W,
+                                            Cin, Cout, relu, stream);
+  const bool wide = (W + 23) / 24 * 24 <= (W + 15) / 16 * 16;
+  const cuuint64_t es = 2;
+  const cuuint64_t act[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
+  const cuuint64_t act_st[3] = {es * Cin, es * Cin * W, es * Cin * W * H};
+  const cuuint32_t act_box[4] = {8, (cuuint32_t)(wide ? BTile<3>::HC : BTile<2>::HC), BHR, 1};
+  // forward: (3, 3, Cin, Cout), Cout innermost; dx: (3, 3, Cout, Cin), Cin innermost
+  const cuuint64_t inner = DX ? Cin : Cout, outer = DX ? Cout : Cin;
+  const cuuint64_t wd[3] = {inner, outer, 9};
+  const cuuint64_t w_st[2] = {es * inner, es * inner * outer};
+  const cuuint32_t w_box[3] = {8, 8, 9};
+  int rc = bf16_map(&maps[0], in, 4, act, act_st, act_box);
+  if (rc == 0) rc = bf16_map(&maps[1], masked ? mask : in, 4, act, act_st, act_box);
+  if (rc == 0) rc = bf16_map(&maps[2], w, 3, wd, w_st, w_box);
+  if (rc != 0) return rc;
+  return wide ? launch_bf16_kernel<DX, true, 3>(maps, in, mask, w, bias, bias_bf16, out, N, H, W,
+                                                Cin, Cout, relu, stream)
+              : launch_bf16_kernel<DX, true, 2>(maps, in, mask, w, bias, bias_bf16, out, N, H, W,
+                                                Cin, Cout, relu, stream);
+}
+
 }  // namespace
 
 // Floats of the split-weight workspace that the fp32 calls take (ws), for a
@@ -430,4 +898,19 @@ extern "C" int conv3x3_dx_f32(const float* gy, const float* y, const float* w, f
                               float* dx, int N, int H, int W, int C, int K, int relu,
                               cudaStream_t stream) {
   return launch_f32<true>(gy, y, w, nullptr, ws, dx, N, H, W, K, C, relu, stream);
+}
+
+// bf16 (the --dtype bfloat16 lane): x, w, y bf16; b fp32 or bf16 (b_bf16).
+extern "C" int conv3x3_bias_relu_bf16(const uint16_t* x, const uint16_t* w, const void* b,
+                                      int b_bf16, uint16_t* y, int N, int H, int W, int C,
+                                      int Co, int relu, cudaStream_t stream) {
+  return launch_bf16<false>(x, x, w, b, b_bf16, y, N, H, W, C, Co, relu, stream);
+}
+
+// gy, y: (N, H, W, K) bf16; w: (3, 3, C, K) bf16, the forward HWIO weight;
+// dx: (N, H, W, C) bf16.
+extern "C" int conv3x3_dx_bf16(const uint16_t* gy, const uint16_t* y, const uint16_t* w,
+                               uint16_t* dx, int N, int H, int W, int C, int K, int relu,
+                               cudaStream_t stream) {
+  return launch_bf16<true>(gy, y, w, nullptr, 0, dx, N, H, W, K, C, relu, stream);
 }

@@ -10,11 +10,12 @@ fp32 it runs on the TF32 tensor cores in three passes (3xTF32: each operand
 split into a tf32 hi and its remainder lo, lo·hi + hi·lo + hi·hi summed in
 fp32), which keeps fp32 accuracy; a pre-pass kernel splits the weight into
 a workspace the wrapper allocates.  In bf16 (the ``--dtype bfloat16``
-LPIPS) both directions run the same kernel on their inputs widened to fp32
-(exact: a bf16 product fits the fp32 sum, and a bf16 operand is its own
-tf32 hi with a zero lo) and round the output to bf16 once, as the Pallas
-kernel sums bf16 operands in fp32 and writes its output's dtype.  The
-source notes say what bounds it on the H100 and how it is laid out.
+LPIPS) both directions run the template's bf16 instance: it reads the bf16
+tensors as they lie and multiplies them in one bf16 pass (exact products,
+fp32 sums), adds the bias (fp32 or bf16) and the ReLU in fp32 and rounds
+once to bf16, as the Pallas kernel sums bf16 operands in fp32 and writes
+its output's dtype; no cast, no workspace.  The source notes say what
+bounds it on the H100 and how it is laid out.
 
 :func:`conv3x3_bias_relu` is differentiable (a ``torch.autograd.Function``,
 entered only when an input requires a gradient): its backward launches the
@@ -37,6 +38,10 @@ from ._launch import entry, launch
 
 # (x|gy, w|y, b|w, ws, y|dx); six ints; the stream
 _F32_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# forward: (x, w, b), b_bf16, y; dx: (gy, y, w, dx); six ints; the stream
+_BF16_FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] \
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BF16_DX_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def conv3x3_bias_relu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -90,20 +95,24 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool) -> t
                         f"bfloat16, got {x.dtype} and {w.dtype}")
     n, h, wd, c = x.shape
     co = w.shape[-1]
-    dtype = x.dtype
-    # bf16 runs the fp32 kernel: exact widening in, one rounding out
-    x = x.float().contiguous()
-    w = w.float().contiguous()
-    b = b.float().contiguous()
-    y = torch.empty((n, h, wd, co), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    x, w = x.contiguous(), w.contiguous()
+    # the bf16 instance reads a bf16 bias as it lies; any other goes in as fp32
+    b = (b if bf16 and b.dtype == torch.bfloat16 else b.float()).contiguous()
+    y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
-        return y.to(dtype)
-    ws = _workspace(c, co, x.device)
-    launch(entry("conv3x3", "conv3x3_bias_relu_f32", _F32_ARGTYPES), x.device,
-           x.data_ptr(), w.data_ptr(), b.data_ptr(), ws.data_ptr(), y.data_ptr(),
-           n, h, wd, c, co, int(bool(relu)))
+        return y
+    if bf16:
+        launch(entry("conv3x3", "conv3x3_bias_relu_bf16", _BF16_FWD_ARGTYPES), x.device,
+               x.data_ptr(), w.data_ptr(), b.data_ptr(), int(b.dtype == torch.bfloat16),
+               y.data_ptr(), n, h, wd, c, co, int(bool(relu)))
+    else:
+        ws = _workspace(c, co, x.device)
+        launch(entry("conv3x3", "conv3x3_bias_relu_f32", _F32_ARGTYPES), x.device,
+               x.data_ptr(), w.data_ptr(), b.data_ptr(), ws.data_ptr(), y.data_ptr(),
+               n, h, wd, c, co, int(bool(relu)))
     conv3x3_bias_relu.launches += 1
-    return y.to(dtype)
+    return y
 
 
 def conv3x3_dx(gy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -126,20 +135,22 @@ def conv3x3_dx(gy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                         f"{gy.dtype}, y {y.dtype}, w {w.dtype}")
     n, h, wd, k = gy.shape
     c = w.shape[2]
-    dtype = gy.dtype
-    # bf16 runs the fp32 kernel: exact widening in, one rounding out
-    gy = gy.float().contiguous()
-    y = y.float().contiguous() if relu else gy
-    w = w.float().contiguous()
-    dx = torch.empty((n, h, wd, c), dtype=torch.float32, device=gy.device)
+    gy, w = gy.contiguous(), w.contiguous()
+    y = y.contiguous() if relu else gy
+    dx = torch.empty((n, h, wd, c), dtype=gy.dtype, device=gy.device)
     if dx.numel() == 0:
-        return dx.to(dtype)
-    ws = _workspace(k, c, gy.device)
-    launch(entry("conv3x3", "conv3x3_dx_f32", _F32_ARGTYPES), gy.device,
-           gy.data_ptr(), y.data_ptr(), w.data_ptr(), ws.data_ptr(), dx.data_ptr(),
-           n, h, wd, c, k, int(bool(relu)))
+        return dx
+    if gy.dtype == torch.bfloat16:
+        launch(entry("conv3x3", "conv3x3_dx_bf16", _BF16_DX_ARGTYPES), gy.device,
+               gy.data_ptr(), y.data_ptr(), w.data_ptr(), dx.data_ptr(),
+               n, h, wd, c, k, int(bool(relu)))
+    else:
+        ws = _workspace(k, c, gy.device)
+        launch(entry("conv3x3", "conv3x3_dx_f32", _F32_ARGTYPES), gy.device,
+               gy.data_ptr(), y.data_ptr(), w.data_ptr(), ws.data_ptr(), dx.data_ptr(),
+               n, h, wd, c, k, int(bool(relu)))
     conv3x3_dx.launches += 1
-    return dx.to(dtype)
+    return dx
 
 
 conv3x3_dx.launches = 0
