@@ -65,14 +65,38 @@ Phases, each of which must pass or the script exits non-zero:
      traced by torch.profiler shows the conv kernel and no copy kernel; K2
      bit-exact, K2 bwd with a bf16 cotangent bit-exact against the serial
      CPU index_put_ rounded once to bf16;
+  2c. the kernels at the tactile super-resolution shapes, TF32 off: K1 and
+     K1 dx at the x2 (64² patches) and x4 (128²) touch-patch LPIPS shapes
+     within the fp32 limit; K2 bit-exact at cut 64 on a 3072² touch canvas
+     with x2 coords and at cut 128 on 6144² with x4 coords, from coords and
+     from offsets (edge and out-of-bounds windows included); K2 bwd there
+     bit-exact against the serial CPU index_put_, the same bits twice;
+  4c. the x2 path (--T_resolution_multiplier 2) at the full-width training
+     defaults on a x2 garment: ``vts_torch.train`` for 2 epochs of 2 steps
+     with D3 from epoch 2 and the gallery once, every loss finite, every
+     kernel launched, one D3-active step launching as ``PER_STEP_TMULT2``
+     says (5 K2 launches), no patch_offsets call on the host; its best G
+     through ``vts_torch.test`` (8 finite metrics); a 256² x2 step on cuda
+     and on cpu from the same weights and draws, as in phase 4 except that
+     G's per-leaf limit is 4x and G is also held to 1e-4 in the 2-norm (see
+     :func:`compare_steps`);
+  4d. one full-width x4 step (6144² touch canvas, D3 active) with its wall
+     and peak memory; a 256² step with --gan_mode wgangp --normD instance
+     --diffaugment bscton --netD patch --netD2 pixel (learning rates 0, see
+     ``SURFACE_ARGS``) on cuda and on cpu (the penalty's double backward on
+     the card), as in phase 4 with the round-off leaves found from the CPU
+     gradient;
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
      their fp32 CUDA-core bound beside it; a row's bound is the sum over its
      shapes of launches × that shape's bound), and the device-only time of
-     every kernel and library call from one torch.profiler session, with
-     the D3 part of a step (both CLIP passes, the backward, resize_mm)
-     beside them; the wall time of one test sample, and of one 1536²
+     every kernel from one torch.profiler session, beside CUDA events in that
+     session (medians over the runs); the D3 part of a step (both CLIP
+     passes, the backward, resize_mm) by events; the device-only times of
+     the library calls and the D3 part from a second session, in a process
+     of its own that maps these tensors; the wall time of one test sample,
+     and of one 1536²
      training step before D3's warmup and with D3 active (median of 5
      after 2 warm-ups each) with its peak memory and launches (and no
      patch_offsets call on the host); the bf16 lane's kernels the same way
@@ -80,14 +104,16 @@ Phases, each of which must pass or the script exits non-zero:
      bf16, the route K1's bf16 instance replaced — widened to the fp32
      kernel and rounded back — beside it), and the lane's untraced step with
      D3 active before and after the anneal (median of 5 after 2 warm-ups,
-     samples/s, peak memory).
+     samples/s, peak memory); the x2 path's kernels at one step's shapes,
+     its untraced D3-active step (median of 5 after 2 warm-ups, samples/s,
+     peak memory) and one x2 test sample.
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel and
 path: an ``eval`` row covers one test sample (its launches are the test
 run's, which holds one sample, less the gallery's), a ``train`` row one
 training step (its launches are those of a timed D3-active step, counted
-from 0) and a ``train_bf16`` row one step of the production lane before its
-anneal (likewise); ``ms``, ``plain_ms``,
+from 0), a ``train_bf16`` row one step of the production lane before its
+anneal (likewise) and a ``train_tmult2`` row one D3-active x2 step; ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` sum the per-shape times over those launches,
 and ``max_abs_err`` is the worst of the checks at that path's shapes.  The
 last line is ``{"ok": true, "device": {...}}``.  Nothing is printed as a result unless
@@ -181,6 +207,38 @@ K1_BF16_ANNEALED = [(2, 1536, 1536, 64, 64), (2, 768, 768, 64, 128), (2, 768, 76
 PER_STEP_BF16 = {"conv3x3_bias_relu": sum(r[5] for r in K1_BF16),
                  "conv3x3_dx": sum(r[6] for r in K1_BF16),
                  "gather_patches": len(K2_TRAIN), "scatter_patches": 1}
+# The x2 tactile super-resolution path (--T_resolution_multiplier 2): a
+# 3072² touch canvas and 64² touch patches.  K1 at the canvas as in K1_TRAIN
+# and at the patches (the patch LPIPS on 2·64 64² patches, x and y, dx for x).
+# K2 in five groups a step, one launch each: (group, canvas side, channels, K,
+# windows, cut, scale multiplier of the coords).  A_T: fake_T for D2 at the
+# batch's coords; A_SI: S and the two augmented I there at 32²; B_T: fake_T
+# at the "more fake T" offsets on the touch canvas; B_SI: fake_I and S at
+# those offsets // 2; C: fake_T for G's losses (the gather with K2 bwd).
+TMULT = 2
+TOUCH2, TOUCH4 = CANVAS * 2, CANVAS * 4
+K1_TMULT2 = K1_TRAIN[:3] + [(128, 64, 64, 64, 64, 2, 1), (128, 32, 32, 64, 128, 2, 1),
+                            (128, 32, 32, 128, 128, 2, 1)]
+K1_TMULT4 = [(128, 128, 128, 64, 64), (128, 64, 64, 64, 128), (128, 64, 64, 128, 128)]
+K2_TMULT2 = [("A_T", TOUCH2, (2,), 64, "coords", 64, 2),
+             ("A_SI", CANVAS, (1, 3, 3), 64, "coords", 32, 1),
+             ("B_T", TOUCH2, (2,), 32, "offsets", 64, 1),
+             ("B_SI", CANVAS, (3, 1), 32, "offsets", 32, 1),
+             ("C", TOUCH2, (2,), 64, "coords", 64, 2)]
+PER_STEP_TMULT2 = {"conv3x3_bias_relu": sum(r[5] for r in K1_TMULT2),
+                   "conv3x3_dx": sum(r[6] for r in K1_TMULT2),
+                   "gather_patches": len(K2_TMULT2), "scatter_patches": 1}
+X2_DATA = f"synthetic://smoke?size={PADDED}&mult=2"
+# the rest of the sinskit training surface, in one 256² step (the patch D2
+# cannot run: its per-tile losses do not line up with the patches' mask, in
+# the reference too, so the patch D is D1's).  The learning rates are 0, so
+# that G's GAN losses read the same Ds on both sides: Adam's first step moves
+# every element by ±lr by the sign of its gradient, and under a WGAN loss a
+# logit head's bias has an exactly-zero gradient whose round-off takes
+# either sign (at the default rates G_GAN read -0.0186 on cuda and -0.0242
+# on cpu from the same weights and draws, on an H100).
+SURFACE_ARGS = ["--gan_mode", "wgangp", "--normD", "instance", "--diffaugment", "bscton",
+                "--netD", "patch", "--netD2", "pixel", "--lr", "0", "--lr_G2", "0"]
 
 
 def check(cond, msg):
@@ -205,45 +263,209 @@ def cuda_ms(fn, reps=10, warmup=2):
 
 def device_times(calls):
     """Device-only time of one call of each fn in ms, from one torch.profiler
-    session.  ``calls`` holds (fn, name, reps): each fn runs reps times
-    between two spin kernels (``torch.cuda._sleep``) that mark its span, and
-    its time is the CUDA time of the span's kernels whose name holds
-    ``name`` (every kernel if ``name`` is empty) over reps.  None where the
-    span shows no such kernel, or one a number of times that is not a
-    multiple of reps (the trace lost launches); all None if the spans cannot
-    be told apart.  One session: a profiler session per call lost launches
-    after some dozens of sessions on the H100."""
+    session, beside its time by CUDA events in the same session: a list of
+    (device ms, events ms, first run's device ms).  ``calls`` holds (fn,
+    name, reps): each fn runs twice to warm up, then reps times between two
+    markers (spin kernels, ``torch.cuda._sleep``) of its span, with an
+    event pair around each run.  A run's device time is the time in which
+    at least one of its kernels whose name holds ``name`` (every kernel if
+    ``name`` is empty) runs (some cuDNN calls run kernels side by side);
+    both times are the median over the runs.  Nones where the span shows no
+    such kernel, or one a number of times that is not a multiple of reps
+    (the trace lost launches); all Nones if the spans cannot be told apart
+    (a marker lost).  One session: a session per call lost launches after some dozens
+    of sessions on the H100, and a second session in a process recorded only
+    part of its spans (:func:`library_device_times` runs one in a process of
+    its own)."""
     from torch.profiler import ProfilerActivity, profile
     for fn, _, _ in calls:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn, _, reps in calls:
-            torch.cuda._sleep(1000)
-            for _ in range(reps):
-                fn()
+    def marker():
+        # two spin kernels; a run of spins is one marker
         torch.cuda._sleep(1000)
+        torch.cuda._sleep(1000)
+    evs = [[(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            for _ in range(reps)] for _, _, reps in calls]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the session's first device events go missing on an H100 now and
+        # then (58 markers for 58 calls): a run of spins to lose first, which
+        # merges with the first call's marker
+        for _ in range(8):
+            marker()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for (fn, _, _), pairs in zip(calls, evs):
+            # two warm-ups right before the runs, as cuda_ms does, in a span
+            # of their own
+            marker()
+            fn()
+            fn()
+            marker()
+            for st, en in pairs:
+                st.record()
+                fn()
+                en.record()
+        marker()
         torch.cuda.synchronize()
     events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-    spans = []
+    spans, in_marker = [], False
     for e in events:
         if "spin" in e.name:
-            spans.append([])
-        elif spans:
-            spans[-1].append(e)
-    if len(spans) != len(calls) + 1:
-        return [None] * len(calls)
+            if not in_marker:
+                spans.append([])
+            in_marker = True
+        else:
+            in_marker = False
+            if spans:
+                spans[-1].append(e)
+    if len(spans) != 2 * len(calls) + 1:
+        print(f"[device-only] the session shows {len(spans)} markers for {len(calls)} calls "
+              f"({len(events)} device events): not measured")
+        return [(None, None, None)] * len(calls)
     out = []
-    for (_, name, reps), span in zip(calls, spans):
-        counts = {}
-        for e in span:
-            if name in e.name:
-                counts[e.name] = counts.get(e.name, 0) + 1
-        ok = counts and not any(c % reps for c in counts.values())
-        out.append(sum(e.time_range.end - e.time_range.start for e in span if name in e.name)
-                   / reps / 1e3 if ok else None)
+    for (_, name, reps), span, pairs in zip(calls, spans[1::2], evs):
+        mine = [e for e in span if name in e.name]
+        if not mine or len(mine) % reps:
+            out.append((None, None, None))
+            continue
+        k = len(mine) // reps
+        per_run = [busy_us(mine[i * k:(i + 1) * k]) / 1e3 for i in range(reps)]
+        out.append((statistics.median(per_run),
+                    statistics.median(st.elapsed_time(en) for st, en in pairs), per_run[0]))
     return out
+
+
+def busy_us(events):
+    """The µs in which at least one of ``events`` (sorted by start) runs."""
+    total, end = 0.0, float("-inf")
+    for e in events:
+        start = max(e.time_range.start, end)
+        if e.time_range.end > start:
+            total += e.time_range.end - start
+            end = e.time_range.end
+    return total
+
+
+def d3_part(clip, heads, real_I, fake_I):
+    """The D3 part of a step: CLIP of the real I without a gradient, CLIP of
+    fake_I with one, the backward to fake_I (through the 12 blocks and
+    resize_mm)."""
+    from vts_torch.losses.vision_aided import d3_logits, softplus
+
+    def run():
+        with torch.no_grad():
+            d3_logits(clip, heads, real_I)
+        f = fake_I.detach().requires_grad_(True)
+        loss = sum(torch.mean(softplus(-lg)) for lg in d3_logits(clip, heads, f))
+        return torch.autograd.grad(loss, f)[0]
+    return run
+
+
+def library_call(spec):
+    """The library call that a timed row is set beside, from its spec
+    (kind, tensors...): ``conv_relu`` cuDNN's conv + ReLU; ``conv_dx``
+    cuDNN's input gradient of the masked cotangent; ``indexing`` advanced
+    indexing at each (image, row index, column index); ``index_add`` zeros +
+    index_add_; ``d3`` the D3 part of a step on the seeded CLIP tower and
+    heads the model builds; ``resize`` resize_mm to 224²."""
+    import torch.nn.functional as F
+    kind, args = spec[0], spec[1:]
+    if kind == "conv_relu":
+        x, w, b = args
+        return lambda: F.relu(F.conv2d(x, w, b, padding=1))
+    if kind == "conv_dx":
+        shape, w, gy, y = args
+        return lambda: torch.nn.grad.conv2d_input(shape, w, gy * (y > 0), padding=1)
+    if kind == "indexing":
+        return lambda: [img[iy, ix] for img, iy, ix in args[0]]
+    if kind == "index_add":
+        numel, flat, g = args
+        return lambda: torch.zeros(numel, 2, device=g.device, dtype=g.dtype).index_add_(
+            0, flat, g)
+    if kind == "d3":
+        from vts_torch.losses.vision_aided import D3Heads, init_d3_head_params
+        from vts_torch.networks.clip_vit import CLIPViT, init_clip_params
+        real_I, fake_I = args
+        clip = CLIPViT(init_clip_params(0)).to(real_I.device)
+        heads = D3Heads(init_d3_head_params(0)).to(real_I.device)
+        return d3_part(clip, heads, real_I, fake_I)
+    if kind == "resize":
+        from vts_torch.ops.resize_mm import resize_mm
+        return lambda: resize_mm(args[0], (224, 224))
+    raise ValueError(kind)
+
+
+def backend_flags():
+    """The backend settings a timed library call depends on (TF32 off in
+    cuDNN and cuBLAS, cuDNN's algorithm choice), to carry into a child."""
+    b = torch.backends
+    return dict(cudnn_tf32=b.cudnn.allow_tf32, matmul_tf32=b.cuda.matmul.allow_tf32,
+                deterministic=b.cudnn.deterministic, benchmark=b.cudnn.benchmark)
+
+
+def _library_device_times(conn):
+    """Child process of :func:`library_device_times`: takes the parent's
+    backend flags and the specs from ``conn``, sends the times back after
+    dropping every tensor it mapped."""
+    import gc
+    flags, specs = conn.recv()
+    b = torch.backends
+    b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = flags["cudnn_tf32"], flags["matmul_tf32"]
+    b.cudnn.deterministic, b.cudnn.benchmark = flags["deterministic"], flags["benchmark"]
+    try:
+        if backend_flags() != flags:
+            raise RuntimeError(f"backend flags {backend_flags()} differ from the parent's {flags}")
+        calls = [(library_call(spec), "", reps) for spec, reps in specs]
+        out = device_times(calls)
+    except Exception as e:                      # noqa: BLE001 (sent back and printed)
+        out = f"{type(e).__name__}: {e}"
+    calls = specs = None
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    conn.send(out)
+    conn.close()
+
+
+def library_device_times(specs, timeout=600):
+    """:func:`device_times` of the library calls of ``specs`` ((spec, reps)
+    pairs, see :func:`library_call`) in a profiler session of a process of
+    its own, which maps this process's tensors (CUDA IPC): with our kernels
+    in one session the library calls and the D3 part (65k-108k device
+    events) lost span markers on an H100.  The child runs under this
+    process's backend flags: a fresh process has cuDNN's TF32 on."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    here, there = ctx.Pipe()
+    proc = ctx.Process(target=_library_device_times, args=(there,))
+    proc.start()
+    there.close()
+    try:
+        here.send((backend_flags(), specs))
+        out = here.recv() if here.poll(timeout) else f"no answer in {timeout} s"
+    except (EOFError, OSError):
+        out = f"the process ended with code {proc.exitcode}"
+    finally:
+        proc.join(30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    if isinstance(out, str):
+        print(f"[device-only] library calls: {out}; not measured")
+        return [(None, None, None)] * len(specs)
+    return out
+
+
+def card_state():
+    """The card's SM clock, power draw and temperature, as nvidia-smi reads
+    them now."""
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=30).stdout.strip() or "not read"
+    except (OSError, subprocess.SubprocessError):
+        return "not read"
 
 
 def host_ms(fn, reps=200):
@@ -262,6 +484,14 @@ def host_ms(fn, reps=200):
 
 def fmt_ms(v):
     return "not measured" if v is None else f"{v:.5f} ms"
+
+
+def fmt_dev(times):
+    """A (device ms, events ms, first run's device ms) of
+    :func:`device_times` as printed."""
+    dev, ev, first = times
+    return "not measured" if dev is None else (f"{dev:.5f} ms, first run {first:.5f} ms; "
+                                               f"events in its session {ev:.5f} ms")
 
 
 def bf16_tol(ref):
@@ -321,7 +551,7 @@ def read_counts():
 # the bias of a conv that a norm follows has an exactly-zero gradient (the
 # norm removes any per-channel constant), so only round-off is left there;
 # the logit head's bias sums fake and real terms of opposite sign.
-ZERO_GRAD = re.compile(r"(down[1-6]|up[1-7](_T)?|Conv4x4_[123])\W.*bias")
+ZERO_GRAD = re.compile(r"(down[1-6]|up[1-7](_T)?|up0_T_extra\d|Conv4x4_[123])\W.*bias")
 CANCELLING = re.compile(r"Conv4x4_4\W.*bias")
 
 
@@ -334,16 +564,16 @@ def grad_tol(name, g, net_max):
     return 1e-4 * g.abs().max().item() + (1e-5 * net_max if CANCELLING.search(name) else 0.0)
 
 
-def gather_bytes(ox, oy, chans, window_bytes, cut=32, esize=4):
+def gather_bytes(ox, oy, chans, window_bytes, cut=32, esize=4, side=CANVAS):
     """Bytes one grouped gather must move: each canvas pixel that an image's
     windows ((N, K) or (K,) offsets) touch read once from every source, the
     patches written once, the windows (offsets or coords) read once."""
     ar = torch.arange(cut, device=ox.device)
     pixels = ox.numel() * cut * cut
     for oxi, oyi in zip(ox.reshape(-1, ox.shape[-1]), oy.reshape(-1, oy.shape[-1])):
-        iy = (oyi.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, :, None].expand(-1, -1, cut)
-        ix = (oxi.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, None, :].expand(-1, cut, -1)
-        touched = torch.zeros(CANVAS, CANVAS, dtype=torch.bool, device=ox.device)
+        iy = (oyi.long()[:, None] + ar).clamp(0, side - 1)[:, :, None].expand(-1, -1, cut)
+        ix = (oxi.long()[:, None] + ar).clamp(0, side - 1)[:, None, :].expand(-1, cut, -1)
+        touched = torch.zeros(side, side, dtype=torch.bool, device=ox.device)
         touched[iy, ix] = True
         pixels += int(touched.sum().item())
     return pixels * sum(chans) * esize + window_bytes
@@ -362,6 +592,53 @@ def serial_scatter(grad, ox, oy, shape, mode):
         return k2.scatter_patches_plain(grad.cpu(), ox.cpu(), oy.cpu(), shape, mode)
     finally:
         torch.use_deterministic_algorithms(was)
+
+
+def compare_steps(label, cpu, cuda, g_scale=1.0, named=True):
+    """Losses within rtol 1e-4 (+1e-7) and each network's gradient (Adam's
+    first moment after one step, β1 = 0) per leaf within :func:`grad_tol`
+    of a CUDA step against the CPU step from the same weights and draws.
+    ``named``: the leaves at round-off (≤ 1e-5 of the network's max) must be
+    exactly :data:`ZERO_GRAD`'s; otherwise (other nets and losses, whose
+    round-off leaves the names do not cover) every such leaf is held to that
+    round-off floor.  ``g_scale`` multiplies G's per-leaf limit, and G is
+    then also held to 1e-4 in the 2-norm over the network (the x2 touch
+    LPIPS on 64² patches: fp32 max-pool near-ties and ReLU near-zeros flip
+    differently in any two fp32 implementations; tests/test_torch_port_
+    tmult.py measures it against float64)."""
+    lc, lg = cpu.get_current_losses(), cuda.get_current_losses()
+    check(set(lc) == set(lg), f"{label}: unexpected losses {sorted(lc)} / {sorted(lg)}")
+    worst = max((abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-7), k) for k in lc)
+    print(f"[train ref] {label}, cuda vs cpu: worst loss rel {worst[0]:.2e} ({worst[1]})" + (
+        f" (G_D3 cuda {lg['G_D3']:.7g} cpu {lc['G_D3']:.7g}, D3_loss cuda "
+        f"{lg['D3_loss']:.7g} cpu {lc['D3_loss']:.7g})" if "G_D3" in lc else ""))
+    for k in lc:
+        check(abs(lg[k] - lc[k]) <= 1e-4 * abs(lc[k]) + 1e-7,
+              f"{label}: training loss {k} on cuda {lg[k]} disagrees with cpu {lc[k]}")
+    for net in cpu.adam:
+        mu_c, mu_g = cpu.adam[net].mu, cuda.adam[net].mu
+        net_max = max(v.abs().max().item() for v in mu_c.values())
+        at_roundoff = {k for k, v in mu_c.items() if v.abs().max().item() <= 1e-5 * net_max}
+        if named:
+            check(at_roundoff == {k for k in mu_c if ZERO_GRAD.search(k)},
+                  f"{label}, {net}: the leaves at round-off are not the named ones: "
+                  f"{sorted(at_roundoff)}")
+        scale = g_scale if net == "G" else 1.0
+
+        def tol(k, v):
+            if not named and k in at_roundoff:
+                return 1e-5 * net_max
+            return grad_tol(k, v, net_max) * (1.0 if ZERO_GRAD.search(k) else scale)
+        ratio = {k: (mu_g[k].cpu() - v).abs().max().item() / tol(k, v) for k, v in mu_c.items()}
+        worst = max(ratio, key=ratio.get)
+        norm = rel_norm(mu_g, mu_c, mu_c)
+        print(f"[train ref] {label}, {net} grads cuda vs cpu: worst per-leaf |d|/tolerance "
+              f"{ratio[worst]:.2e} at {worst} (network max |g| {net_max:.3e}, "
+              f"{len(at_roundoff)} leaves at round-off; limit x{scale:g}); |d|/|g| over the "
+              f"network {norm:.2e}")
+        check(ratio[worst] <= 1.0, f"{label}: {net} gradient {worst} on cuda disagrees with cpu")
+        if scale != 1.0:
+            check(norm <= 1e-4, f"{label}: {net} gradient on cuda disagrees with cpu in norm")
 
 
 class Gallery:
@@ -755,6 +1032,74 @@ def main() -> int:
     print("[K2 bf16 check] groups A, B, C on bf16 sources, N 4|2, gather/slice: bit-exact")
     del runs, ref
 
+    # --------------------------------------------------------------- 2c ---
+    print(f"[phase] phase 2c (kernels at the x2 and x4 tactile shapes) from "
+          f"{time.time() - t_start:.1f} s")
+    # K1 and K1 dx at the touch-patch LPIPS shapes, fp32 limit; the x2 ones
+    # (with the canvas shapes a x2 step also runs) kept for phase 5
+    x2_rows = []
+    for shape in K1_TMULT2 + [s_ + (0, 0) for s_ in K1_TMULT4]:
+        n, h, w, c, co, fwd_per_step, dx_per_step = shape
+        x = torch.relu(torch.randn(n, h, w, c, generator=gdev, device=dev))
+        wt = torch.randn(3, 3, c, co, generator=gdev, device=dev) * math.sqrt(2.0 / (9 * c))
+        b = torch.randn(co, generator=gdev, device=dev) * 0.1
+        gy = torch.randn(n, h, w, co, generator=gdev, device=dev)
+        y = k1.conv3x3_bias_relu(x, wt, b)
+        ref = k1.conv3x3_bias_relu_plain(x, wt, b)
+        torch.cuda.synchronize()
+        f_err = (y - ref).abs().max().item()
+        f_tol = 1e-4 * ref.abs().max().item() + 1e-5
+        dx = k1.conv3x3_dx(gy, y, wt)
+        ref = k1.conv3x3_dx_plain(gy, y, wt)
+        torch.cuda.synchronize()
+        err = (dx - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item() + 1e-5
+        print(f"[K1 x{2 if fwd_per_step else 4} check] {(n, h, w, c)}->{co}: fwd max|d| "
+              f"{f_err:.3e} (tol {f_tol:.3e}), dx max|d| {err:.3e} (tol {tol:.3e})")
+        check(f_err <= f_tol and err <= tol, f"K1 or K1 dx disagrees with its plain version at "
+                                            f"{(n, h, w, c, co)}")
+        if fwd_per_step:
+            x2_rows.append(dict(shape=[n, h, w, c, co], fwd=fwd_per_step, dx=dx_per_step,
+                                f_err=f_err, err=err, tensors=(x, wt, b, y, gy)))
+        del dx, ref
+    # K2 and K2 bwd on the touch canvases: cut 64 with x2 coords on 3072²,
+    # cut 128 with x4 coords on 6144², windows from the coords (.5 ties,
+    # padded patches, out-of-bounds and overlapping windows) and from offsets
+    tmult_k2 = {}
+    for mult, side in ((2, TOUCH2), (4, TOUCH4)):
+        cut = 32 * mult
+        img = torch.randn(1, side, side, 2, generator=gdev, device=dev)
+        tc = ties[:1, :K_TRAIN].contiguous()
+        rx, ry = k2.patch_offsets(tc, mult)[:2]
+        oxm = (ox[:1, :32] * mult).contiguous()
+        oym = (oy[:1, :32] * mult).contiguous()
+        for mode in ("gather", "slice"):
+            got = k2.gather_patches_from_coords(img, tc, 32, mult, mode=mode)
+            ref = k2.gather_patches_plain(img, rx, ry, cut, mode=mode)
+            got_o = k2.gather_patches(img, oxm, oym, cut, mode=mode)
+            ref_o = k2.gather_patches_plain(img, oxm, oym, cut, mode=mode)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref) and got.shape == (K_TRAIN, cut, cut, 2)
+                  and torch.equal(got_o, ref_o),
+                  f"K2 at cut {cut} on {side}² differs from its plain version ({mode})")
+        g_in = torch.randn(K_TRAIN, cut, cut, 2, generator=gdev, device=dev)
+        shape = (1, side, side, 2)
+        for mode in ("gather", "slice"):
+            runs = [k2.scatter_patches(g_in, None, None, shape, mode=mode, coords=tc,
+                                       scale_multiplier=mult) for _ in range(2)]
+            runs.append(k2.scatter_patches(g_in, rx, ry, shape, mode=mode))
+            ref = serial_scatter(g_in, rx, ry, shape, mode)
+            torch.cuda.synchronize()
+            check(torch.equal(runs[0], runs[1]), f"K2 bwd at cut {cut} is not deterministic")
+            check(all(torch.equal(r.cpu(), ref) for r in (runs[0], runs[2])),
+                  f"K2 bwd at cut {cut} on {side}² differs from the serial index_put_ ({mode})")
+        print(f"[K2 x{mult} check] cut {cut} on (1, {side}², 2) from x{mult} coords and from "
+              f"offsets, gather/slice: bit-exact; K2 bwd bit-exact against the serial CPU "
+              f"index_put_, two card runs equal")
+        if mult == TMULT:
+            tmult_k2 = dict(image=img, coords=tc, grad=g_in)
+        del img, runs, ref, got, ref_o, got_o
+
     # ---------------------------------------------------------------- 3 ---
     print(f"[phase] phase 3 (test slice) from {time.time() - t_start:.1f} s")
     tmp_dir = tempfile.TemporaryDirectory(prefix="vts_torch_smoke_")
@@ -897,31 +1242,9 @@ def main() -> int:
                        for net in ("G", "D", "D2") for k in pair["cuda"].adam[net].mu)
             print(f"[train ref] two {label}s on CUDA from the same weights and draws give "
                   f"the same gradients bit for bit: {same}")
-        lc, lg = pair["cpu"].get_current_losses(), pair["cuda"].get_current_losses()
-        check(("G_D3" in lc) == ("D3" in label) and set(lc) == set(lg),
-              f"{label}: unexpected losses {sorted(lc)} / {sorted(lg)}")
-        worst = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-7) for k in lc)
-        print(f"[train ref] {label}, cuda vs cpu: worst loss rel {worst:.2e}" + (
-            f" (G_D3 cuda {lg['G_D3']:.7g} cpu {lc['G_D3']:.7g}, D3_loss cuda "
-            f"{lg['D3_loss']:.7g} cpu {lc['D3_loss']:.7g})" if "G_D3" in lc else ""))
-        for k in lc:
-            check(abs(lg[k] - lc[k]) <= 1e-4 * abs(lc[k]) + 1e-7,
-                  f"{label}: training loss {k} on cuda {lg[k]} disagrees with cpu {lc[k]}")
-        for net in ("G", "D", "D2"):
-            mu_c, mu_g = pair["cpu"].adam[net].mu, pair["cuda"].adam[net].mu
-            net_max = max(v.abs().max().item() for v in mu_c.values())
-            at_roundoff = {k for k, v in mu_c.items() if v.abs().max().item() <= 1e-5 * net_max}
-            check(at_roundoff == {k for k in mu_c if ZERO_GRAD.search(k)},
-                  f"{label}, {net}: the leaves at round-off are not the named ones: "
-                  f"{sorted(at_roundoff)}")
-            ratio = {k: (mu_g[k].cpu() - v).abs().max().item() / grad_tol(k, v, net_max)
-                     for k, v in mu_c.items()}
-            worst = max(ratio, key=ratio.get)
-            print(f"[train ref] {label}, {net} grads cuda vs cpu: worst per-leaf "
-                  f"|d|/tolerance {ratio[worst]:.2e} at {worst} (network max |g| "
-                  f"{net_max:.3e}, {len(at_roundoff)} leaves at round-off)")
-            check(ratio[worst] <= 1.0, f"{label}: {net} gradient {worst} on cuda disagrees "
-                                       f"with cpu")
+        lc = pair["cpu"].get_current_losses()
+        check(("G_D3" in lc) == ("D3" in label), f"{label}: unexpected losses {sorted(lc)}")
+        compare_steps(label, pair["cpu"], pair["cuda"])
         del pair
     torch.backends.cudnn.deterministic = cudnn_det
 
@@ -1015,15 +1338,134 @@ def main() -> int:
     del trio
     torch.backends.cudnn.deterministic = cudnn_det
 
+    # --------------------------------------------------------------- 4c ---
+    print(f"[phase] phase 4c (x2 tactile super-resolution) from {time.time() - t_start:.1f} s")
+    # the shipped training defaults with --T_resolution_multiplier 2 on a x2
+    # garment: 2 epochs of 2 steps, D3 from epoch 2, the gallery once
+    x2argv = ["--model", "sinskit", "--name", "tmult2", "--dataroot", X2_DATA,
+              "--device", "cuda", "--T_resolution_multiplier", str(TMULT),
+              "--data_len", "2", "--n_epochs", "2", "--n_epochs_decay", "0",
+              "--vision_aided_warmup_epoch", "2", "--display_freq", "4"] + dirs
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    with CountPatchOffsets() as host_offsets, Gallery() as gallery:
+        x2model = run_train(x2argv)
+    torch.cuda.synchronize()
+    x2_run_launches = read_counts()
+    losses = x2model.get_current_losses()
+    print(f"[x2] 4 steps (D3 active in the last 2) + 2 validations + the gallery in "
+          f"{time.time() - t0:.2f} s (first run, incl. data and model set-up); epoch 2's last "
+          f"losses: " + " ".join(f"{k}={v:.6g}" for k, v in losses.items()))
+    print(f"[x2] launches during the run: {x2_run_launches}")
+    print(gallery.line(f"x2 training gallery ({TOUCH2}² touch canvas)"))
+    check(x2model._outputs["fake_T"].shape == (1, TOUCH2, TOUCH2, 2),
+          f"the x2 fake_T is {tuple(x2model._outputs['fake_T'].shape)}")
+    check(len(losses) >= 15 and {"G_D3", "D3_loss"} <= set(losses)
+          and all(math.isfinite(v) for v in losses.values()),
+          f"a x2 training loss is missing or not finite: {losses}")
+    check(all(x2_run_launches[k] > 0 for k in KERNELS),
+          f"a kernel was not launched by the x2 run: {x2_run_launches}")
+    check(host_offsets.calls == 0, f"the x2 run called patch_offsets {host_offsets.calls} times")
+    check(gallery.passes == 1, f"the x2 gallery made {gallery.passes} visuals passes")
+    reset_counts()
+    x2model.optimize_parameters(2)
+    torch.cuda.synchronize()
+    check(read_counts() == PER_STEP_TMULT2, f"a x2 D3-active step launched {read_counts()}, "
+                                            f"not {PER_STEP_TMULT2}")
+    del x2model
+    x2test = ["--model", "sinskit", "--epoch", "best", "--name", "tmult2", "--dataroot",
+              X2_DATA, "--device", "cuda", "--T_resolution_multiplier", str(TMULT),
+              "--batch_size_G2", str(K_PATCH)] + dirs
+    reset_counts()
+    with CountPatchOffsets() as host_offsets:
+        tm = run_test(x2test)[0]
+    check(len(tm) == 8 and all(math.isfinite(v) for v in tm.values()),
+          f"the x2 best G does not evaluate: {tm}")
+    check(read_counts()["gather_patches"] > 0 and host_offsets.calls == 0,
+          f"the x2 test run: launches {read_counts()}, {host_offsets.calls} patch_offsets calls")
+    print("[x2] best G through vts_torch.test --T_resolution_multiplier 2: " +
+          " ".join(f"{k}={v:.6g}" for k, v in sorted(tm.items())))
+    # a 256² x2 step on cuda and on cpu from the same weights and draws
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    small_x2 = strain + ["--dataroot", SMALL_DATA.replace("small?", "smallx2?") + "&mult=2",
+                         "--T_resolution_multiplier", str(TMULT),
+                         "--use_vision_aided_loss", "false"]
+    pair = {}
+    for key in ("cpu", "cuda"):
+        o = TrainOptions().parse(small_x2 + ["--device", key], quiet=True)
+        pair[key] = create_model(o)
+        pair[key].setup()
+    sbatch = next(iter(create_dataset(o)))
+    draws = pair["cpu"].draw(1)
+    for m in pair.values():
+        m.set_input(sbatch)
+        m.optimize_parameters(1, draws=draws)
+    compare_steps("256² x2 step", pair["cpu"], pair["cuda"], g_scale=4.0)
+    del pair
+
+    # --------------------------------------------------------------- 4d ---
+    print(f"[phase] phase 4d (x4 and the training surface) from {time.time() - t_start:.1f} s")
+    x4opt = TrainOptions().parse(
+        ["--model", "sinskit", "--name", "tmult4", "--dataroot",
+         f"synthetic://smoke?size={PADDED}&mult=4", "--device", "cuda",
+         "--T_resolution_multiplier", "4", "--data_len", "1", "--vision_aided_warmup_epoch", "1",
+         "--no_html"] + dirs, quiet=True)
+    x4batch = next(iter(create_dataset(x4opt)))
+    x4model = create_model(x4opt)
+    x4model.setup()
+    x4model.set_input(x4batch)
+    x4model.optimize_parameters(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    x4model.optimize_parameters(1)
+    losses = x4model.get_current_losses()
+    torch.cuda.synchronize()
+    x4_ms = (time.perf_counter() - t0) * 1e3
+    x4_launches = read_counts()
+    print(f"[x4] one {TOUCH4}² touch-canvas training step (D3 active, 128² touch patches): "
+          f"{x4_ms:.1f} ms wall (second step), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {x4_launches}; "
+          + " ".join(f"{k}={v:.6g}" for k, v in losses.items()))
+    check(x4model._outputs["fake_T"].shape == (1, TOUCH4, TOUCH4, 2)
+          and all(math.isfinite(v) for v in losses.values())
+          and x4_launches == PER_STEP_TMULT2, f"the x4 step: {x4_launches}, {losses}")
+    del x4model, x4batch
+    torch.cuda.empty_cache()
+    # WGAN-GP (the penalty's double backward on the card), instance-norm Ds,
+    # the patch D1 and the pixel D2, every DiffAugment letter
+    pair = {}
+    for key in ("cpu", "cuda"):
+        o = TrainOptions().parse(strain + SURFACE_ARGS + ["--use_vision_aided_loss", "false",
+                                                          "--device", key], quiet=True)
+        pair[key] = create_model(o)
+        pair[key].setup()
+    sbatch = next(iter(create_dataset(o)))
+    draws = pair["cpu"].draw(1, (256, 256))
+    for m in pair.values():
+        m.set_input(sbatch)
+        m.optimize_parameters(1, draws=draws)
+    lc = pair["cpu"].get_current_losses()
+    check(lc["D_I_grad_penalty"] > 0 and lc["D_T_grad_penalty"] > 0,
+          f"the surface step has no gradient penalty: {lc}")
+    compare_steps("256² wgangp/instance/bscton/patch-pixel step", pair["cpu"], pair["cuda"],
+                  named=False)
+    del pair
+    torch.backends.cudnn.deterministic = cudnn_det
+
     # ---------------------------------------------------------------- 5 ---
-    print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s")
+    print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s; the card: {card_state()} "
+          f"(SM clock, power, temperature)")
     rows = {}                     # (kernel, path) -> per-sample or per-step sums
     shape_rows = []
 
     def add(kname, path, per, ms, plain, lib, flops, nbytes, err, shape, peak=PEAK_FP32_FLOPS):
         acc = rows.setdefault((kname, path), dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
                                                   flops=0.0, bytes=0.0, err=0.0, per=0,
-                                                  dev=[], peak=peak, bound=0.0,
+                                                  dev=[], lib_dev=[], peak=peak, bound=0.0,
                                                   by=dict(operations=0.0, bytes=0.0)))
         bound, by = bound_ms(flops, nbytes, peak)
         for k_, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
@@ -1058,8 +1500,8 @@ def main() -> int:
         w_oihw = wt.permute(3, 2, 0, 1).contiguous()
         x_nchw = x.permute(0, 3, 1, 2)
         call = lambda x=x, wt=wt, b=b: k1.conv3x3_bias_relu(x, wt, b)
-        lib_fn = lambda x_nchw=x_nchw, w_oihw=w_oihw, b=b: F.relu(
-            F.conv2d(x_nchw, w_oihw, b, padding=1))
+        lib_spec = ("conv_relu", x_nchw, w_oihw, b)
+        lib_fn = library_call(lib_spec)
         ms = cuda_ms(call)
         plain = cuda_ms(lambda: k1.conv3x3_bias_relu_plain(x, wt, b))
         lib = cuda_ms(lib_fn)
@@ -1070,7 +1512,7 @@ def main() -> int:
         line = k1_line(f"[time K1 eval] {(n, h, w, c)}->{co}", ms, plain, "F.conv2d+relu", lib,
                        bound, flops, tf32_note(flops, nbytes))
         deferred.append((("conv3x3_bias_relu", "eval"), row["per_sample"], len(shape_rows) - 1,
-                         call, "conv3x3", lib_fn, line))
+                         call, "conv3x3", lib_spec, line))
         del row["tensors"]
 
     def time_k1_train(rows, path, peak, tag):
@@ -1085,15 +1527,14 @@ def main() -> int:
             x_nchw, y_nchw, gy_nchw = (t.permute(0, 3, 1, 2) for t in (x, y, gy))
             flops = 2.0 * 9 * n * h * w * c * co
             f_call = lambda x=x, wt=wt, b=b: k1.conv3x3_bias_relu(x, wt, b)
-            f_lib_fn = lambda x_nchw=x_nchw, w_oihw=w_oihw, b=b: F.relu(
-                F.conv2d(x_nchw, w_oihw, b, padding=1))
+            f_spec = ("conv_relu", x_nchw, w_oihw, b)
+            f_lib_fn = library_call(f_spec)
             f_ms, f_lib = cuda_ms(f_call), cuda_ms(f_lib_fn)
             f_plain = cuda_ms(lambda: k1.conv3x3_bias_relu_plain(x, wt, b))
             f_bytes = es * (n * h * w * c + 9 * c * co + co + n * h * w * co)
             d_call = lambda gy=gy, y=y, wt=wt: k1.conv3x3_dx(gy, y, wt)
-            d_lib_fn = lambda shape=(n, c, h, w), w_oihw=w_oihw, gy_nchw=gy_nchw, \
-                y_nchw=y_nchw: torch.nn.grad.conv2d_input(shape, w_oihw, gy_nchw * (y_nchw > 0),
-                                                          padding=1)
+            d_spec = ("conv_dx", (n, c, h, w), w_oihw, gy_nchw, y_nchw)
+            d_lib_fn = library_call(d_spec)
             ms, lib = cuda_ms(d_call), cuda_ms(d_lib_fn)
             plain = cuda_ms(lambda: k1.conv3x3_dx_plain(gy, y, wt))
             if x.dtype == torch.bfloat16:
@@ -1111,14 +1552,14 @@ def main() -> int:
                         f_bytes, row["f_err"], row["shape"], peak)
             f_note = tf32_note(flops, f_bytes) if peak == K1_PEAK else "bf16 tensor cores"
             deferred.append((("conv3x3_bias_relu", path), row["fwd"], len(shape_rows) - 1,
-                             f_call, "conv3x3", f_lib_fn,
+                             f_call, "conv3x3", f_spec,
                              k1_line(f"[time K1 {tag}] {(n, h, w, c)}->{co}", f_ms, f_plain,
                                      f"F.conv2d+relu {x.dtype}", f_lib, fb, flops, f_note)))
             bb, _ = add("conv3x3_dx", path, row["dx"], ms, plain, lib, flops, nbytes,
                         row["err"], row["shape"], peak)
             d_note = tf32_note(flops, nbytes) if peak == K1_PEAK else "bf16 tensor cores"
             deferred.append((("conv3x3_dx", path), row["dx"], len(shape_rows) - 1, d_call,
-                             "conv3x3", d_lib_fn,
+                             "conv3x3", d_spec,
                              k1_line(f"[time K1 dx {tag}] gy {(n, h, w, co)} -> dx {c}", ms,
                                      plain, f"conv2d_input+mask {x.dtype}", lib, bb, flops,
                                      d_note)))
@@ -1130,44 +1571,47 @@ def main() -> int:
 
     time_k1_train(dx_rows, "train", K1_PEAK, "train")
 
-    def indexing(img1, ox1, oy1):
-        """The library call: advanced indexing on window indices already made."""
-        ar = torch.arange(32, device=dev)
-        iy = (oy1.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, :, None]
-        ix = (ox1.long()[:, None] + ar).clamp(0, CANVAS - 1)[:, None, :]
-        return lambda: img1[iy, ix]
+    def indexing(img1, ox1, oy1, cut=32):
+        """The library call's operands: the image and its window indices,
+        made beforehand."""
+        side = img1.shape[0]
+        ar = torch.arange(cut, device=dev)
+        iy = (oy1.long()[:, None] + ar).clamp(0, side - 1)[:, :, None]
+        ix = (ox1.long()[:, None] + ar).clamp(0, side - 1)[:, None, :]
+        return img1, iy, ix
 
-    def time_gather(path, per, ims, kw, offsets, what):
-        """One K2 launch on (N, 1536², C) images at K windows each ((N, K) or,
-        for N = 1, (K,) offsets), as the main path calls it; the library time
-        sums indexing over the group's sources and images."""
-        call = lambda: k2.gather_patches_group(ims, cutout=32, **kw)
-        n = ims[0].shape[0]
+    def time_gather(path, per, ims, kw, offsets, what, cut=32):
+        """One K2 launch on (N, side², C) images at K windows each ((N, K) or,
+        for N = 1, (K,) offsets), cut² each, as the main path calls it; the
+        library time sums indexing over the group's sources and images."""
+        call = lambda: k2.gather_patches_group(ims, cutout=cut, **kw)
+        n, side = ims[0].shape[0], ims[0].shape[1]
+        mult = kw.get("scale_multiplier", 1)
         ox2, oy2 = (t.reshape(n, -1) for t in offsets)
         if "coords" in kw:
             plain = lambda: [k2.gather_patches_plain(
-                im, *k2.patch_offsets(kw["coords"])[:2], 32) for im in ims]
+                im, *k2.patch_offsets(kw["coords"], mult)[:2], cut) for im in ims]
         else:
-            plain = lambda: [k2.gather_patches_plain(im, *offsets, 32) for im in ims]
+            plain = lambda: [k2.gather_patches_plain(im, *offsets, cut) for im in ims]
         ms = cuda_ms(call, reps=50)
         host = host_ms(call)
         plain_ms = cuda_ms(plain, reps=50)
-        libs = [indexing(im[i], ox2[i], oy2[i]) for im in ims for i in range(n)]
-        lib = sum(cuda_ms(f, reps=50) for f in libs)
+        wins = [indexing(im[i], ox2[i], oy2[i], cut) for im in ims for i in range(n)]
+        lib = sum(cuda_ms(library_call(("indexing", [w])), reps=50) for w in wins)
         chans = [im.shape[-1] for im in ims]
         kk = ox2.shape[1]
         wbytes = n * kk * (8 * 4 if "coords" in kw else 2 * 4)
         bound, _ = add("gather_patches", path, per, ms, plain_ms, lib, 0.0,
-                       gather_bytes(ox2, oy2, chans, wbytes, esize=ims[0].element_size()), 0.0,
-                       [n, CANVAS, CANVAS, chans, kk, 32])
-        line = (f"[time K2 {path}] {what}: ({n},{CANVAS},{CANVAS},{chans}) "
-                f"{str(ims[0].dtype)[6:]} K={kk} cut 32 from "
+                       gather_bytes(ox2, oy2, chans, wbytes, cut, ims[0].element_size(), side),
+                       0.0, [n, side, side, chans, kk, cut])
+        line = (f"[time K2 {path}] {what}: ({n},{side},{side},{chans}) "
+                f"{str(ims[0].dtype)[6:]} K={kk} cut {cut} from "
                 f"{'coords' if 'coords' in kw else 'offsets'}: kernel {ms:.4f} ms (host only "
                 f"{host:.4f} ms, device only {{dev}}), plain {plain_ms:.4f} ms, indexing "
                 f"{lib:.4f} ms (device only {{lib_dev}}), bound {bound:.5f} ms (bytes), "
                 f"{per} per {'sample' if path == 'eval' else 'step'}")
         deferred.append((("gather_patches", path), per, len(shape_rows) - 1, call,
-                         "gather_group_kernel", lambda: [f() for f in libs], line))
+                         "gather_group_kernel", ("indexing", wins), line))
 
     # eval: fake_T (1, 1536², 2) at the K = 100 test patches' coords
     time_gather("eval", PER_SAMPLE["gather_patches"], (img2[:1],),
@@ -1178,41 +1622,41 @@ def main() -> int:
                     f"group {row['group']}")
         del row["images"]
 
-    def time_scatter(path, per, grad, wc, err, label=""):
-        """One K2 bwd launch of ``grad`` at the (N, K, 8) coords ``wc`` into an
-        (N, 1536², 2) canvas of grad's dtype, as the main path calls it; the
-        library call is zeros + index_add_ in that dtype.  A labelled call is
-        timed beside the path's and adds no row."""
-        n = wc.shape[0]
-        shape = (n, CANVAS, CANVAS, 2)
-        oxn, oyn = (t.reshape(n, -1) for t in k2.patch_offsets(wc)[:2])
-        call = lambda: k2.scatter_patches(grad, None, None, shape, coords=wc)
+    def time_scatter(path, per, grad, wc, err, label="", mult=1):
+        """One K2 bwd launch of ``grad`` at the (N, K, 8) coords ``wc`` (scaled
+        by ``mult``) into an (N, 1536·mult², 2) canvas of grad's dtype, as the
+        main path calls it; the library call is zeros + index_add_ in that
+        dtype.  A labelled call is timed beside the path's and adds no row."""
+        n, side, cut = wc.shape[0], CANVAS * mult, grad.shape[1]
+        shape = (n, side, side, 2)
+        oxn, oyn = (t.reshape(n, -1) for t in k2.patch_offsets(wc, mult)[:2])
+        call = lambda: k2.scatter_patches(grad, None, None, shape, coords=wc,
+                                          scale_multiplier=mult)
         ms, host = cuda_ms(call, reps=50), host_ms(call)
-        plain = cuda_ms(lambda: k2.scatter_patches_plain(grad, *k2.patch_offsets(wc)[:2],
+        plain = cuda_ms(lambda: k2.scatter_patches_plain(grad, *k2.patch_offsets(wc, mult)[:2],
                                                          shape), reps=50)
-        ar = torch.arange(32, device=dev)
-        iy = (oyn.long()[:, :, None] + ar).clamp(0, CANVAS - 1)[:, :, :, None]
-        ix = (oxn.long()[:, :, None] + ar).clamp(0, CANVAS - 1)[:, :, None, :]
-        flat = ((torch.arange(n, device=dev)[:, None, None, None] * CANVAS + iy) * CANVAS
-                + ix).reshape(-1)                             # (N·K·32·32,) pixel index
-        index_add = lambda: torch.zeros(n * CANVAS * CANVAS, 2, device=dev,
-                                        dtype=grad.dtype).index_add_(0, flat, grad.reshape(-1, 2))
-        lib = cuda_ms(index_add, reps=50)
+        ar = torch.arange(cut, device=dev)
+        iy = (oyn.long()[:, :, None] + ar).clamp(0, side - 1)[:, :, :, None]
+        ix = (oxn.long()[:, :, None] + ar).clamp(0, side - 1)[:, :, None, :]
+        flat = ((torch.arange(n, device=dev)[:, None, None, None] * side + iy) * side
+                + ix).reshape(-1)                             # (N·K·cut·cut,) pixel index
+        lib_spec = ("index_add", n * side * side, flat, grad.reshape(-1, 2))
+        lib = cuda_ms(library_call(lib_spec), reps=50)
         kk, es = oxn.shape[1], grad.element_size()
-        canvas_bytes = n * CANVAS * CANVAS * 2 * es
-        nbytes = canvas_bytes + n * kk * 32 * 32 * 2 * es + n * kk * 8 * 4
+        canvas_bytes = n * side * side * 2 * es
+        nbytes = canvas_bytes + n * kk * cut * cut * 2 * es + n * kk * 8 * 4
         if label:
             bound, key, idx = bound_ms(0.0, nbytes)[0], None, None
         else:
             bound, _ = add("scatter_patches", path, per, ms, plain, lib, 0.0, nbytes, err,
-                           [n, CANVAS, CANVAS, 2, kk, 32])
+                           [n, side, side, 2, kk, cut])
             key, idx = ("scatter_patches", path), len(shape_rows) - 1
-        line = (f"[time K2 bwd {path}{label}] {shape} {grad.dtype} K={kk} cut 32 from coords: "
+        line = (f"[time K2 bwd {path}{label}] {shape} {grad.dtype} K={kk} cut {cut} from coords: "
                 f"kernel {ms:.4f} ms (host only {host:.4f} ms, device only {{dev}}), plain "
                 f"(index_put_) {plain:.4f} ms, zeros + index_add_ {lib:.4f} ms (device only "
                 f"{{lib_dev}}), bound {bound:.5f} ms (bytes: the canvas write, "
                 f"{canvas_bytes / 1e6:.1f} MB, dominates)")
-        deferred.append((key, per, idx, call, "scatter_tile_kernel", index_add, line))
+        deferred.append((key, per, idx, call, "scatter_tile_kernel", lib_spec, line))
 
     # K2 bwd at the check's windows (out-of-bounds ones and 10 on one spot,
     # as PR 2 timed it), and beside it at in-bounds windows, as the data
@@ -1236,6 +1680,28 @@ def main() -> int:
         del row["images"]
     time_scatter("train_bf16", PER_STEP_BF16["scatter_patches"], lane_scatter["grad"],
                  lane_scatter["coords"], 0.0)
+
+    # the x2 path's kernels at one step's shapes: K1 and K1 dx at the canvas
+    # and at the 64² touch patches; K2 in its five groups (the touch canvas
+    # 3072², cut 64 for fake_T; the canvas 1536², cut 32 for S and I); K2 bwd
+    # at cut 64 into the touch canvas
+    time_k1_train(x2_rows, "train_tmult2", K1_PEAK, "tmult2")
+    x2_coords = ties[:1, :K_TRAIN].contiguous()
+    x2_off = (ox[:1, :32].contiguous(), oy[:1, :32].contiguous())     # "more fake T" offsets
+    for (group, side, chans, kk, windows, cut, mult) in K2_TMULT2:
+        ims = [tmult_k2["image"][..., :c] if side == TOUCH2 else
+               torch.randn(1, side, side, c, generator=gdev, device=dev) for c in chans]
+        if windows == "coords":
+            kw = dict(coords=x2_coords[:, :kk], scale_multiplier=mult)
+            offs = k2.patch_offsets(kw["coords"], mult)[:2]
+        else:
+            offs = tuple((t * TMULT if side == TOUCH2 else t)[:, :kk].contiguous() for t in x2_off)
+            kw = dict(offset_x=offs[0], offset_y=offs[1])
+        time_gather("train_tmult2", 1, ims, kw, offs, f"group {group}", cut)
+        del ims
+    time_scatter("train_tmult2", PER_STEP_TMULT2["scatter_patches"], tmult_k2["grad"],
+                 tmult_k2["coords"], 0.0, mult=TMULT)
+    del tmult_k2
 
     # one test sample: G forward + the 8 metrics, after a warm-up
     print(f"[phase] sample wall from {time.time() - t_start:.1f} s")
@@ -1306,22 +1772,11 @@ def main() -> int:
     # the D3 part of a step on its own, at the step's tensors: CLIP of the
     # real I without a gradient, CLIP of fake_I with one, the backward to
     # fake_I (through the 12 blocks and resize_mm); and resize_mm alone
-    from vts_torch.losses.vision_aided import d3_logits, softplus
-    from vts_torch.ops.resize_mm import resize_mm
-    clip, heads = model.clip, model.d3_heads
     real_I, fake_I = model._input["I"], model._outputs["fake_I"]
-
-    def d3_part():
-        with torch.no_grad():
-            d3_logits(clip, heads, real_I)
-        f = fake_I.detach().requires_grad_(True)
-        loss = sum(torch.mean(softplus(-lg)) for lg in d3_logits(clip, heads, f))
-        return torch.autograd.grad(loss, f)[0]
-
-    def resize_part():
-        return resize_mm(real_I, (224, 224))
-    d3_ms, resize_ms = cuda_ms(d3_part, reps=5), cuda_ms(resize_part, reps=20)
-    d3_host = host_ms(d3_part, reps=5)
+    d3_call = d3_part(model.clip, model.d3_heads, real_I, fake_I)
+    d3_specs = [(("d3", real_I, fake_I), 3), (("resize", real_I), 20)]
+    d3_ms, resize_ms = cuda_ms(d3_call, reps=5), cuda_ms(library_call(d3_specs[1][0]), reps=20)
+    d3_host = host_ms(d3_call, reps=5)
     del model, batch
 
     # the production lane's step, untraced, D3 active: before the anneal
@@ -1364,25 +1819,87 @@ def main() -> int:
               f"launches per step {counts}")
     del lmodel, lbatch
     torch.cuda.empty_cache()
+
+    # the x2 path untraced: one training step with D3 active (median of 5
+    # after 2 warm-ups) and one test sample (median of 3 after 1)
+    print(f"[phase] x2 step wall from {time.time() - t_start:.1f} s")
+    x2opt = TrainOptions().parse(x2argv, quiet=True)
+    x2batch = next(iter(create_dataset(x2opt)))
+    x2model = create_model(x2opt)
+    x2model.setup()
+    x2model.set_input(x2batch)
+    walls, peaks = [], []
+    with CountPatchOffsets() as host_offsets:
+        for i in range(7):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if i == 2:
+                reset_counts()
+            t0 = time.perf_counter()
+            x2model.optimize_parameters(2)
+            x2model.get_current_losses()
+            torch.cuda.synchronize()
+            if i == 2:
+                x2_step_launches = read_counts()
+            if i >= 2:
+                walls.append((time.perf_counter() - t0) * 1e3)
+                peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    x2_wall = statistics.median(walls)
+    print(f"[time x2 step] one {CANVAS}² training step with a {TOUCH2}² touch canvas, D3 "
+          f"active (batch 1, ngf {NGF}, ndf 8, K {K_TRAIN} + 32 at 64²): {x2_wall:.1f} ms "
+          f"wall, median of {len(walls)} ({', '.join(f'{w:.1f}' for w in walls)}); "
+          f"{1e3 / x2_wall:.3f} samples/s; peak memory {max(peaks):.2f} GiB; launches per "
+          f"step {x2_step_launches}")
+    check(x2_step_launches == PER_STEP_TMULT2 and host_offsets.calls == 0,
+          f"a timed x2 step launched {x2_step_launches} ({host_offsets.calls} patch_offsets "
+          f"calls), the timed shapes stand for {PER_STEP_TMULT2}")
+    del x2model, x2batch
+    topt = TestOptions().parse(x2test, quiet=True)
+    batch = next(iter(create_dataset(topt)))
+    model = create_model(topt)
+    model.setup()
+    model.load_networks("best")
+    model.set_input(batch)
+    walls = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.test()
+        model.compute_metrics()
+        torch.cuda.synchronize()
+        if i:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"[time x2 sample] one x2 test sample ({TOUCH2}² touch canvas, K {K_PATCH}): "
+          f"{statistics.median(walls):.1f} ms wall, median of {len(walls)}")
+    del model, batch
+    torch.cuda.empty_cache()
     # device-only times of every kernel, and of their library calls
     print(f"[phase] device-only times from {time.time() - t_start:.1f} s")
-    calls = []
-    for _, _, _, call, kname_, lib_fn, _ in deferred:
-        reps = 20 if kname_ == "conv3x3" else 50
-        calls += [(call, kname_, reps), (lib_fn, "", reps)]
-    calls += [(d3_part, "", 3), (resize_part, "", 20)]
-    times = device_times(calls)
-    d3_dev, resize_dev = times[-2:]
-    times = times[:-2]
+    print(f"[device-only] the card: {card_state()} (SM clock, power, temperature)")
+    # our kernels here; the library calls and the D3 part in a process of
+    # their own (see library_device_times)
+    times = device_times([(call, kname_, 20 if kname_ == "conv3x3" else 50)
+                          for _, _, _, call, kname_, _, _ in deferred])
+    lib_times = library_device_times([(spec, 10) for *_, spec, _ in deferred] + d3_specs)
+    d3_dev, resize_dev = lib_times[-2:]
     print(f"[time D3] the D3 part of a {CANVAS}² step (CLIP ViT-B/32 of real I, no grad; of "
           f"fake_I with grad; backward to fake_I): {d3_ms:.2f} ms (host only {d3_host:.2f} ms, "
-          f"device only {fmt_ms(d3_dev)}); resize_mm {CANVAS}² -> 224² forward "
-          f"{resize_ms:.4f} ms (device only {fmt_ms(resize_dev)})")
-    for (key, per, idx, _, _, _, line), dev_t, lib_t in zip(deferred, times[::2], times[1::2]):
+          f"device only {fmt_dev(d3_dev)}); resize_mm {CANVAS}² -> 224² forward "
+          f"{resize_ms:.4f} ms (device only {fmt_dev(resize_dev)})")
+    over = [f"library of {what}" for what, (d, e, _) in zip(
+        [line[1:line.index(":")] for *_, line in deferred] + ["D3", "resize_mm"], lib_times)
+        if d is not None and d > e]
+    for (key, per, idx, _, _, _, line), dev_t, lib_t in zip(deferred, times, lib_times):
         if key is not None:
-            shape_rows[idx]["device_ms"] = dev_t
-            rows[key]["dev"].append(None if dev_t is None else per * dev_t)
-        print(line.format(dev=fmt_ms(dev_t), lib_dev=fmt_ms(lib_t)))
+            shape_rows[idx]["device_ms"] = dev_t[0]
+            shape_rows[idx]["library_device_ms"] = lib_t[0]
+            rows[key]["dev"].append(None if dev_t[0] is None else per * dev_t[0])
+            rows[key]["lib_dev"].append(None if lib_t[0] is None else per * lib_t[0])
+            if dev_t[0] is not None and dev_t[0] > dev_t[1]:
+                over.append(f"{key[0]}@{key[1]} {shape_rows[idx]['shape']}")
+        print(line.format(dev=fmt_dev(dev_t), lib_dev=fmt_dev(lib_t)))
+    print(f"[device-only] {len(over)} calls whose kernels' device time exceeds their events' "
+          f"in the same session: {over}")
 
     sources = {"conv3x3_bias_relu": ("vts_torch/csrc/conv3x3.cu",
                                      "vts_tpu/ops/pallas_conv.py:42"),
@@ -1393,8 +1910,10 @@ def main() -> int:
                                    "vts_tpu/ops/patch.py:41 (XLA transpose of the gather; "
                                    "no Pallas kernel)")}
     kernels = []
-    per_path = {"eval": test_launches, "train": step_launches, "train_bf16": lane_step_launches}
-    in_run = {"eval": run_launches, "train": train_launches, "train_bf16": lane_run_launches}
+    per_path = {"eval": test_launches, "train": step_launches, "train_bf16": lane_step_launches,
+                "train_tmult2": x2_step_launches}
+    in_run = {"eval": run_launches, "train": train_launches, "train_bf16": lane_run_launches,
+              "train_tmult2": x2_run_launches}
     for (kname, path), acc in rows.items():
         launches = per_path[path][kname]
         check(launches == acc["per"], f"{kname} ({path}): {launches} launches, timed {acc['per']}")
@@ -1403,16 +1922,19 @@ def main() -> int:
         # bound_by names the kind that makes up most of it
         b_ms, b_by = acc["bound"], max(acc["by"], key=acc["by"].get)
         dev_t = sum(acc["dev"]) if acc["dev"] and None not in acc["dev"] else None
+        lib_dev = sum(acc["lib_dev"]) if acc["lib_dev"] and None not in acc["lib_dev"] else None
         src, repl = sources[kname]
         print(f"[time {kname} {path}] per {'test sample' if path == 'eval' else 'training step'}: "
               f"{launches} launches, kernel {acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, "
               f"library {acc['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}"
               f"{', 3xTF32' if acc['peak'] == K1_PEAK else ''}; fp32 CUDA cores "
-              f"{bound_ms(acc['flops'], acc['bytes'])[0]:.4f}), device only {fmt_ms(dev_t)}")
+              f"{bound_ms(acc['flops'], acc['bytes'])[0]:.4f}), device only {fmt_ms(dev_t)}, "
+              f"library device only {fmt_ms(lib_dev)}")
         kernels.append(dict(name=f"{kname}@{path}", route="cuda", source=src, replaces=repl,
                             launches=launches, max_abs_err=acc["err"], ms=acc["ms"],
                             plain_ms=acc["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                            library_ms=acc["library_ms"], device_ms=dev_t, path=path,
+                            library_ms=acc["library_ms"], device_ms=dev_t,
+                            library_device_ms=lib_dev, path=path,
                             bound_fp32_ms=bound_ms(acc["flops"], acc["bytes"])[0],
                             launches_in_run=in_run[path][kname]))
     print(f"[shapes] {json.dumps(shape_rows)}")

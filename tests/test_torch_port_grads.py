@@ -1,7 +1,8 @@
 """Port parity of the training path's modules against the JAX package, on the
 CPU: the backward of K1 (dx) and K2 (scatter-add), the LPIPS input gradient
 with ``y_no_grad`` (pinning the reshape + max pool tie split), the
-discriminators with their batch statistics, DiffAugment "bs", the mask
+discriminators with their batch statistics, DiffAugment "bs" (the other
+letters: ``test_torch_port_surface.py``), the mask
 sampler and Adam.  Inputs are made from numpy seeds; each test states its
 tolerance."""
 
@@ -200,8 +201,8 @@ def test_diffaug_bs_matches_jax_given_the_same_draws():
              "s": _t(np.asarray(jax.random.uniform(ks, (3, 1, 1, 1))).reshape(3))}
     got = diffaug.diff_augment(_t(x), "bs", draws=draws).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        diffaug.diff_augment(_t(x), "bsc")
+    with pytest.raises(ValueError):              # a letter DiffAugment does not have
+        diffaug.diff_augment(_t(x), "bsx")
 
 
 def test_sample_offsets_in_mask_matches_jax_given_the_same_uniforms():

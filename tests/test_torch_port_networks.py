@@ -62,7 +62,7 @@ def test_custom_unet_matches_jax(unet_pair):
     net = CustomUNet(9, ngf=4).eval()
     net.load_state_dict(unet_params_to_torch(params))
     with torch.no_grad():
-        got = net(torch.from_numpy(x)).numpy()
+        got = torch.cat(net(torch.from_numpy(x)), dim=-1).numpy()
     assert got.shape == want.shape == (1, 256, 256, 5)
     assert np.abs(got - want).max() <= 1e-4
     assert np.abs(want).max() > 1e-2      # a non-trivial output was compared

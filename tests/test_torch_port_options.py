@@ -98,6 +98,37 @@ def test_every_reference_option_parses_or_is_refused_by_name(phase, tmp_path):
     assert tried > 150 and 0 < refused < tried / 4, (tried, refused)
 
 
+# Settings that parse and build their model, and the refusals that stand
+PORTED = [["--T_resolution_multiplier", "2"], ["--T_resolution_multiplier", "4"],
+          ["--gan_mode", "wgan"], ["--gan_mode", "wgangp"], ["--gan_mode", "hinge"],
+          ["--normD", "instance"], ["--normD", "none"], ["--normG", "batch"],
+          ["--netD", "basic"], ["--netD", "n_layers"], ["--netD", "pixel"], ["--netD", "patch"],
+          ["--netD2", "pixel"], ["--diffaugment", "bscton"], ["--lr_policy", "plateau"],
+          ["--init_type", "xavier_uniform"], ["--init_type", "orthogonal"],
+          ["--init_type", "none"], ["--positional_encoding_mode", "csg"],
+          ["--no_dropout", "false"], ["--preprocess", "zoom_and_crop"]]
+STILL_REFUSED = [["--display_id", "1"], ["--mesh", "data:2"], ["--eval_mode", "legacy"],
+                 ["--use_style_code", "true"], ["--model", "skit"], ["--netD", "stylegan2"],
+                 ["--netD2", "tilestylegan2"], ["--diffaugment", "bsb"]]
+
+
+@pytest.mark.parametrize("argv", PORTED + STILL_REFUSED,
+                         ids=[" ".join(a) for a in PORTED + STILL_REFUSED])
+def test_ported_flags_parse_and_the_rest_are_refused_by_name(argv, tmp_path):
+    """Each newly ported setting parses in training (and builds its model);
+    each standing refusal raises ``NotImplementedError`` naming its flag."""
+    from vts_torch.models import create_model
+    port = _port("train")
+    base = SMALL + ["--checkpoints_dir", str(tmp_path), "--device", "cpu"]
+    if argv in STILL_REFUSED:
+        with pytest.raises(NotImplementedError, match=argv[0]):
+            port.parse(base + argv, quiet=True)
+        return
+    opt = port.parse(base + argv, quiet=True)
+    assert str(getattr(opt, argv[0][2:])).lower() == argv[1]
+    create_model(opt).setup()
+
+
 @pytest.mark.parametrize("phase", ["train", "test"])
 def test_defaults_match_the_reference(phase, tmp_path):
     """Every flag the reference declares has the reference's default for that

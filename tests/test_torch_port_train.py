@@ -216,16 +216,22 @@ def test_cpu_train_then_test_smoke(tmp_path):
 def test_train_requires_no_html_and_refuses_unported_settings(tmp_path):
     """The settings the port does not run raise ``NotImplementedError`` naming
     the flag when parsed: the live dashboard (``--display_id`` > 0), a mesh,
-    the plateau schedule, the hinge and WGAN losses, other norms and nets.
-    The cropped LPIPS and bf16 now run and parse; so does the gallery
-    (``--no_html`` is not required)."""
+    the legacy evaluation, style codes, another model, the StyleGAN2 D.  The
+    cropped LPIPS, bf16, the gallery (``--no_html`` is not required) and the
+    settings ported since (the plateau schedule, the hinge and WGAN losses,
+    the other D norms and nets, the other init types, the other DiffAugment
+    letters, tactile super-resolution) parse."""
     from vts_torch.config import TrainOptions
     base = ["--checkpoints_dir", str(tmp_path), "--device", "cpu"]
-    for extra in (["--display_id", "1"], ["--mesh", "data:2"], ["--lr_policy", "plateau"],
-                  ["--gan_mode", "hinge"], ["--gan_mode", "wgangp"], ["--normD", "instance"],
-                  ["--netD", "pixel"], ["--init_type", "orthogonal"], ["--diffaugment", "bsc"],
-                  ["--T_resolution_multiplier", "2"], ["--eval_mode", "legacy"]):
+    for extra in (["--display_id", "1"], ["--mesh", "data:2"], ["--eval_mode", "legacy"],
+                  ["--use_style_code", "true"], ["--model", "skit"],
+                  ["--netD", "stylegan2"]):
         with pytest.raises(NotImplementedError, match=extra[0]):
             TrainOptions().parse(base + extra, quiet=True)
     opt = TrainOptions().parse(base + ["--lpips_crop", "64", "--dtype", "bfloat16"], quiet=True)
     assert (opt.display_id, opt.lpips_crop, opt.dtype) == (0, 64, "bfloat16")
+    for extra in (["--lr_policy", "plateau"], ["--gan_mode", "hinge"], ["--gan_mode", "wgangp"],
+                  ["--normD", "instance"], ["--netD", "pixel"], ["--init_type", "orthogonal"],
+                  ["--diffaugment", "bsc"], ["--T_resolution_multiplier", "2"]):
+        opt = TrainOptions().parse(base + extra, quiet=True)
+        assert str(getattr(opt, extra[0][2:])) == extra[1], extra

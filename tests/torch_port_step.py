@@ -71,36 +71,71 @@ def jax_batch(tmp, batch, d3=False, extra=()):
     return jopt, next(iter(jax_create_dataset(jopt)))
 
 
-def jax_draws(rng, n, dtype=None, crop=None):
+def jax_aug_draws(key, policy, shape, dt=jnp.float32):
+    """DiffAugment's draws for ``policy`` on an image of ``shape``, split from
+    ``key`` as ``vts_tpu/ops/diffaug.py`` splits it (one key per letter), in
+    the port's layout (:func:`vts_torch.ops.diffaug.draw`)."""
+    n, h, w = shape[:3]
+
+    def uniform(k):
+        return torch.tensor(np.asarray(
+            jax.random.uniform(k, (n, 1, 1, 1), dt).astype(jnp.float32))).reshape(n)
+
+    def ints(k, lo, hi):
+        return torch.tensor(np.asarray(jax.random.randint(k, (n, 1), lo, hi))).reshape(n)
+
+    out = {}
+    for k, letter in zip(jax.random.split(key, len(policy)), policy):
+        if letter in "bsc":
+            out[letter] = uniform(k)
+        elif letter == "t":
+            sh, sw = int(h * 0.125 + 0.5), int(w * 0.125 + 0.5)
+            kh, kw = jax.random.split(k)
+            out[letter] = torch.stack([ints(kh, -sh, sh + 1), ints(kw, -sw, sw + 1)], 1)
+        elif letter == "o":
+            ch, cw = int(h * 0.5 + 0.5), int(w * 0.5 + 0.5)
+            ky, kx = jax.random.split(k)
+            out[letter] = torch.stack([ints(ky, 0, h + (1 - ch % 2)),
+                                       ints(kx, 0, w + (1 - cw % 2))], 1)
+        elif letter == "n":
+            k1, k2, k3 = jax.random.split(k, 3)
+            out[letter] = {"sigma": uniform(k1), "gate": uniform(k2), "normal": torch.tensor(
+                np.asarray(jax.random.normal(k3, tuple(shape), dt).astype(jnp.float32)))}
+    return out
+
+
+def jax_draws(rng, n, dtype=None, crop=None, policy="bs", shape=None, gp_k=None, more=MORE):
     """The draws of one JAX ``_train_step``, split from its key as the step
     and its callees split it (sinskit.py:608, diffaug.py, patch.py:178-183).
     ``dtype``: the step's compute dtype, which DiffAugment draws its
-    uniforms in; ``crop`` = (c, h, w): the ``--lpips_crop`` window, drawn as
-    at sinskit.py:850-854 (``split(fold_in(k_more, 113))``, then ``randint``)."""
-    _, k_aug_r, k_aug_f, k_more, _, _ = jax.random.split(rng, 6)
+    uniforms in; ``policy``/``shape``: the DiffAugment policy and the
+    (N, H, W, C) image it augments (only b and s need no shape); ``crop`` =
+    (c, h, w): the ``--lpips_crop`` window, drawn as at sinskit.py:850-854
+    (``split(fold_in(k_more, 113))``, then ``randint``); ``gp_k``: the D2
+    patch count of a WGAN-GP step, whose interpolation weights are drawn
+    from ``k_gp1`` (one per sample) and ``k_gp2`` (one per patch) as
+    ``gradient_penalty`` draws them."""
+    _, k_aug_r, k_aug_f, k_more, k_gp1, k_gp2 = jax.random.split(rng, 6)
     dt = dtype or jnp.float32
-
-    def uniform(key):
-        u = jax.random.uniform(key, (n, 1, 1, 1), dt).astype(jnp.float32)
-        return torch.tensor(np.asarray(u)).reshape(n)
-
-    def aug(key):
-        kb, ks = jax.random.split(key, 2)
-        return {"b": uniform(kb), "s": uniform(ks)}
-
+    shape = shape or (n, 1, 1, 3)
     keys = [k_more] if n == 1 else list(jax.random.split(k_more, n))
-    more = []
+    draws_more = []
     for key in keys:
         k_row, k_col = jax.random.split(key)
-        more.append(np.stack([np.asarray(jax.random.uniform(k_row, (MORE,))),
-                              np.asarray(jax.random.uniform(k_col, (MORE,)))]))
-    draws = {"aug_real": aug(k_aug_r), "aug_fake": aug(k_aug_f),
-             "more": torch.from_numpy(np.stack(more))}
+        draws_more.append(np.stack([np.asarray(jax.random.uniform(k_row, (more,))),
+                                    np.asarray(jax.random.uniform(k_col, (more,)))]))
+    draws = {"aug_real": jax_aug_draws(k_aug_r, policy, shape, dt),
+             "aug_fake": jax_aug_draws(k_aug_f, policy, shape, dt),
+             "more": torch.from_numpy(np.stack(draws_more))}
     if crop is not None:
         c, h, w = crop
         kcy, kcx = jax.random.split(jax.random.fold_in(k_more, 113))
         draws["lpips_crop"] = (int(jax.random.randint(kcy, (), 0, max(h - c, 0) + 1)),
                                int(jax.random.randint(kcx, (), 0, max(w - c, 0) + 1)))
+    if gp_k is not None:
+        for name, key, m in (("gp1", k_gp1, n), ("gp2", k_gp2, gp_k)):
+            draws[name] = torch.tensor(np.asarray(jax.random.uniform(key, (m, 1, 1, 1)))
+                                       ).reshape(m)
     return draws
 
 
@@ -116,20 +151,23 @@ def port_model(tmp, batch, d3=False, extra=()):
 
 def load_jax_states(model, states):
     from vts_torch.utils.convert_jax import (d_params_to_torch, d_stats_to_torch,
-                                             unet_params_to_torch)
-    model.netG.load_state_dict(unet_params_to_torch(np_tree(states["G"].params)))
+                                             unet_params_to_torch, unet_stats_to_torch)
+    sd = dict(unet_params_to_torch(np_tree(states["G"].params)))
+    sd.update(unet_stats_to_torch(np_tree(states["G"].stats)))
+    model.netG.load_state_dict(sd)
     for name in ("D", "D2"):
         sd = dict(d_params_to_torch(np_tree(states[name].params)))
         sd.update(d_stats_to_torch(np_tree(states[name].stats)))
         getattr(model, f"net{name}").load_state_dict(sd)
 
 
-def run_step(tmp, n, d3=False):
+def run_step(tmp, n, d3=False, extra=(), draw_kw=None):
     """One JAX step and one port step at epoch 1 from the same weights, batch
     and draws → (JAX model with its updated states and outputs, JAX losses,
-    port model after its step)."""
+    port model after its step).  ``extra``: flags for both packages;
+    ``draw_kw``: keyword arguments of :func:`jax_draws` beyond the key and n."""
     from vts_tpu.models import create_model as jax_create_model
-    jopt, batch = jax_batch(tmp, n, d3)
+    jopt, batch = jax_batch(tmp, n, d3, extra)
     jmodel = jax_create_model(jopt)
     jmodel.setup(batch)
     jmodel.set_input(batch)
@@ -145,8 +183,8 @@ def run_step(tmp, n, d3=False):
     outputs.pop("next_rng")
     jmodel._outputs = outputs
 
-    model = port_model(tmp, n, d3)
+    model = port_model(tmp, n, d3, extra)
     load_jax_states(model, states0)
     model.set_input(batch)
-    model.optimize_parameters(epoch=1, draws=jax_draws(jmodel.rng, n))
+    model.optimize_parameters(epoch=1, draws=jax_draws(jmodel.rng, n, **(draw_kw or {})))
     return jmodel, {k: float(v) for k, v in losses.items()}, model

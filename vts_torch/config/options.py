@@ -28,15 +28,18 @@ of three things:
     the training-only flags that the test parser declares too (the D, loss
     and schedule flags);
   * it raises ``NotImplementedError`` naming the flag when set to what the
-    port does not run: another ``--model``, ``--dataset_mode``, ``--netG``,
-    ``--normG``, ``--init_type xavier_uniform|orthogonal|none``, dropout
-    (``--no_dropout false``), ``--positional_encoding_mode csg``,
-    ``--T_resolution_multiplier`` > 1, ``--eval_mode legacy``, zoom
-    ``--preprocess``, ``--display_id`` > 0 (the live dashboard),
-    ``--multihost``, ``--use_style_code``; in training also ``--netD`` and
-    ``--netD2`` other than multiscale, ``--normD`` other than batch,
-    ``--gan_mode wgan|wgangp|hinge``, DiffAugment letters other than b and
-    s, ``--lr_policy plateau``, ``--pool_size`` > 0 and ``--mesh``.
+    port does not run: another ``--model``, ``--dataset_mode`` or
+    ``--netG``, ``--normG``/``--normD`` other than instance, batch or none,
+    ``--eval_mode legacy``, ``--display_id`` > 0 (the live dashboard),
+    ``--multihost``, ``--use_style_code``; in training also the StyleGAN2
+    ``--netD``/``--netD2``, a DiffAugment policy that repeats a letter,
+    ``--pool_size`` > 0 and ``--mesh``.
+
+``--no_dropout false`` is accepted and builds no dropout: the reference's
+dropout layers never run (its sinskit never passes ``deterministic=False``).
+A ``--T_resolution_multiplier`` that is not a power of two, or a
+DiffAugment letter outside ``bscton``, is a ``ValueError``, as in the
+reference.
 
 So an option string of the reference is never an argparse error here.
 """
@@ -106,7 +109,9 @@ def _common(p: argparse.ArgumentParser, train: bool) -> None:
     a("--normD", type=str, default="batch")
     a("--init_type", type=str, default="xavier", choices=_INIT)
     a("--init_gain", type=float, default=0.02)
-    a("--no_dropout", type=str2bool, nargs="?", const=True, default=True)
+    a("--no_dropout", type=str2bool, nargs="?", const=True, default=True,
+      help="false is accepted and builds no dropout: the reference's dropout layers are "
+           "always deterministic, so inert in training and eval")
     a("--gan_mode", type=str, default="nonsaturating", choices=_GAN)
     a("--num_layer_separate", type=int, default=4)
     a("--sketch_nc", type=int, default=1)
@@ -168,6 +173,8 @@ def _common(p: argparse.ArgumentParser, train: bool) -> None:
     a("--w_resampling", type=str2bool, default=True)
     a("--resampling_w_min", type=int, default=1)
     a("--resampling_w_max", type=int, default=10)
+    a("--random_scale_max", type=float, default=3.0,
+      help="with zoom in --preprocess: training zoom levels in [1/this, 1)")
     for sub in ("S", "I", "T", "M"):
         a(f"--subdir_{sub}", type=str, default=f"{ph}{sub}")
     a("--subdir_valT", type=str, default="valT" if train else "")
@@ -195,7 +202,7 @@ def _common(p: argparse.ArgumentParser, train: bool) -> None:
         ("--verbose", bool, False), ("--load_iter", int, 0),
         ("--model_phase", str, "train" if train else "eval"),
         ("--padded_size", int, 1800), ("--save_S_patch", str2bool, not train),
-        ("--save_T_concat_tensor", str2bool, False), ("--random_scale_max", float, 3.0),
+        ("--save_T_concat_tensor", str2bool, False), 
         ("--separate_val_set", str2bool, False), ("--canvas_fold", int, 8),
         ("--lpips_fold", int, 2), ("--lpips_fold_axis", str, "w"),
         ("--lpips_head", str, "composed"), ("--lpips_conv", str, "xla"),
@@ -209,7 +216,8 @@ def _test_parser() -> argparse.ArgumentParser:
     _common(p, train=False)
     p.add_argument("--num_test", type=int, default=1)
     p.add_argument("--use_eval_mode", type=str2bool, default=True,
-                   help="accepted; no effect in the port (G has no batch statistics)")
+                   help="accepted; no effect in the port (the eval forward normalizes a "
+                        "--normG batch G with its running statistics, as the reference)")
     return p
 
 
@@ -249,6 +257,9 @@ def _refuse(flag: str, what: str) -> None:
     raise NotImplementedError(f"{flag} {what} is not ported yet")
 
 
+_NORMS = ("instance", "batch", "none")
+
+
 def _check_common(opt) -> None:
     if opt.model.lower() not in ("sinskit", "sinskitg"):
         _refuse("--model", repr(opt.model))
@@ -256,22 +267,15 @@ def _check_common(opt) -> None:
         _refuse("--dataset_mode", repr(opt.dataset_mode))
     if opt.netG != "unet256_custom":
         _refuse("--netG", repr(opt.netG))
-    if opt.normG != "instance":
+    if opt.normG not in _NORMS:
         _refuse("--normG", repr(opt.normG))
-    if opt.init_type not in ("normal", "xavier", "kaiming"):
-        _refuse("--init_type", repr(opt.init_type))
-    if not opt.no_dropout:
-        _refuse("--no_dropout", "false (dropout in G)")
-    if opt.positional_encoding_mode != "spe":
-        _refuse("--positional_encoding_mode", repr(opt.positional_encoding_mode))
-    if int(opt.T_resolution_multiplier) != 1:
-        _refuse("--T_resolution_multiplier", f"{opt.T_resolution_multiplier} (> 1)")
+    m = int(opt.T_resolution_multiplier)
+    if m < 1 or m & (m - 1):
+        raise ValueError(f"--T_resolution_multiplier {m} must be a power of two")
     if opt.use_style_code:
         _refuse("--use_style_code", "true")
     if opt.eval_mode != "batched":
         _refuse("--eval_mode", "legacy")
-    if "zoom" in opt.preprocess:
-        _refuse("--preprocess", repr(opt.preprocess))
     if opt.display_id > 0:
         _refuse("--display_id", "> 0 (the live dashboard)")
     if opt.multihost:
@@ -329,18 +333,17 @@ class TrainOptions(_Options):
 
     def check(self, opt) -> None:
         _check_common(opt)
-        from ..losses.gan_masked import GAN_MODES
         for flag, v in (("--netD", opt.netD), ("--netD2", opt.netD2)):
-            if v != "multiscale":
+            if "stylegan2" in v:
                 _refuse(flag, repr(v))
-        if opt.normD != "batch":
+        if opt.normD not in _NORMS:
             _refuse("--normD", repr(opt.normD))
-        if opt.gan_mode not in GAN_MODES:
-            _refuse("--gan_mode", opt.gan_mode)
-        if opt.use_diffaug and set(opt.diffaugment) - set("bs"):
-            _refuse("--diffaugment", f"{opt.diffaugment!r} (only the letters b and s are)")
-        if opt.lr_policy == "plateau":
-            _refuse("--lr_policy", "plateau")
+        if opt.use_diffaug:
+            policy = opt.diffaugment
+            if set(policy) - set("bscton"):
+                raise ValueError(f"--diffaugment {policy!r}: the letters are b, s, c, t, o, n")
+            if len(set(policy)) != len(policy):
+                _refuse("--diffaugment", f"{policy!r} (a letter used twice)")
         if opt.pool_size > 0:
             _refuse("--pool_size", "> 0 (an image pool)")
         if opt.mesh:

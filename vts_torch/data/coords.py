@@ -23,6 +23,10 @@ class ROI(NamedTuple):
     w: float
 
 
+def zoom_roi(roi: ROI, scale_h: float = 1.0, scale_w: float = 1.0) -> ROI:
+    return ROI(roi.x * scale_w, roi.y * scale_h, roi.h * scale_h, roi.w * scale_w)
+
+
 def crop_roi(roi: ROI, crop_size_h: float, crop_size_w: float, resize_ratio: float,
              crop_pos_x: float, crop_pos_y: float) -> Tuple[bool, ROI]:
     """Resize-then-crop; valid iff the ROI lies fully inside the crop."""

@@ -4,7 +4,10 @@ training phases.
 One garment = sketch S + visual I + object mask M + touch records.  A sample
 is a crop (``crop_size``; the center crop at test time, a random crop that
 keeps the protected center with ``--preprocess crop``) made a multiple of
-256, with every touch ROI propagated analytically.  Each surviving record
+256, with every touch ROI propagated analytically; with ``zoom`` in
+``--preprocess`` the garment is first scaled (LANCZOS) by the sample's zoom
+levels, drawn once per dataset in [1/random_scale_max, 1) in training (1 at
+test time) from a generator seeded by ``seed + 7919``.  Each surviving record
 gives up to ``sample_bbox_per_patch`` 32² squares centered in its
 contact-center mask — the middle candidates at test time, random ones in
 training — resampled to ``batch_size_G2`` patches with a validity mask.  In
@@ -15,8 +18,9 @@ rides along.  Samples are fixed-shape numpy NHWC float32, drawn from a
 generator seeded per (seed, index), so a sample is the same every epoch.
 
 ``synthetic://`` dataroots are built in memory (:mod:`.synthetic`); an
-on-disk dataroot is decoded with PIL, imported only then.  Zoom
-preprocessing and the reference's on-disk sample cache are not ported.
+on-disk dataroot is decoded with PIL, imported only then, as is PIL for a
+resize (a zoom, a crop larger than the image).  The reference's on-disk
+sample cache is not ported.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import numpy as np
 
 from . import coords as C
 from .npz import TouchRecord, list_images, list_touch_npz, load_touch_npz
-from .transforms import crop_img, make_power_2_img, to_array, variance_of_laplacian
+from .transforms import crop_img, make_power_2_img, to_array, variance_of_laplacian, zoom_img
 
 AUG_KEYS = (
     "H", "W", "crop_pos_x", "crop_pos_y", "crop_size_h", "crop_size_w",
@@ -62,8 +66,6 @@ class SingleSkitDataset:
 
     def __init__(self, opt):
         self.is_train = bool(opt.isTrain)
-        if "zoom" in opt.preprocess:
-            raise NotImplementedError("zoom preprocessing is not ported yet")
         self.opt = opt
         self.data_len = int(opt.data_len)
         self.patch_crop_size = 32
@@ -97,6 +99,10 @@ class SingleSkitDataset:
             self.val_records = [load_touch_npz(p) for p in list_touch_npz(sub(val_dir))] \
                 if val_dir else []
 
+        zoom_max = 1.0 / float(opt.random_scale_max) if self.is_train else 1.0
+        self.zoom_levels = np.random.default_rng(self.seed + 7919).uniform(
+            zoom_max, 1.0, size=(self.data_len, 2))
+
     def __len__(self) -> int:
         return self.data_len
 
@@ -108,19 +114,25 @@ class SingleSkitDataset:
     def build_sample(self, index: int) -> Dict[str, np.ndarray]:
         opt = self.opt
         rng = np.random.default_rng((self.seed << 20) ^ index)
+        sf_h = sf_w = 1.0
+        S1, I1, M1 = self.S_img, self.I_img, self.M_img
+        if "zoom" in opt.preprocess:
+            sf_h, sf_w = (float(v) for v in self.zoom_levels[index])
+            S1, I1 = (zoom_img(im, sf_h, sf_w) for im in (S1, I1))
+            M1 = zoom_img(M1, sf_h, sf_w) if M1 is not None else None
         center_crop = "crop" not in opt.preprocess
-        S2, rr, cx, cy = crop_img(self.S_img, opt.crop_size, opt.crop_size,
+        S2, rr, cx, cy = crop_img(S1, opt.crop_size, opt.crop_size,
                                   center_w=opt.center_w, center_h=opt.center_h,
                                   center_crop=center_crop, rng=rng)
-        I2 = crop_img(self.I_img, opt.crop_size, opt.crop_size, rr, cx, cy)[0]
-        M2 = crop_img(self.M_img, opt.crop_size, opt.crop_size, rr, cx, cy)[0] \
-            if self.M_img is not None else None
+        I2 = crop_img(I1, opt.crop_size, opt.crop_size, rr, cx, cy)[0]
+        M2 = crop_img(M1, opt.crop_size, opt.crop_size, rr, cx, cy)[0] \
+            if M1 is not None else None
         S3, rw, rh = make_power_2_img(S2, 256)
         I3 = make_power_2_img(I2, 256)[0]
         M3 = make_power_2_img(M2, 256)[0] if M2 is not None else None
         aug = {
             "H": float(self.S_img.shape[0]), "W": float(self.S_img.shape[1]),
-            "scale_factor_h": 1.0, "scale_factor_w": 1.0,
+            "scale_factor_h": sf_h, "scale_factor_w": sf_w,
             "crop_size_h": float(opt.crop_size), "crop_size_w": float(opt.crop_size),
             "resize_ratio": float(rr), "crop_pos_x": float(cx), "crop_pos_y": float(cy),
             "resize_ratio_w": float(rw), "resize_ratio_h": float(rh),
@@ -168,6 +180,7 @@ class SingleSkitDataset:
             if self.padded_size is not None:
                 roi = C.pad_roi(roi, org_w=opt.center_w, org_h=opt.center_h,
                                 padded_size=self.padded_size)
+            roi = C.zoom_roi(roi, aug["scale_factor_h"], aug["scale_factor_w"])
             valid, roi = C.crop_roi(roi, aug["crop_size_h"], aug["crop_size_w"],
                                     aug["resize_ratio"], aug["crop_pos_x"], aug["crop_pos_y"])
             if not valid:

@@ -1,10 +1,10 @@
 """Host-side image transforms over uint8 numpy arrays (the port's copy of
 ``vts_tpu/data/transforms.py``).
 
-Crops are array slices.  A LANCZOS resize — needed only when the crop or
-the make-power-of-2 step changes the size, which the flagship test setup
-(1800² padded → 1536² center crop) never does — goes through PIL, imported
-only then; without PIL it raises.
+Crops are array slices.  A LANCZOS resize — needed only for a zoom, or
+when the crop or the make-power-of-2 step changes the size, which the
+flagship test setup (1800² padded → 1536² center crop) never does — goes
+through PIL, imported only then; without PIL it raises.
 """
 
 from __future__ import annotations
@@ -23,6 +23,12 @@ def resize_lanczos(arr: np.ndarray, w: int, h: int) -> np.ndarray:
         raise RuntimeError("this preprocessing step resizes an image (LANCZOS) and "
                            "needs Pillow, which is not installed") from e
     return np.asarray(Image.fromarray(arr).resize((w, h), Image.LANCZOS))
+
+
+def zoom_img(img: np.ndarray, scale_h: float = 1.0, scale_w: float = 1.0) -> np.ndarray:
+    """Scale by (scale_h, scale_w), LANCZOS, sides rounded to the nearest pixel."""
+    h, w = img.shape[:2]
+    return resize_lanczos(img, int(round(w * scale_w)), int(round(h * scale_h)))
 
 
 def crop_img(img: np.ndarray, crop_h: int, crop_w: int,

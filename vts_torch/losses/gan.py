@@ -1,14 +1,14 @@
 """GAN objectives with the reference's reductions (``vts_tpu/losses/gan.py``).
 
-  * lsgan / vanilla: a scalar (global mean);
-  * nonsaturating: a per-sample vector (N,);
+  * lsgan / vanilla / wgan / wgangp: a scalar (global mean);
+  * nonsaturating / hinge: a per-sample vector (N,);
   * a multiscale prediction (list over scales of feature lists) gives the
     sum over scales of the per-scale losses of each last entry (the logits).
 
 Both are reductions of :func:`vts_torch.losses.gan_masked.per_sample_gan_loss`:
 every sample of a logit map has as many elements, so the global mean is the
-mean of the per-sample means.  ``wgan``/``wgangp`` (and the gradient
-penalty) and ``hinge`` are not ported yet and raise.
+mean of the per-sample means.  :func:`gradient_penalty` is WGAN-GP's
+penalty, its interpolation weights given by the caller.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ def gan_loss(pred, target_is_real: bool, mode: str, real_label: float = 1.0,
     """A scalar or an (N,) vector, by ``mode``; ``pred`` is a logit map, a
     feature list ending in one, or a multiscale list of those."""
     vec = per_sample_gan_loss(pred, target_is_real, mode, real_label, fake_label)
-    return vec if mode == "nonsaturating" else torch.mean(vec)
+    return vec if mode in ("nonsaturating", "hinge") else torch.mean(vec)
 
 
 def feature_matching_loss(pred_fake, pred_real, n_layers: int, num_d: int):
@@ -39,5 +39,24 @@ def feature_matching_loss(pred_fake, pred_real, n_layers: int, num_d: int):
     return total
 
 
-def gradient_penalty(*args, **kwargs):
-    raise NotImplementedError("the WGAN-GP gradient penalty is not ported yet")
+def _leaves(tree):
+    if isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _leaves(t)
+    else:
+        yield tree
+
+
+def gradient_penalty(d_fn, real: torch.Tensor, fake: torch.Tensor, alpha: torch.Tensor):
+    """WGAN-GP (``vts_tpu/losses/gan.py::gradient_penalty``): the input
+    gradient of Σ D(x̂) at x̂ = α·real + (1 − α)·fake, α one uniform per
+    sample (``alpha`` (N,), injected), then
+    10 · mean((‖∇ + 1e-16‖₂ − 1)²).  ``d_fn`` maps images to a logit
+    map or a (nested) list of them; the graph is kept, so the penalty
+    differentiates w.r.t. D's parameters (a double backward)."""
+    n = real.shape[0]
+    a = alpha.to(device=real.device, dtype=real.dtype).reshape((n,) + (1,) * (real.dim() - 1))
+    interp = (a * real + (1 - a) * fake).detach().requires_grad_(True)
+    total = sum(torch.sum(t) for t in _leaves(d_fn(interp)))
+    g = torch.autograd.grad(total, interp, create_graph=True)[0].reshape(n, -1)
+    return torch.mean((torch.linalg.vector_norm(g + 1e-16, dim=1) - 1.0) ** 2) * 10.0

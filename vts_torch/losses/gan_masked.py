@@ -7,8 +7,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-GAN_MODES = ("lsgan", "vanilla", "nonsaturating")
-
 
 def _per_sample_single(pred: torch.Tensor, target_is_real: bool, mode: str,
                        real_label: float, fake_label: float) -> torch.Tensor:
@@ -19,9 +17,15 @@ def _per_sample_single(pred: torch.Tensor, target_is_real: bool, mode: str,
     if mode == "vanilla":
         t = real_label if target_is_real else fake_label
         return torch.mean(F.softplus(flat) - t * flat, dim=1)
+    if mode in ("wgan", "wgangp"):
+        m = torch.mean(flat, dim=1)
+        return -m if target_is_real else m
     if mode == "nonsaturating":
         return torch.mean(F.softplus(-flat) if target_is_real else F.softplus(flat), dim=1)
-    raise NotImplementedError(f"gan mode {mode!r} is not ported yet")
+    if mode == "hinge":
+        return torch.mean(torch.relu(1.0 - flat) if target_is_real else torch.relu(1.0 + flat),
+                          dim=1)
+    raise NotImplementedError(f"gan mode {mode!r} not implemented")
 
 
 def per_sample_gan_loss(pred, target_is_real: bool, mode: str, real_label: float = 1.0,

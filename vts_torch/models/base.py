@@ -4,7 +4,9 @@
   * :class:`Adam` is ``optax.scale_by_adam(b1, b2, eps=1e-8)`` with the
     learning rate applied outside, as the reference's ``adam_step`` does:
     params ← params − lr · m̂ / (√v̂ + eps);
-  * :func:`lr_factor` is the per-epoch multiplier on the base lr;
+  * :func:`lr_factor` is the per-epoch multiplier on the base lr (1 under
+    ``plateau``, whose :class:`PlateauTracker` scale the training driver
+    multiplies in);
   * checkpoints are the reference's own files: ``<tag>_net_<Name>.msgpack``
     holding ``{"params": <flax tree>, "stats": <batch stats or {}>}`` and
     ``<tag>_opt_<Name>.msgpack`` holding the Adam state as
@@ -60,7 +62,33 @@ def lr_factor(policy: str, epoch: int, opt) -> float:
         return 0.1 ** (epoch // opt.lr_decay_iters)
     if policy == "cosine":
         return 0.5 * (1 + math.cos(math.pi * min(epoch, opt.n_epochs) / opt.n_epochs))
-    raise NotImplementedError(f"learning rate policy {policy!r} is not ported yet")
+    if policy == "plateau":
+        return 1.0
+    raise NotImplementedError(f"learning rate policy {policy!r} is not implemented")
+
+
+class PlateauTracker:
+    """ReduceLROnPlateau (mode min, factor 0.2, relative threshold 0.01,
+    patience 5: the reference's scheduler).  :meth:`update` takes the
+    epoch's metric and returns the lr scale."""
+
+    FACTOR, PATIENCE, THRESHOLD = 0.2, 5, 0.01
+
+    def __init__(self):
+        self.best = float("inf")
+        self.bad_epochs = 0
+        self.scale = 1.0
+
+    def update(self, metric: float) -> float:
+        if metric < self.best * (1.0 - self.THRESHOLD):
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.PATIENCE:
+                self.scale *= self.FACTOR
+                self.bad_epochs = 0
+        return self.scale
 
 
 def save_net(ckpt_dir: str, tag: str, name: str, params: Dict, stats: Dict = None,

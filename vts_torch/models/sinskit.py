@@ -21,11 +21,24 @@ The reference's quirks are kept: the G2 GAN terms see detached tactile
 patches (logged, no G gradient, unless ``--g2_gan_backprop``), DiffAugment
 feeds only D2's visual conditioning, and D2's conditioning is detached.
 
-Every random draw of a step — DiffAugment's brightness and saturation for
-real and fake, the uniforms that place the "more fake T" windows, and the
-``--lpips_crop`` window — comes from a ``torch.Generator`` seeded by
-``--seed``, or is injected with ``optimize_parameters(draws=...)`` (see
-:meth:`SinSKITModel.draw`).
+Every random draw of a step — DiffAugment's for real and fake, the
+uniforms that place the "more fake T" windows, the ``--lpips_crop`` window
+and WGAN-GP's interpolation weights — comes from a ``torch.Generator``
+seeded by ``--seed``, or is injected with ``optimize_parameters(draws=...)``
+(see :meth:`SinSKITModel.draw`).
+
+``--T_resolution_multiplier`` m > 1 (2 or 4): G's tactile head comes out at
+m× the canvas, masked by M_T, the nearest m× resize of M; the tactile
+patches are cut at 32·m from it (the coords scaled by m), their S and I
+conditioning at 32 from the canvas (the "more fake T" ones at the offsets
+// m) and resized bicubically to 32·m; the "more fake T" sampler runs on
+M_T; D2 and the touch losses take 32·m patches.  The gathers at the two
+sizes are separate K2 launches: 5 a step (3 at m = 1).
+
+``--gan_mode wgangp`` adds the gradient penalty to D1's and D2's losses;
+its D pass uses batch statistics and leaves the running ones alone.
+``--lr_policy plateau`` scales the lr by ``lr_override``, which the
+training driver sets from its :class:`~vts_torch.models.base.PlateauTracker`.
 
 ``--lpips_crop`` c > 0 computes the canvas LPIPS on one c² window of fake_I
 and I a step (shared by the batch), when c is below the canvas side, as the
@@ -42,9 +55,8 @@ LPIPS runs its backbone in bf16 with fp32 head sums.  The eval forward
 The LPIPS and Inception towers are ``--lpips_weights`` and
 ``--inception_weights`` when given, else the reference's seeded ones.
 
-The settings not ported yet (WGAN-GP, style codes, ``T_resolution_multiplier
-> 1``, the legacy per-metric evaluation, ...) are refused by the options
-(:mod:`vts_torch.config.options`).
+The settings not ported yet (style codes, the legacy per-metric evaluation,
+...) are refused by the options (:mod:`vts_torch.config.options`).
 """
 
 from __future__ import annotations
@@ -56,7 +68,7 @@ import torch
 
 from ..data.coords import patch_offsets
 from ..device import resolve_device
-from ..losses.gan import feature_matching_loss, gan_loss
+from ..losses.gan import feature_matching_loss, gan_loss, gradient_penalty
 from ..losses.gan_masked import masked_mean, masked_patch_sum, per_sample_gan_loss
 from ..losses.lpips import LPIPS, init_lpips_params, load_lpips_weights
 from ..losses.vision_aided import D3Heads, d3_logits, init_d3_head_params, softplus
@@ -71,14 +83,22 @@ from ..networks.positional import positional_encoding
 from ..ops import diffaug
 from ..ops.normal import compute_normal
 from ..ops.patch import gather_patches_from_coords, gather_patches_group, sample_offsets_in_mask
+from ..ops.resize import resize_bicubic, resize_nearest
 from ..utils.collage import bbox_overlay, patch_collage
 from ..utils.convert_jax import (adam_state_to_flax, adam_state_to_torch, d_params_to_torch,
                                  d_stats_to_torch, torch_to_d_params, torch_to_unet_params,
-                                 unet_params_to_torch)
+                                 torch_to_unet_stats, unet_params_to_torch, unet_stats_to_torch)
 from .base import Adam, load_net, load_opt_state, lr_factor, save_net
 
 _PATCH_STACKS = ("T_images", "I_masks", "T_valid",
                  "val_T_images", "val_I_masks", "val_T_valid")
+
+
+def _detached(t):
+    """A loss value, a logit map or a (nested) list of logit maps, detached."""
+    if isinstance(t, (list, tuple)):
+        return [_detached(v) for v in t]
+    return t.detach() if torch.is_tensor(t) else t
 
 
 class SinSKITModel:
@@ -97,12 +117,23 @@ class SinSKITModel:
         self.isTrain = bool(opt.isTrain)
         self.device = resolve_device(opt.device)
         self.dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-        self.mult = 1
-        pe_nc = 2 * opt.positional_encoding_dim if opt.use_positional_encoding else 0
+        self.mult = int(opt.T_resolution_multiplier)
+        self.lr_override = 1.0               # --lr_policy plateau: set by the training driver
+        pe_nc = 0
+        if opt.use_positional_encoding:
+            pe_nc = 2 * opt.positional_encoding_dim \
+                if opt.positional_encoding_mode == "spe" else 2
         self.input_nc = opt.sketch_nc + pe_nc
         self.netG = define_G(opt, self.input_nc, opt.image_nc + opt.touch_nc, dtype=self.dtype)
         self.model_names = ["G"]
         if self.isTrain:
+            if opt.netD2 == "patch" and opt.lambda_G2_GAN > 0:
+                # the reference's D2 update, which runs when lambda_G2_GAN > 0,
+                # broadcasts D2's (K·tiles,) losses against the (K,) validity
+                # mask and fails there
+                raise ValueError("--netD2 patch cuts each 32·m² patch into 16² tiles, so D2's "
+                                 "per-tile losses do not match the patches' validity mask "
+                                 "(the reference's step fails on it too)")
             d1_in = opt.image_nc + (opt.sketch_nc if opt.use_cGAN else 0)
             self.netD = define_D(opt, d1_in, netD=opt.netD, num_D=opt.num_D_D1, dtype=self.dtype)
             d2_in = opt.touch_nc
@@ -210,18 +241,27 @@ class SinSKITModel:
 
     def draw(self, n: int, size=None) -> Dict:
         """The random numbers of one step for a batch of n (canvas ``size`` =
-        (h, w)), from the model's generator: ``{"aug_real": {letter: (n,)},
-        "aug_fake": {letter: (n,)}, "more": (n, 2, add_fake_T_sample_size)}``
-        — uniforms in [0, 1) — and, when ``--lpips_crop`` crops that canvas,
-        ``"lpips_crop": (oy, ox)``, integers in [0, h − c] and [0, w − c].
-        The same structure, filled from elsewhere, is what
+        (h, w), by default ``--crop_size``²), from the model's generator:
+        ``{"aug_real": …, "aug_fake": …}``, DiffAugment's draws for each
+        policy letter (:func:`vts_torch.ops.diffaug.draw`), ``"more": (n, 2,
+        add_fake_T_sample_size)`` uniforms in [0, 1); when ``--lpips_crop``
+        crops that canvas, ``"lpips_crop": (oy, ox)``, integers in [0, h − c]
+        and [0, w − c]; under ``--gan_mode wgangp``, ``"gp1": (n,)`` and
+        ``"gp2": (n·batch_size_G2,)`` uniforms, the penalty's interpolation
+        weights.  The same structure, filled from elsewhere, is what
         :meth:`optimize_parameters` takes as ``draws``."""
         opt = self.opt
         policy = opt.diffaugment if opt.use_diffaug else ""
-        out = {"aug_real": diffaug.draw(policy, n, self.generator),
-               "aug_fake": diffaug.draw(policy, n, self.generator),
+        if size is None:
+            size = (int(opt.crop_size),) * 2
+        shape = (n, *size, opt.image_nc)
+        out = {"aug_real": diffaug.draw(policy, shape, self.generator),
+               "aug_fake": diffaug.draw(policy, shape, self.generator),
                "more": torch.rand((n, 2, opt.add_fake_T_sample_size), generator=self.generator)}
-        if size is not None and self._crop_active(*size):
+        if opt.gan_mode == "wgangp":
+            out["gp1"] = torch.rand((n,), generator=self.generator)
+            out["gp2"] = torch.rand((n * int(opt.batch_size_G2),), generator=self.generator)
+        if self._crop_active(*size):
             c = int(opt.lpips_crop)
             out["lpips_crop"] = tuple(
                 int(torch.randint(0, max(side - c, 0) + 1, (), generator=self.generator))
@@ -232,7 +272,7 @@ class SinSKITModel:
         """One training step at the lr of ``epoch``, with D3 from
         ``--vision_aided_warmup_epoch`` on."""
         opt = self.opt
-        f = lr_factor(opt.lr_policy, epoch - 1, opt)
+        f = lr_factor(opt.lr_policy, epoch - 1, opt) * self.lr_override
         if draws is None:
             draws = self.draw(self._input["S"].shape[0], tuple(self._input["S"].shape[1:3]))
         use_d3 = self.use_d3 and epoch >= opt.vision_aided_warmup_epoch
@@ -258,7 +298,8 @@ class SinSKITModel:
         S, I = batch["S"], batch["I"]
         M = batch.get("M", torch.ones_like(S))
         n, h, w, _ = S.shape
-        nc = opt.image_nc
+        mult = self.mult
+        M_T = M if mult == 1 else resize_nearest(M, (h * mult, w * mult))
         losses: Dict[str, torch.Tensor] = {}
         # the canvas constants in the compute dtype, as the reference pre-casts them
         cd = self.dtype
@@ -267,8 +308,7 @@ class SinSKITModel:
         # ---- 1. G forward, graph kept; its output stays in the compute dtype ----
         pe = self._pe(n, h, w)
         x_in = torch.cat([S, pe], dim=-1) if pe is not None else S
-        out = self.netG(x_in)
-        fake_I, fake_T = out[..., :nc] * M_d, out[..., nc:] * M_d
+        fake_I, fake_T = self._split_g_out(self.netG(x_in), M_d, M_T.to(cd))
         fake_I_d, fake_T_d = fake_I.detach(), fake_T.detach()
         if opt.use_diffaug:
             aug_real_I = diffaug.diff_augment(I_d, opt.diffaugment, draws=draws["aug_real"]) * M_d
@@ -282,22 +322,35 @@ class SinSKITModel:
             fake_in = torch.cat([S_d, fake_I_d], -1) if opt.use_cGAN else fake_I_d
             real_in = torch.cat([S_d, I_d], -1) if opt.use_cGAN else I_d
             pred_fake = self.netD(fake_in)
-            pred_fake_I = pred_fake[-1][-1].detach()      # D1's last logit map, a visual
+            # D1's last logit map, a visual
+            pred_fake_I = (pred_fake[-1][-1] if isinstance(pred_fake, (list, tuple))
+                           else pred_fake).detach()
             l_fake = torch.mean(gan_loss(pred_fake, False, mode, real_lbl)) * opt.lambda_G1_GAN
             l_real = torch.mean(gan_loss(self.netD(real_in), True, mode, real_lbl)) \
                 * opt.lambda_G1_GAN
-            self._update("D", (l_fake + l_real + 0.0) * 0.5, lr)
+            gp = self._penalty(self.netD, real_in, fake_in, draws, "gp1")
+            self._update("D", (l_fake + l_real + gp) * 0.5, lr)
             losses.update(D_fake_I=l_fake.detach(), D_real_I=l_real.detach(),
-                          D_I_grad_penalty=0.0)
+                          D_I_grad_penalty=_detached(gp))
 
         # ---- 3. patch stacks ----
         real_T = batch["T_images"]                    # (N·K, pc, pc, 2), pre-masked
         coords = batch["T_coords"]                    # (N, K, 8)
         valid = batch["T_valid"]
-        k, pc = real_T.shape[0], real_T.shape[1]
-        # one K2 launch for the four stacks at the batch's coords
-        fake_T_patch_d, S_patch, real_I_patch, fake_I_patch = gather_patches_group(
-            (fake_T_d, S_d, aug_real_I, aug_fake_I), coords=coords, cutout=32)
+        k, pc = real_T.shape[0], real_T.shape[1]      # pc = 32·mult
+        if mult == 1:
+            # one K2 launch for the four stacks at the batch's coords
+            fake_T_patch_d, S_patch, real_I_patch, fake_I_patch = gather_patches_group(
+                (fake_T_d, S_d, aug_real_I, aug_fake_I), coords=coords, cutout=32)
+        else:
+            # fake_T at 32·mult from the touch canvas, the conditioning at 32
+            # from the canvas, resized to 32·mult: a K2 launch each
+            fake_T_patch_d, = gather_patches_group((fake_T_d,), coords=coords, cutout=pc,
+                                                   scale_multiplier=mult)
+            S_patch, real_I_patch, fake_I_patch = (resize_bicubic(t, (pc, pc)) for t in
+                                                   gather_patches_group(
+                                                       (S_d, aug_real_I, aug_fake_I),
+                                                       coords=coords, cutout=32))
         realI_cond = torch.cat([real_I_patch, batch["I_masks"]], -1)
         fakeI_cond = torch.cat([fake_I_patch, batch["I_masks"]], -1)
 
@@ -312,34 +365,40 @@ class SinSKITModel:
 
         if opt.use_more_fakeT:
             mk = opt.add_fake_T_sample_size
-            offs = [sample_offsets_in_mask(M[i, ..., 0], mk, pc, uniforms=draws["more"][i])
+            offs = [sample_offsets_in_mask(M_T[i, ..., 0], mk, pc, uniforms=draws["more"][i])
                     for i in range(n)]
             ox = torch.stack([o[0] for o in offs])
             oy = torch.stack([o[1] for o in offs])
-            # one K2 launch for the three stacks at the "more fake T" offsets
-            # (pc == 32: T_resolution_multiplier is 1)
-            more_I, more_T, more_S = gather_patches_group(
-                (fake_I_d, fake_T_d, S_d), offset_x=ox, offset_y=oy, cutout=32)
+            if mult == 1:
+                # one K2 launch for the three stacks at the "more fake T" offsets
+                more_I, more_T, more_S = gather_patches_group(
+                    (fake_I_d, fake_T_d, S_d), offset_x=ox, offset_y=oy, cutout=32)
+            else:
+                more_T, = gather_patches_group((fake_T_d,), offset_x=ox, offset_y=oy, cutout=pc)
+                more_I, more_S = (resize_bicubic(t, (pc, pc)) for t in gather_patches_group(
+                    (fake_I_d, S_d), offset_x=ox // mult, offset_y=oy // mult, cutout=32))
             more_I = torch.cat([more_I, torch.ones_like(more_I[..., :1])], -1)
             more_cond = d2_cond(more_T, more_S, more_I)
 
         # ---- 4. D2 update ----
         if "D2" in self.model_names:
-            pf = self.netD2(d2_cond(fake_T_patch_d, S_patch, fakeI_cond))
+            fake_cond = d2_cond(fake_T_patch_d, S_patch, fakeI_cond)
+            real_cond = d2_cond(real_T, S_patch, realI_cond)
+            pf = self.netD2(fake_cond)
             l_fake = masked_mean(per_sample_gan_loss(pf, False, mode, real_lbl), valid) \
                 * opt.lambda_G2_GAN
             l_more = 0.0
             if opt.use_more_fakeT:
                 l_more = torch.mean(per_sample_gan_loss(self.netD2(more_cond), False, mode,
                                                         real_lbl)) * opt.lambda_G2_GAN
-            pred_real_T = self.netD2(d2_cond(real_T, S_patch, realI_cond))
+            pred_real_T = self.netD2(real_cond)
             l_real = masked_mean(per_sample_gan_loss(pred_real_T, True, mode, real_lbl),
                                  valid) * opt.lambda_G2_GAN
-            self._update("D2", (l_fake + l_more + l_real + 0.0) * 0.5, lr_d2)
-            pred_real_T = [[t.detach() for t in scale] for scale in pred_real_T]
-            losses.update(D_fake_T_concat=l_fake.detach(), D_more_fake_T=(
-                l_more.detach() if torch.is_tensor(l_more) else l_more),
-                D_real_T_concat=l_real.detach(), D_T_grad_penalty=0.0)
+            gp = self._penalty(self.netD2, real_cond, fake_cond, draws, "gp2")
+            self._update("D2", (l_fake + l_more + l_real + gp) * 0.5, lr_d2)
+            pred_real_T = _detached(pred_real_T)
+            losses.update(D_fake_T_concat=l_fake.detach(), D_more_fake_T=_detached(l_more),
+                          D_real_T_concat=l_real.detach(), D_T_grad_penalty=_detached(gp))
         else:
             pred_real_T = None
 
@@ -369,7 +428,7 @@ class SinSKITModel:
                 lp_y = lp_y[:, oy:oy + min(c, h), ox:ox + min(c, w)]
             aux["G_lpips"] = torch.mean(self.lpips_net(lp_x, lp_y, y_no_grad=True, dtype=cd)) \
                 * opt.lambda_G1_lpips
-        f_T_patch = gather_patches_from_coords(fake_T, coords, 32)
+        f_T_patch = gather_patches_from_coords(fake_T, coords, 32, mult)
         if opt.lambda_G2_L1 > 0:
             l1map = torch.abs(f_T_patch.float() - real_T) * valid[:, None, None, None]
             # per-image patch SUM, batch MEAN (reference .sum(1).mean())
@@ -388,7 +447,8 @@ class SinSKITModel:
                 vec = per_sample_gan_loss(pf, True, mode, real_lbl) * opt.lambda_G2_GAN
                 aux["G2_GAN"] = masked_patch_sum(vec, valid) / n
                 if opt.lambda_G2_GAN_feat > 0 and opt.netD2 == "multiscale" \
-                        and pred_real_T is not None and len(pf[0]) > 1:
+                        and pred_real_T is not None and isinstance(pf, (list, tuple)) \
+                        and len(pf[0]) > 1:
                     aux["G2_GAN_feat"] = feature_matching_loss(
                         pf, pred_real_T, opt.n_layers_D, opt.num_D_D2) * opt.lambda_G2_GAN_feat
         if use_d3:
@@ -411,15 +471,36 @@ class SinSKITModel:
             outputs["pred_fake_I"] = pred_fake_I
         return losses, outputs
 
+    def _penalty(self, net, real, fake, draws: Dict, key: str):
+        """WGAN-GP's penalty on ``net`` (0 unless ``--gan_mode wgangp``), its
+        D pass with batch statistics and the running ones kept."""
+        if self.opt.gan_mode != "wgangp":
+            return 0.0
+        return gradient_penalty(lambda z: net(z, update_stats=False), real, fake,
+                                alpha=draws[key])
+
+    def _split_g_out(self, out, M, M_T):
+        """G's (visual, tactile) pair → (fake_I, fake_T) masked by M and M_T."""
+        vis, tac = out
+        return vis * M.to(vis.dtype), tac * M_T.to(tac.dtype)
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def _forward_eval(self, S: torch.Tensor, M: torch.Tensor):
+        """The fp32 eval forward; a ``--normG batch`` G normalizes with its
+        running statistics (the reference's ``netG_eval``).  fake_T comes out
+        at the touch canvas, masked by M_T."""
         n, h, w, _ = S.shape
         pe = self._pe(n, h, w)
         x = torch.cat([S, pe], dim=-1) if pe is not None else S
-        out = self.netG(x, dtype=torch.float32)
-        nc = self.opt.image_nc
-        return out[..., :nc] * M, out[..., nc:] * M
+        was_training = self.netG.training
+        self.netG.eval()
+        try:
+            out = self.netG(x, dtype=torch.float32)
+        finally:
+            self.netG.train(was_training)
+        M_T = M if self.mult == 1 else resize_nearest(M, (h * self.mult, w * self.mult))
+        return self._split_g_out(out, M, M_T)
 
     def test(self) -> None:
         S = self._input["S"]
@@ -431,23 +512,30 @@ class SinSKITModel:
     @torch.no_grad()
     def _pred_fake_T_full(self) -> torch.Tensor:
         """D2 on the whole canvas, [fake_T, S, (aug_fake_I, M)] as in its
-        patch conditioning, each in fake_T's dtype: the last scale's logit
-        map, as the reference takes it.  After :meth:`test`, which leaves no
+        patch conditioning, each in fake_T's dtype, S and (aug_I, M) resized
+        bicubically to the touch canvas at ``T_resolution_multiplier`` > 1:
+        the last scale's logit map, as the reference takes it (the map itself
+        from a single-scale D2).  After :meth:`test`, which leaves no
         augmented image, fake_I stands in for it, as there.  Batch
         statistics, running ones kept; run only when visuals are asked for,
         outside the training step."""
         opt, out, inp = self.opt, self._outputs, self._input
         S = inp["S"]
         fake_T = out["fake_T"]
+        size = tuple(fake_T.shape[1:3])
         parts = [fake_T]
         if opt.use_cGAN_G2:
             if opt.use_cGAN_G2_S:
-                parts.append(S.to(fake_T.dtype))
+                parts.append((S if self.mult == 1 else resize_bicubic(S, size)).to(fake_T.dtype))
             if opt.use_cGAN_G2_I:
                 aug_I = out.get("aug_fake_I", out["fake_I"])
                 M = inp.get("M", torch.ones_like(S))
-                parts.append(torch.cat([aug_I, M.to(aug_I.dtype)], -1).to(fake_T.dtype))
-        return self.netD2(torch.cat(parts, -1), update_stats=False)[-1][-1]
+                i4 = torch.cat([aug_I, M.to(aug_I.dtype)], -1)
+                if self.mult != 1:
+                    i4 = resize_bicubic(i4, size)
+                parts.append(i4.to(fake_T.dtype))
+        pred = self.netD2(torch.cat(parts, -1), update_stats=False)
+        return pred[-1][-1] if isinstance(pred, (list, tuple)) else pred
 
     def get_current_visuals(self) -> Dict[str, np.ndarray]:
         """The gallery's arrays (NHWC, float, or uint8 for the panels), as the
@@ -559,7 +647,8 @@ class SinSKITModel:
         """(state dict → (flax params, flax stats), flax params → state dict,
         flax stats → state dict) for network ``name``."""
         if name == "G":
-            return (lambda sd: (torch_to_unet_params(sd), {})), unet_params_to_torch, None
+            return (lambda sd: (torch_to_unet_params(sd), torch_to_unet_stats(sd)),
+                    unet_params_to_torch, unet_stats_to_torch)
         return torch_to_d_params, d_params_to_torch, d_stats_to_torch
 
     def save_networks(self, tag: str) -> None:

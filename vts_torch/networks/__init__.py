@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from .discriminators import MultiscaleDiscriminator
+from .discriminators import (MultiscaleDiscriminator, NLayerDiscriminator, PatchDiscriminator,
+                             PixelDiscriminator)
 from .unet_custom import CustomUNet
 
 
@@ -25,11 +26,21 @@ def define_G(opt, input_nc: int, output_nc: int,
 
 def define_D(opt, input_nc: int, netD: str = None, n_layers: int = None, num_D: int = 3,
              dtype: torch.dtype = torch.float32):
-    """Discriminator factory: ``multiscale`` only in this port so far."""
+    """Discriminator factory (reference models/networks.py:392-442): basic,
+    n_layers, pixel, patch or multiscale."""
     name = netD or opt.netD
-    if name != "multiscale":
-        raise NotImplementedError(f"netD {name!r} is not ported yet")
-    return MultiscaleDiscriminator(
-        input_nc, ndf=opt.ndf, n_layers=n_layers if n_layers is not None else opt.n_layers_D,
-        num_D=num_D, norm_type=opt.normD, use_sigmoid=opt.gan_mode == "vanilla",
-        get_interm_feat=bool(getattr(opt, "getIntermFeat_D", False)), dtype=dtype)
+    nl = n_layers if n_layers is not None else opt.n_layers_D
+    sig = opt.gan_mode == "vanilla"
+    interm = bool(getattr(opt, "getIntermFeat_D", False))
+    if name in ("basic", "n_layers"):
+        return NLayerDiscriminator(input_nc, opt.ndf, 3 if name == "basic" else nl, opt.normD,
+                                   sig, interm, dtype=dtype)
+    if name == "pixel":
+        return PixelDiscriminator(input_nc, opt.ndf, opt.normD, dtype=dtype)
+    if name == "patch":
+        return PatchDiscriminator(input_nc, opt.ndf, opt.normD, dtype=dtype)
+    if name == "multiscale":
+        return MultiscaleDiscriminator(input_nc, ndf=opt.ndf, n_layers=nl, num_D=num_D,
+                                       norm_type=opt.normD, use_sigmoid=sig,
+                                       get_interm_feat=interm, dtype=dtype)
+    raise NotImplementedError(f"netD {name!r} is not ported yet")

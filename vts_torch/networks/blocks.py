@@ -39,12 +39,34 @@ def leaky_relu(x, slope: float = 0.2):
     return torch.where(x >= 0, x, x * slope)
 
 
+def _orthogonal(t, out_axis: int, gain: float, gen) -> None:
+    """``jax.nn.initializers.orthogonal()`` · gain: the weight as the flax
+    (receptive field · in, out) matrix, orthonormal along its shorter side
+    (QR of a normal draw, signs fixed by R's diagonal)."""
+    w = t.movedim(out_axis, -1)
+    cols = w.shape[-1]
+    rows = w.numel() // cols
+    big, small = max(rows, cols), min(rows, cols)
+    a = torch.randn((big, small), generator=gen, dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if rows < cols:
+        q = q.T
+    with torch.no_grad():
+        w.copy_((q * gain).reshape(w.shape).to(t.dtype))
+
+
 def make_initializer(init_type: str, init_gain: float):
     """Reference models/networks.py:191-230 with the reference's flax fan
     convention (receptive field × in / × out).  Returns ``init(tensor,
-    fan_in, fan_out, generator)`` filling the tensor in place."""
+    fan_in, fan_out, generator, out_axis)`` filling the tensor in place
+    (``out_axis``: the output-channel axis, for ``orthogonal``).  As the
+    reference's: ``normal``, ``xavier`` (normal, std gain·√(2/(fi+fo))),
+    ``kaiming`` (normal, √(2/fi)), ``xavier_uniform`` (±√(6/(fi+fo)), no
+    gain), ``orthogonal`` (times the gain) and ``none`` (lecun normal: a
+    normal truncated at ±2 with unit variance, times √(1/fi))."""
     def normal(std):
-        def init(t, fan_in, fan_out, gen):
+        def init(t, fan_in, fan_out, gen, out_axis=0):
             with torch.no_grad():
                 t.normal_(0.0, std(fan_in, fan_out), generator=gen)
         return init
@@ -55,7 +77,27 @@ def make_initializer(init_type: str, init_gain: float):
         return normal(lambda fi, fo: init_gain * math.sqrt(2.0 / (fi + fo)))
     if init_type == "kaiming":
         return normal(lambda fi, fo: math.sqrt(2.0 / fi))
-    raise NotImplementedError(f"initialization method {init_type!r} is not ported yet")
+    if init_type == "xavier_uniform":
+        def init(t, fan_in, fan_out, gen, out_axis=0):
+            limit = math.sqrt(6.0 / (fan_in + fan_out))
+            with torch.no_grad():
+                t.uniform_(-limit, limit, generator=gen)
+        return init
+    if init_type == "orthogonal":
+        return lambda t, fan_in, fan_out, gen, out_axis=0: _orthogonal(t, out_axis, init_gain,
+                                                                       gen)
+    if init_type == "none":
+        def init(t, fan_in, fan_out, gen, out_axis=0):
+            with torch.no_grad():
+                nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+                t.mul_(math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+        return init
+    raise NotImplementedError(f"initialization method {init_type!r} not implemented")
+
+
+# the standard deviation of a unit normal truncated at ±2 (jax's lecun_normal
+# divides it out)
+_TRUNC_STD = .87962566103423978
 
 
 class InstanceNorm(nn.Module):
@@ -67,12 +109,19 @@ class InstanceNorm(nn.Module):
         super().__init__()
         self.eps = eps
 
-    def forward(self, x):
+    def forward(self, x, update_stats: bool = True):
         xf = x.float()
         mean = torch.mean(xf, dim=(1, 2), keepdim=True)
         var = torch.mean(xf * xf, dim=(1, 2), keepdim=True) - mean * mean
         scale = torch.rsqrt(torch.clamp_min(var, 0.0) + self.eps)
         return (x - mean.to(x.dtype)) * scale.to(x.dtype)
+
+
+class Identity(nn.Module):
+    """``--norm* none``: no normalization (flax's ``Identity``)."""
+
+    def forward(self, x, update_stats: bool = True):
+        return x
 
 
 class BatchNorm(nn.Module):
@@ -85,10 +134,12 @@ class BatchNorm(nn.Module):
       * a pass may use batch statistics and discard the new running ones
         (``update_stats=False``: the reference's G-loss pass through D).
 
-    The batch statistics always normalize (the reference builds its
-    discriminators in training mode only) and, with ``update_stats``, fold
-    into the running ``mean``/``var`` buffers.  ``scale`` starts at
-    N(1, 0.02)."""
+    In training mode the batch statistics normalize and, with
+    ``update_stats``, fold into the running ``mean``/``var`` buffers (the
+    discriminators are always in training mode, as the reference builds
+    them); in eval mode (a ``--normG batch`` G's eval forward, the
+    reference's ``netG_eval``) the running ones normalize.  ``scale`` starts
+    at N(1, 0.02)."""
 
     def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -107,6 +158,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, update_stats: bool = True):
         xf = x.float()
+        if not self.training:
+            mul = torch.rsqrt(self.var + self.eps) * self.scale
+            return ((xf - self.mean) * mul + self.bias).to(x.dtype)
         mean = torch.mean(xf, dim=(0, 1, 2))
         var = torch.clamp_min(torch.mean(xf * xf, dim=(0, 1, 2)) - mean * mean, 0.0)
         if update_stats:
@@ -116,6 +170,24 @@ class BatchNorm(nn.Module):
                 self.var.copy_(m * self.var + (1 - m) * var)
         mul = torch.rsqrt(var + self.eps) * self.scale
         return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+def make_norm(norm_type: str, c: int) -> nn.Module:
+    """The norm after a conv (``vts_tpu/networks/blocks.py::make_norm_layer``):
+    ``instance``, ``batch`` or ``none``.  Each takes ``(x, update_stats)``."""
+    if norm_type == "instance":
+        return InstanceNorm()
+    if norm_type == "batch":
+        return BatchNorm(c)
+    if norm_type == "none":
+        return Identity()
+    raise NotImplementedError(f"normalization layer {norm_type!r} not found")
+
+
+def norm_uses_bias(norm_type: str) -> bool:
+    """A conv that a batch norm follows has no bias (the norm absorbs it); an
+    instance norm is affine-free, so the conv keeps its bias."""
+    return norm_type != "batch"
 
 
 def avg_pool_3x3_s2_nopad_count(x):
@@ -138,20 +210,20 @@ def avg_pool_3x3_s2_nopad_count(x):
     return total.to(x.dtype) / cnt
 
 
-class Conv4x4(nn.Module):
-    """4×4 conv, stride 2 and pad 1 by default (the U-Net's); the PatchGAN
-    heads use pad 2 at stride 2 and 1."""
+class Conv(nn.Module):
+    """k×k conv over NHWC (a torch OIHW weight), with the reference's stride
+    and symmetric padding."""
 
-    def __init__(self, in_c: int, out_c: int, use_bias: bool = True, stride: int = 2,
-                 padding: int = 1):
+    def __init__(self, in_c: int, out_c: int, k: int, use_bias: bool = True, stride: int = 1,
+                 padding: int = 0):
         super().__init__()
         self.stride, self.padding = stride, padding
-        self.weight = nn.Parameter(torch.zeros(out_c, in_c, 4, 4))
+        self.weight = nn.Parameter(torch.zeros(out_c, in_c, k, k))
         self.bias = nn.Parameter(torch.zeros(out_c)) if use_bias else None
 
     def reset_parameters(self, init, gen):
         o, i, kh, kw = self.weight.shape
-        init(self.weight, i * kh * kw, o * kh * kw, gen)
+        init(self.weight, i * kh * kw, o * kh * kw, gen, 0)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
@@ -164,6 +236,15 @@ class Conv4x4(nn.Module):
         return y if self.bias is None else y + self.bias.to(dtype)
 
 
+class Conv4x4(Conv):
+    """4×4 conv, stride 2 and pad 1 by default (the U-Net's); the PatchGAN
+    heads use pad 2 at stride 2 and 1."""
+
+    def __init__(self, in_c: int, out_c: int, use_bias: bool = True, stride: int = 2,
+                 padding: int = 1):
+        super().__init__(in_c, out_c, 4, use_bias, stride, padding)
+
+
 class ConvT4x4(nn.Module):
     """4×4 transposed conv, stride 2 → exact 2× upsample."""
 
@@ -174,7 +255,7 @@ class ConvT4x4(nn.Module):
 
     def reset_parameters(self, init, gen):
         i, o, kh, kw = self.weight.shape
-        init(self.weight, i * kh * kw, o * kh * kw, gen)
+        init(self.weight, i * kh * kw, o * kh * kw, gen, 1)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
@@ -192,11 +273,11 @@ class Down(nn.Module):
     innermost: no norm."""
 
     def __init__(self, in_c: int, out_c: int, innermost: bool = False,
-                 outermost: bool = False, use_bias: bool = True):
+                 outermost: bool = False, use_bias: bool = True, norm: str = "instance"):
         super().__init__()
         self.outermost = outermost
         self.conv = Conv4x4(in_c, out_c, use_bias)
-        self.norm = None if (outermost or innermost) else InstanceNorm()
+        self.norm = None if (outermost or innermost) else make_norm(norm, out_c)
 
     def forward(self, x, dtype: torch.dtype = torch.float32):
         if not self.outermost:
@@ -210,12 +291,12 @@ class Up(nn.Module):
     outermost level (which takes no skip, like the innermost)."""
 
     def __init__(self, in_c: int, out_c: int, innermost: bool = False,
-                 outermost: bool = False, use_bias: bool = True):
+                 outermost: bool = False, use_bias: bool = True, norm: str = "instance"):
         super().__init__()
         self.outermost = outermost
         self.takes_skip = not (outermost or innermost)
         self.convt = ConvT4x4(in_c, out_c, True if outermost else use_bias)
-        self.norm = None if outermost else InstanceNorm()
+        self.norm = None if outermost else make_norm(norm, out_c)
 
     def forward(self, x, skip=None, dtype: torch.dtype = torch.float32):
         if self.takes_skip and skip is not None:

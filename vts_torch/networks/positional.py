@@ -1,5 +1,8 @@
-"""Sinusoidal 2-D positional encoding (``vts_tpu/networks/positional.py``),
-NHWC.  Computed in float64 numpy then cast, exactly like the reference."""
+"""2-D positional encodings (``vts_tpu/networks/positional.py``), NHWC:
+``spe`` (sinusoidal, computed in float64 numpy then cast, exactly like the
+reference) and ``csg`` (the Cartesian grid in [-1, 1] by ``jnp.linspace``'s
+float32 formula; XLA's CPU fusion of it rounds some points one or two ulps
+apart, so the two agree within 2^-22)."""
 
 from __future__ import annotations
 
@@ -29,10 +32,32 @@ def spe_grid(h: int, w: int, dim: int = 4) -> np.ndarray:
     return np.concatenate([x_grid, y_grid], axis=-1)
 
 
+def _linspace_m1_1(n: int) -> np.ndarray:
+    """``jnp.linspace(-1, 1, n)`` in its float32 arithmetic: −(1 − t) + t at
+    t = i / (n − 1), the last point exactly 1 (0 for n = 1, as the reference)."""
+    f32 = np.float32
+    if n <= 1:
+        return np.zeros((1,), f32)
+    step = np.arange(n - 1, dtype=f32) / f32(n - 1)
+    return np.concatenate([f32(-1.0) * (f32(1.0) - step) + f32(1.0) * step, [f32(1.0)]]
+                          ).astype(f32)
+
+
+def csg_grid(h: int, w: int) -> np.ndarray:
+    """(h, w, 2) Cartesian grid in [-1, 1], channels (x, y)."""
+    gx = np.broadcast_to(_linspace_m1_1(w)[None, :], (h, w))
+    gy = np.broadcast_to(_linspace_m1_1(h)[:, None], (h, w))
+    return np.stack([gx, gy], axis=-1)
+
+
 def positional_encoding(h: int, w: int, mode: str = "spe", dim: int = 4,
                         batch: int = 1, device=None) -> torch.Tensor:
-    """(batch, h, w, 2·dim) encoding tensor."""
-    if mode != "spe":
-        raise NotImplementedError(f"positional encoding mode {mode!r} is not ported yet")
-    g = torch.from_numpy(spe_grid(h, w, dim)).to(device)
+    """(batch, h, w, C) encoding tensor; C = 2·dim for spe, 2 for csg."""
+    if mode == "spe":
+        g = spe_grid(h, w, dim)
+    elif mode == "csg":
+        g = csg_grid(h, w)
+    else:
+        raise NotImplementedError(f"positional encoding mode {mode!r}")
+    g = torch.from_numpy(np.ascontiguousarray(g)).to(device)
     return g[None].expand(batch, *g.shape)

@@ -9,7 +9,9 @@ under ``<checkpoints_dir>/<name>/web/`` every ``--display_freq`` samples
 validation metrics of the epoch's first sample with the reference's best
 vote — save ``best`` when at least half of the non-train metrics improve
 (lower is better for LPIPS, AE, MSE, SIFID; higher for PSNR, SSIM) — the
-epoch checkpoints, and the linear lr decay.  With ``--anneal_epoch`` and
+epoch checkpoints, and the lr schedule (under ``--lr_policy plateau`` the
+sum of the lower-is-better validation metrics drives a
+:class:`~vts_torch.models.base.PlateauTracker`).  With ``--anneal_epoch`` and
 ``--anneal_set``, the options named there change once, at the start of that
 epoch (``[anneal]`` line): the step reads them anew every time, and the
 loader takes the new batch size.  On CUDA the run turns TF32 off (cuDNN
@@ -31,6 +33,7 @@ from .config import TrainOptions
 from .data import create_dataset
 from .device import resolve_device
 from .models import create_model
+from .models.base import PlateauTracker
 from .utils.visualizer import Visualizer
 
 LOWER_BETTER = ("LPIPS", "AE", "MSE", "SIFID")
@@ -125,6 +128,7 @@ def _train(opt, device):
     visualizer = Visualizer(opt)
     total_iters = 0
     best_metrics: Dict[str, float] = {}
+    plateau = PlateauTracker() if opt.lr_policy == "plateau" else None
     eval_batch = None
     t_start = time.time()
     first = True
@@ -177,6 +181,10 @@ def _train(opt, device):
                 for k, v in metrics.items():
                     if not k.startswith("metric_train_"):
                         best_metrics[k] = v
+            if plateau is not None:
+                lower = [v for k, v in metrics.items() if not k.startswith("metric_train_")
+                         and any(t in k for t in LOWER_BETTER)]
+                model.lr_override = plateau.update(float(sum(lower)))
 
         if epoch % opt.save_epoch_freq == 0:
             print(f"saving the model at the end of epoch {epoch}, iters {total_iters}")

@@ -46,39 +46,60 @@ def _convt_from_torch(w):
 
 def unet_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
     """flax ``CustomUNet`` params tree → :class:`vts_torch.networks.unet_custom.CustomUNet`
-    state dict."""
+    state dict (``up0_T_extra{j}`` stages and ``--normG batch`` norms included)."""
     sd = OrderedDict()
     for name, sub in params.items():
-        if name.startswith("down"):
-            leaf = sub["Conv4x4_0"]["Conv_0"]
-            sd[f"down.{name}.conv.weight"] = _conv_to_torch(leaf["kernel"])
-            if "bias" in leaf:
-                sd[f"down.{name}.conv.bias"] = _t(leaf["bias"])
-        elif name.startswith("up"):
-            leaf = sub["ConvT4x4_0"]["ConvTranspose_0"]
-            sd[f"up.{name}.convt.weight"] = _convt_to_torch(leaf["kernel"])
-            if "bias" in leaf:
-                sd[f"up.{name}.convt.bias"] = _t(leaf["bias"])
-        else:
+        group = "down" if name.startswith("down") else "up" if name.startswith("up") else None
+        if group is None:
             raise KeyError(f"unexpected CustomUNet param group {name!r}")
+        conv, leaf = (("conv", sub["Conv4x4_0"]["Conv_0"]) if group == "down"
+                      else ("convt", sub["ConvT4x4_0"]["ConvTranspose_0"]))
+        sd[f"{group}.{name}.{conv}.weight"] = (_conv_to_torch if group == "down"
+                                               else _convt_to_torch)(leaf["kernel"])
+        if "bias" in leaf:
+            sd[f"{group}.{name}.{conv}.bias"] = _t(leaf["bias"])
+        for k, v in sub.get("BatchNorm_0", {}).items():
+            sd[f"{group}.{name}.norm.{k}"] = _t(v)
     return sd
 
 
+def unet_stats_to_torch(stats: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """A ``--normG batch`` U-Net's flax ``batch_stats`` → the running
+    ``mean``/``var`` buffers of its norms."""
+    return OrderedDict(
+        (f"{'down' if name.startswith('down') else 'up'}.{name}.norm.{k}", _t(v))
+        for name, sub in stats.items() for k, v in sub["BatchNorm_0"].items())
+
+
 def torch_to_unet_params(state_dict: Dict[str, torch.Tensor]) -> Dict:
-    """Inverse of :func:`unet_params_to_torch` (what the checkpoint writer stores)."""
+    """Inverse of :func:`unet_params_to_torch` (what the checkpoint writer
+    stores); running stats in the state dict are left out (see
+    :func:`torch_to_unet_stats`)."""
     params: Dict = {}
     for key, t in state_dict.items():
-        group, name, conv, kind = key.split(".")
-        if group == "down":
-            leaf = params.setdefault(name, {}).setdefault("Conv4x4_0", {}).setdefault("Conv_0", {})
-            leaf["kernel" if kind == "weight" else "bias"] = (
-                _conv_from_torch(t) if kind == "weight" else _np(t).copy())
+        group, name, mod, kind = key.split(".")
+        if mod == "norm":
+            if kind not in ("mean", "var"):
+                params.setdefault(name, {}).setdefault("BatchNorm_0", {})[kind] = _np(t).copy()
+            continue
+        inner = ("Conv4x4_0", "Conv_0") if group == "down" else ("ConvT4x4_0", "ConvTranspose_0")
+        leaf = params.setdefault(name, {}).setdefault(inner[0], {}).setdefault(inner[1], {})
+        if kind == "weight":
+            leaf["kernel"] = (_conv_from_torch if group == "down" else _convt_from_torch)(t)
         else:
-            leaf = params.setdefault(name, {}).setdefault("ConvT4x4_0", {}).setdefault(
-                "ConvTranspose_0", {})
-            leaf["kernel" if kind == "weight" else "bias"] = (
-                _convt_from_torch(t) if kind == "weight" else _np(t).copy())
+            leaf["bias"] = _np(t).copy()
     return params
+
+
+def torch_to_unet_stats(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """The running stats of a U-Net state dict → flax ``batch_stats`` ({} for
+    a U-Net without batch norm)."""
+    stats: Dict = {}
+    for key, t in state_dict.items():
+        _, name, mod, kind = key.split(".")
+        if mod == "norm" and kind in ("mean", "var"):
+            stats.setdefault(name, {}).setdefault("BatchNorm_0", {})[kind] = _np(t).copy()
+    return stats
 
 
 # ---------------------------------------------------------------- LPIPS ---
@@ -145,7 +166,8 @@ def d3_head_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
 #   <scale>.Conv4x4_i.weight|bias   ↔ params[<scale>][Conv4x4_i][Conv_0][kernel|bias]
 #   <scale>.BatchNorm_i.scale|bias  ↔ params[<scale>][BatchNorm_i][scale|bias]
 #   <scale>.BatchNorm_i.mean|var    ↔ batch_stats[<scale>][BatchNorm_i][mean|var]
-# (no <scale> level for a single NLayerDiscriminator).
+#   conv<i>.weight|bias             ↔ params[conv<i>][kernel|bias]  (the pixel D)
+# (no <scale> level for a single NLayerDiscriminator, ``head`` for the patch D).
 
 def _leaves(tree: Dict, prefix=()):
     for k, v in tree.items():
@@ -165,9 +187,11 @@ def d_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
     """flax discriminator params → the port's D state-dict entries."""
     sd = OrderedDict()
     for path, v in _leaves(params):
-        if path[-2] == "Conv_0":
-            key = ".".join(path[:-2]) + (".weight" if path[-1] == "kernel" else ".bias")
-            sd[key] = _conv_to_torch(v) if path[-1] == "kernel" else _t(v)
+        module = path[:-2] if path[-2] == "Conv_0" else path[:-1]
+        if path[-1] == "kernel":
+            sd[".".join(module) + ".weight"] = _conv_to_torch(v)
+        elif path[-2] == "Conv_0":
+            sd[".".join(module) + ".bias"] = _t(v)
         else:
             sd[".".join(path)] = _t(v)
     return sd
@@ -186,9 +210,10 @@ def torch_to_d_params(state_dict: Dict[str, torch.Tensor]):
     for key, t in state_dict.items():
         path = tuple(key.split("."))
         module, leaf = path[-2], path[-1]
-        if module.startswith("Conv4x4"):
-            name = "kernel" if leaf == "weight" else "bias"
-            _set(params, path[:-1] + ("Conv_0", name),
+        if module.startswith("Conv4x4") or module.startswith("conv"):
+            # the PatchGAN's Conv4x4 wraps an nn.Conv; the pixel D's 1×1 convs are bare
+            inner = ("Conv_0",) if module.startswith("Conv4x4") else ()
+            _set(params, path[:-1] + inner + ("kernel" if leaf == "weight" else "bias",),
                  _conv_from_torch(t) if leaf == "weight" else _np(t).copy())
         elif leaf in ("mean", "var"):
             _set(stats, path, _np(t).copy())
