@@ -86,6 +86,20 @@ Phases, each of which must pass or the script exits non-zero:
      ``SURFACE_ARGS``) on cuda and on cpu (the penalty's double backward on
      the card), as in phase 4 with the round-off leaves found from the CPU
      gradient;
+  4e. skitG (--model skit), the multi-garment model with the CLIP style code,
+     at the full-width training defaults on two synthetic garments (synthA,
+     synthB; style code tile/concat at one level, so up7 takes 8·ngf + 512
+     channels): ``vts_torch.train`` for 2 epochs of one sample of each, D3
+     from epoch 2, the gallery once, every loss finite, every kernel
+     launched, one D3-active step launching as ``PER_STEP`` says; its best G
+     through ``vts_torch.test`` on both garments under --eval_mode batched
+     and legacy, 8 finite metrics a sample and both garments in
+     eval_metrics_per_material.pkl (printed); garment A's fake_I with B's
+     style image differs from it with A's (beyond A's twice); K1 at the
+     legacy evaluation's shapes for garment A's valid patches (T_LPIPS in
+     chunks of 16 pairs: (32, 224², ·) and the remainder) within the fp32
+     limit; a 256² skitG step on cuda and on cpu from the same weights,
+     style code (encoded on the cpu) and draws, held as the x2 step of 4c is;
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
@@ -106,14 +120,20 @@ Phases, each of which must pass or the script exits non-zero:
      D3 active before and after the anneal (median of 5 after 2 warm-ups,
      samples/s, peak memory); the x2 path's kernels at one step's shapes,
      its untraced D3-active step (median of 5 after 2 warm-ups, samples/s,
-     peak memory) and one x2 test sample.
+     peak memory) and one x2 test sample; K1 and K2 at the legacy
+     evaluation's shapes; one skitG test sample (garment A) under each
+     evaluation, with its launches, the style encode, and the untraced
+     skitG D3-active step (median of 5 after 2 warm-ups, samples/s, peak
+     memory, launches).
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel and
 path: an ``eval`` row covers one test sample (its launches are the test
 run's, which holds one sample, less the gallery's), a ``train`` row one
 training step (its launches are those of a timed D3-active step, counted
 from 0), a ``train_bf16`` row one step of the production lane before its
-anneal (likewise) and a ``train_tmult2`` row one D3-active x2 step; ``ms``, ``plain_ms``,
+anneal (likewise), a ``train_tmult2`` row one D3-active x2 step and an
+``eval_legacy`` row one skitG test sample under --eval_mode legacy (its
+launches counted in that sample); ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` sum the per-shape times over those launches,
 and ``max_abs_err`` is the worst of the checks at that path's shapes.  The
 last line is ``{"ok": true, "device": {...}}``.  Nothing is printed as a result unless
@@ -273,14 +293,26 @@ def device_times(calls):
     both times are the median over the runs.  Nones where the span shows no
     such kernel, or one a number of times that is not a multiple of reps
     (the trace lost launches); all Nones if the spans cannot be told apart
-    (a marker lost).  One session: a session per call lost launches after some dozens
+    (a marker lost in each of three sessions: a session that loses one, as
+    one of 68 calls' did on an H100 after the lead run of spins, is run
+    again).  One session: a session per call lost launches after some dozens
     of sessions on the H100, and a second session in a process recorded only
     part of its spans (:func:`library_device_times` runs one in a process of
     its own)."""
-    from torch.profiler import ProfilerActivity, profile
     for fn, _, _ in calls:
         fn()
     torch.cuda.synchronize()
+    for _ in range(3):
+        out = _device_times_session(calls)
+        if out is not None:
+            return out
+    return [(None, None, None)] * len(calls)
+
+
+def _device_times_session(calls):
+    """One profiler session of :func:`device_times`; None if it lost a marker."""
+    from torch.profiler import ProfilerActivity, profile
+
     def marker():
         # two spin kernels; a run of spins is one marker
         torch.cuda._sleep(1000)
@@ -322,8 +354,8 @@ def device_times(calls):
                 spans[-1].append(e)
     if len(spans) != 2 * len(calls) + 1:
         print(f"[device-only] the session shows {len(spans)} markers for {len(calls)} calls "
-              f"({len(events)} device events): not measured")
-        return [(None, None, None)] * len(calls)
+              f"({len(events)} device events)")
+        return None
     out = []
     for (_, name, reps), span, pairs in zip(calls, spans[1::2], evs):
         mine = [e for e in span if name in e.name]
@@ -1456,6 +1488,136 @@ def main() -> int:
     del pair
     torch.backends.cudnn.deterministic = cudnn_det
 
+    # --------------------------------------------------------------- 4e ---
+    print(f"[phase] phase 4e (skitG) from {time.time() - t_start:.1f} s")
+    # the multi-garment model with the CLIP style code, at the full-width
+    # training defaults on two synthetic garments (synthA, synthB): 2 epochs
+    # of one sample of each, D3 from epoch 2, the gallery once
+    sargv = ["--model", "skit", "--name", "skit", "--dataroot", f"synthetic://smoke?size={PADDED}",
+             "--device", "cuda", "--data_len", "1", "--n_epochs", "2", "--n_epochs_decay", "0",
+             "--vision_aided_warmup_epoch", "2", "--display_freq", "4"] + dirs
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    with Gallery() as gallery:
+        smodel = run_train(sargv)
+    torch.cuda.synchronize()
+    skit_run_launches = read_counts()
+    losses = smodel.get_current_losses()
+    print(f"[skit] 4 steps over 2 garments (D3 active in the last 2) + 2 validations + the "
+          f"gallery in {time.time() - t0:.2f} s (first run, incl. data and model set-up); epoch "
+          f"2's last losses: " + " ".join(f"{k}={v:.6g}" for k, v in losses.items()))
+    print(f"[skit] launches during the run: {skit_run_launches}")
+    print(gallery.line("skitG training gallery"))
+    up7_in = smodel.netG.up["up7"].convt.weight.shape[0]
+    check(up7_in == 8 * NGF + 512 and smodel._input["style_code"].shape == (1, 512),
+          f"skitG's G takes {up7_in} channels at up7, code {smodel._input.get('style_code')}")
+    check(len(losses) >= 15 and {"G_D3", "D3_loss"} <= set(losses)
+          and all(math.isfinite(v) for v in losses.values()),
+          f"a skitG training loss is missing or not finite: {losses}")
+    check(all(skit_run_launches[k] > 0 for k in KERNELS),
+          f"a kernel was not launched by the skitG run: {skit_run_launches}")
+    check(gallery.passes == 1, f"the skitG gallery made {gallery.passes} visuals passes")
+    reset_counts()
+    smodel.optimize_parameters(2)
+    torch.cuda.synchronize()
+    check(read_counts() == PER_STEP, f"a skitG D3-active step launched {read_counts()}, not "
+                                     f"{PER_STEP}")
+    del smodel
+    # its best G through the test driver on both garments, batched and legacy
+    stest = ["--model", "skit", "--epoch", "best", "--name", "skit", "--dataroot",
+             f"synthetic://smoke?size={PADDED}", "--device", "cuda", "--data_len", "1",
+             "--num_test", "2", "--batch_size_G2", str(K_PATCH)] + dirs
+    import pickle
+    skit_tests = {}
+    for mode in ("batched", "legacy"):
+        reset_counts()
+        with Gallery() as gallery:
+            got = run_test(stest + ["--eval_mode", mode, "--results_dir",
+                                    os.path.join(tmp, f"res_{mode}")])
+        torch.cuda.synchronize()
+        skit_tests[mode] = read_counts()
+        with open(os.path.join(tmp, f"res_{mode}", "skit", "test_best",
+                               "eval_metrics_per_material.pkl"), "rb") as f:
+            per_mat = pickle.load(f)
+        check(len(got) == 2 and all(len(m) == 8 and all(math.isfinite(v) for v in m.values())
+                                    for m in got), f"skitG test ({mode}): {got}")
+        check(sorted(per_mat) == ["synthA", "synthB"]
+              and all(math.isfinite(v) for m in per_mat.values() for v in m.values()),
+              f"skitG test ({mode}): per-material metrics {per_mat}")
+        for mat, m in sorted(per_mat.items()):
+            print(f"[skit test {mode}] material {mat}: "
+                  + " ".join(f"{k}={v:.6g}" for k, v in sorted(m.items())))
+        print(f"[skit test {mode}] launches during the 2-sample run: {skit_tests[mode]} "
+              f"(the gallery's: {gallery.launches})")
+    legacy_run_launches = skit_tests["legacy"]
+    # two style images give two images: garment A's sketch with A's style
+    # image, then with B's
+    topt = TestOptions().parse(stest, quiet=True)
+    sbatches = list(create_dataset(topt))
+    smodel = create_model(topt)
+    smodel.setup()
+    smodel.load_networks("best")
+    fakes = []
+    for style in (sbatches[0]["style_image"], sbatches[0]["style_image"],
+                  sbatches[1]["style_image"]):
+        smodel.set_input({**sbatches[0], "style_image": style})
+        smodel.test()
+        fakes.append(smodel._outputs["fake_I"])
+    d_same, d_style = ((fakes[0] - f).abs().max().item() for f in fakes[1:])
+    print(f"[skit] garment A's fake_I with A's style image vs B's: max|d| {d_style:.4g} (A's "
+          f"twice: {d_same:.4g})")
+    check(d_style > max(10 * d_same, 1e-5), "two style images give the same fake_I")
+    del smodel, fakes
+    # K1 at the legacy evaluation's shapes for garment A's valid test
+    # patches: T_LPIPS on gx and on gy in chunks of 16 pairs, each chunk's
+    # VGG on (2·pairs, 224², ·); I_LPIPS at the canvas as the batched eval
+    kv = int((sbatches[0]["T_valid"] > 0).sum())
+    chunks = [16] * (kv // 16) + ([kv % 16] if kv % 16 else [])
+    k1_legacy = [(2, CANVAS, CANVAS, 64, 64, 1), (2, CANVAS // 2, CANVAS // 2, 64, 128, 1),
+                 (2, CANVAS // 2, CANVAS // 2, 128, 128, 1)]
+    for pairs in sorted(set(chunks), reverse=True):
+        per = 2 * chunks.count(pairs)
+        k1_legacy += [(2 * pairs, 224, 224, 64, 64, per), (2 * pairs, 112, 112, 64, 128, per),
+                      (2 * pairs, 112, 112, 128, 128, per)]
+    legacy_rows = []
+    for (n, h, w, c, co, per) in k1_legacy:
+        x = torch.relu(torch.randn(n, h, w, c, generator=gdev, device=dev))
+        wt = torch.randn(3, 3, c, co, generator=gdev, device=dev) * math.sqrt(2.0 / (9 * c))
+        b = torch.randn(co, generator=gdev, device=dev) * 0.1
+        got = k1.conv3x3_bias_relu(x, wt, b)
+        ref = k1.conv3x3_bias_relu_plain(x, wt, b)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item() + 1e-5
+        print(f"[K1 legacy check] {(n, h, w, c)}->{co}: max|d| {err:.3e} (tol {tol:.3e}), "
+              f"{per} per garment-A sample")
+        check(err <= tol, f"K1 disagrees with its plain version at {(n, h, w, c, co)}")
+        legacy_rows.append(dict(shape=[n, h, w, c, co], per_sample=per, err=err,
+                                tensors=(x, wt, b)))
+        del got, ref
+    print(f"[skit] garment A: {kv} valid test patches, T_LPIPS chunks {chunks}")
+    # a 256² skitG step on cuda and on cpu from the same weights, style code
+    # (encoded once, on the cpu) and draws
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    small_skit = strain + ["--model", "skit", "--use_vision_aided_loss", "false"]
+    pair = {}
+    for key in ("cpu", "cuda"):
+        o = TrainOptions().parse(small_skit + ["--device", key], quiet=True)
+        pair[key] = create_model(o)
+        pair[key].setup()
+    sbatch = next(iter(create_dataset(o)))
+    sbatch["style_code"] = pair["cpu"].encode_style(
+        torch.from_numpy(sbatch["style_image"])).numpy()
+    draws = pair["cpu"].draw(1)
+    for m in pair.values():
+        m.set_input(sbatch)
+        m.optimize_parameters(1, draws=draws)
+    compare_steps("256² skitG step", pair["cpu"], pair["cuda"], g_scale=4.0)
+    del pair
+    torch.backends.cudnn.deterministic = cudnn_det
+
     # ---------------------------------------------------------------- 5 ---
     print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s; the card: {card_state()} "
           f"(SM clock, power, temperature)")
@@ -1494,26 +1656,32 @@ def main() -> int:
     def tf32_note(flops, nbytes):
         return f"operations, 3xTF32; fp32 CUDA cores {bound_ms(flops, nbytes)[0]:.4f}"
 
-    for row in k1_rows:
-        n, h, w, c, co = row["shape"]
-        x, wt, b = row["tensors"]
-        w_oihw = wt.permute(3, 2, 0, 1).contiguous()
-        x_nchw = x.permute(0, 3, 1, 2)
-        call = lambda x=x, wt=wt, b=b: k1.conv3x3_bias_relu(x, wt, b)
-        lib_spec = ("conv_relu", x_nchw, w_oihw, b)
-        lib_fn = library_call(lib_spec)
-        ms = cuda_ms(call)
-        plain = cuda_ms(lambda: k1.conv3x3_bias_relu_plain(x, wt, b))
-        lib = cuda_ms(lib_fn)
-        flops = 2.0 * 9 * n * h * w * c * co
-        nbytes = 4.0 * (n * h * w * c + 9 * c * co + co + n * h * w * co)
-        bound, _ = add("conv3x3_bias_relu", "eval", row["per_sample"], ms, plain, lib, flops,
-                       nbytes, row["err"], row["shape"], K1_PEAK)
-        line = k1_line(f"[time K1 eval] {(n, h, w, c)}->{co}", ms, plain, "F.conv2d+relu", lib,
-                       bound, flops, tf32_note(flops, nbytes))
-        deferred.append((("conv3x3_bias_relu", "eval"), row["per_sample"], len(shape_rows) - 1,
-                         call, "conv3x3", lib_spec, line))
-        del row["tensors"]
+    def time_k1_eval(rows, path):
+        """K1 at each eval shape of ``rows`` (fp32), per test sample."""
+        for row in rows:
+            n, h, w, c, co = row["shape"]
+            x, wt, b = row["tensors"]
+            w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+            x_nchw = x.permute(0, 3, 1, 2)
+            call = lambda x=x, wt=wt, b=b: k1.conv3x3_bias_relu(x, wt, b)
+            lib_spec = ("conv_relu", x_nchw, w_oihw, b)
+            lib_fn = library_call(lib_spec)
+            ms = cuda_ms(call)
+            plain = cuda_ms(lambda: k1.conv3x3_bias_relu_plain(x, wt, b))
+            lib = cuda_ms(lib_fn)
+            flops = 2.0 * 9 * n * h * w * c * co
+            nbytes = 4.0 * (n * h * w * c + 9 * c * co + co + n * h * w * co)
+            bound, _ = add("conv3x3_bias_relu", path, row["per_sample"], ms, plain, lib, flops,
+                           nbytes, row["err"], row["shape"], K1_PEAK)
+            line = k1_line(f"[time K1 {path}] {(n, h, w, c)}->{co}", ms, plain, "F.conv2d+relu",
+                           lib, bound, flops, tf32_note(flops, nbytes))
+            deferred.append((("conv3x3_bias_relu", path), row["per_sample"], len(shape_rows) - 1,
+                             call, "conv3x3", lib_spec, line))
+            del row["tensors"]
+
+    time_k1_eval(k1_rows, "eval")
+    # the legacy evaluation of garment A's skitG test sample (--eval_mode legacy)
+    time_k1_eval(legacy_rows, "eval_legacy")
 
     def time_k1_train(rows, path, peak, tag):
         """K1 and K1 dx at each training shape of ``rows``, in the rows'
@@ -1609,7 +1777,7 @@ def main() -> int:
                 f"{'coords' if 'coords' in kw else 'offsets'}: kernel {ms:.4f} ms (host only "
                 f"{host:.4f} ms, device only {{dev}}), plain {plain_ms:.4f} ms, indexing "
                 f"{lib:.4f} ms (device only {{lib_dev}}), bound {bound:.5f} ms (bytes), "
-                f"{per} per {'sample' if path == 'eval' else 'step'}")
+                f"{per} per {'sample' if path.startswith('eval') else 'step'}")
         deferred.append((("gather_patches", path), per, len(shape_rows) - 1, call,
                          "gather_group_kernel", ("indexing", wins), line))
 
@@ -1617,6 +1785,9 @@ def main() -> int:
     time_gather("eval", PER_SAMPLE["gather_patches"], (img2[:1],),
                 dict(coords=coords[:1].contiguous()), k2.patch_offsets(coords[0])[:2],
                 "fake_T at the test patches")
+    # the legacy evaluation cuts the same stack, one launch per sample
+    time_gather("eval_legacy", 1, (img2[:1],), dict(coords=coords[:1].contiguous()),
+                k2.patch_offsets(coords[0])[:2], "fake_T at the test patches")
     for row in k2_train:
         time_gather("train", 1, row["images"], row["kw"], row["offsets"],
                     f"group {row['group']}")
@@ -1873,6 +2044,77 @@ def main() -> int:
           f"{statistics.median(walls):.1f} ms wall, median of {len(walls)}")
     del model, batch
     torch.cuda.empty_cache()
+
+    # skitG untraced: garment A's test sample under the batched and the
+    # legacy evaluation (median of 3 after 1, the launches of one), the style
+    # encode, and one training step with D3 active (median of 5 after 2)
+    print(f"[phase] skitG walls from {time.time() - t_start:.1f} s")
+    legacy_per_sample = {"conv3x3_bias_relu": sum(r[5] for r in k1_legacy), "conv3x3_dx": 0,
+                         "gather_patches": 1, "scatter_patches": 0}
+    skit_sample = {}
+    for mode, want in (("batched", PER_SAMPLE), ("legacy", legacy_per_sample)):
+        topt = TestOptions().parse(stest + ["--eval_mode", mode], quiet=True)
+        batch = next(iter(create_dataset(topt)))
+        model = create_model(topt)
+        model.setup()
+        model.load_networks("best")
+        walls = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            if i == 1:
+                reset_counts()
+            t0 = time.perf_counter()
+            model.set_input(batch)
+            model.test()
+            model.compute_metrics()
+            torch.cuda.synchronize()
+            if i == 1:
+                skit_sample[mode] = read_counts()
+            if i:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"[time skit sample {mode}] one {CANVAS}² skitG test sample (garment A, style "
+              f"encode included, K {K_PATCH}): {statistics.median(walls):.1f} ms wall, median "
+              f"of {len(walls)} ({', '.join(f'{w:.1f}' for w in walls)}); launches "
+              f"{skit_sample[mode]}")
+        check(skit_sample[mode] == want, f"a {mode} skitG test sample launched "
+                                         f"{skit_sample[mode]}, not {want}")
+        if mode == "legacy":
+            style = model._input["style_image"]
+            enc_ms = cuda_ms(lambda: model.encode_style(style), reps=20)
+            enc_full = cuda_ms(lambda: model.encode_style(model._input["I"]), reps=20)
+            print(f"[time skit encode] the style code of one sample: {enc_ms:.3f} ms from the "
+                  f"224² style image, {enc_full:.3f} ms from the {CANVAS}² visual image "
+                  f"(CLIP ViT-B/32, resize_mm inside)")
+        del model, batch
+    sopt = TrainOptions().parse(sargv, quiet=True)
+    batch = next(iter(create_dataset(sopt)))
+    model = create_model(sopt)
+    model.setup()
+    model.set_input(batch)
+    walls, peaks = [], []
+    for i in range(7):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if i == 2:
+            reset_counts()
+        t0 = time.perf_counter()
+        model.optimize_parameters(2)
+        model.get_current_losses()
+        torch.cuda.synchronize()
+        if i == 2:
+            skit_step_launches = read_counts()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    skit_wall = statistics.median(walls)
+    print(f"[time skit step] one {CANVAS}² skitG training step, D3 active (batch 1, ngf {NGF}, "
+          f"ndf 8, K {K_TRAIN} + 32, style code at 1 level): {skit_wall:.1f} ms wall, median of "
+          f"{len(walls)} ({', '.join(f'{w:.1f}' for w in walls)}); {1e3 / skit_wall:.3f} "
+          f"samples/s; peak memory {max(peaks):.2f} GiB; launches per step {skit_step_launches}")
+    check(skit_step_launches == PER_STEP, f"a timed skitG step launched {skit_step_launches}, "
+                                          f"not {PER_STEP}")
+    del model, batch
+    torch.cuda.empty_cache()
     # device-only times of every kernel, and of their library calls
     print(f"[phase] device-only times from {time.time() - t_start:.1f} s")
     print(f"[device-only] the card: {card_state()} (SM clock, power, temperature)")
@@ -1911,9 +2153,9 @@ def main() -> int:
                                    "no Pallas kernel)")}
     kernels = []
     per_path = {"eval": test_launches, "train": step_launches, "train_bf16": lane_step_launches,
-                "train_tmult2": x2_step_launches}
+                "train_tmult2": x2_step_launches, "eval_legacy": skit_sample["legacy"]}
     in_run = {"eval": run_launches, "train": train_launches, "train_bf16": lane_run_launches,
-              "train_tmult2": x2_run_launches}
+              "train_tmult2": x2_run_launches, "eval_legacy": legacy_run_launches}
     for (kname, path), acc in rows.items():
         launches = per_path[path][kname]
         check(launches == acc["per"], f"{kname} ({path}): {launches} launches, timed {acc['per']}")
@@ -1924,7 +2166,8 @@ def main() -> int:
         dev_t = sum(acc["dev"]) if acc["dev"] and None not in acc["dev"] else None
         lib_dev = sum(acc["lib_dev"]) if acc["lib_dev"] and None not in acc["lib_dev"] else None
         src, repl = sources[kname]
-        print(f"[time {kname} {path}] per {'test sample' if path == 'eval' else 'training step'}: "
+        per_what = "test sample" if path.startswith("eval") else "training step"
+        print(f"[time {kname} {path}] per {per_what}: "
               f"{launches} launches, kernel {acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, "
               f"library {acc['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}"
               f"{', 3xTF32' if acc['peak'] == K1_PEAK else ''}; fp32 CUDA cores "

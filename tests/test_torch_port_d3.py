@@ -8,6 +8,8 @@ numpy inputs:
     (rtol 1e-4, and atol 1e-5 of the tensor's largest magnitude: after 12
     residual blocks the taps reach ~10-30, and an element near zero carries
     the round-off of that scale);
+  * ``clip_style_code``, the skitG style code, at 224² and from a 256²
+    image (resized inside), under the embedding's limit above;
   * ``d3_logits``, ``d3_d_loss`` and ``d3_g_loss`` (rtol 1e-4, atol 1e-6), and
     the gradient of ``d3_g_loss`` in the fake image (within 1e-4 of its max);
   * the OpenAI-format loader on a ``visual.*`` state dict written here.
@@ -99,6 +101,18 @@ def test_clip_features_match_jax(towers, size):
     for i, (a, b) in enumerate(zip(taps, want_taps)):
         assert a.shape == (2, 50, 768)
         _assert_close(a, b, f"tap {i}")
+
+
+@pytest.mark.parametrize("size", [224, 256])
+def test_clip_style_code_matches_jax(towers, size):
+    from vts_tpu.networks.clip_vit import clip_style_code
+    jclip, _, clip, _ = towers
+    x = _images(size + 1, size)
+    want = clip_style_code(jclip, jnp.asarray(x))
+    with torch.no_grad():
+        got = tc.clip_style_code(clip, torch.from_numpy(x))
+    assert got.shape == (2, 512)
+    _assert_close(got, want, "style code")
 
 
 def test_d3_logits_and_losses_match_jax(towers):

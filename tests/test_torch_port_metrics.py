@@ -1,6 +1,8 @@
 """Port parity for the metric modules: LPIPS (with K1 inside), Inception
-block 0, PSNR/SSIM, normals and angle error, nearest resize, and the batched
-8-metric evaluation — the same numpy inputs through both packages."""
+block 0, PSNR/SSIM, normals and angle error, nearest resize, the batched
+8-metric evaluation, the legacy per-metric evaluation (``--eval_mode
+legacy``, T_FID included) and T_FID's two reductions — the same numpy inputs
+through both packages."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -129,3 +131,66 @@ def test_batched_eval_matches_jax(lpips_pair):
     for key in want:
         rtol = 1e-3 if "SIFID" in key else 1e-4
         np.testing.assert_allclose(got[key], want[key], rtol=rtol, err_msg=key)
+
+
+def _legacy_inputs(k):
+    rng = np.random.default_rng(11)
+    h = 64
+    real_I = rng.uniform(-1, 1, (1, h, h, 3)).astype(np.float32)
+    fake_I = np.clip(real_I + rng.normal(0, 0.3, real_I.shape), -1, 1).astype(np.float32)
+    real_T = rng.uniform(-1, 1, (k, 32, 32, 2)).astype(np.float32)
+    fake_T = np.clip(real_T + rng.normal(0, 0.4, real_T.shape), -1.2, 1.2).astype(np.float32)
+    return real_I, fake_I, real_T, fake_T
+
+
+def test_legacy_eval_matches_jax(lpips_pair):
+    """``--eval_mode legacy``: the reference's per-metric loop on one sample's
+    valid patches, T_FID included: rtol 1e-4, the Fréchet metrics (SIFIDs,
+    T_FID) 1e-3 (host sqrtm)."""
+    from vts_tpu.metrics.evaluate import DEFAULT_EVAL_METRICS as JAX_DEFAULT
+    from vts_tpu.metrics.evaluate import compute_evaluation_metrics as jax_legacy
+    from vts_torch.metrics.evaluate import DEFAULT_EVAL_METRICS, compute_evaluation_metrics
+    jp, net = lpips_pair
+    names = tuple(DEFAULT_EVAL_METRICS) + ("T_FID",)
+    assert tuple(JAX_DEFAULT) == tuple(DEFAULT_EVAL_METRICS)
+    real_I, fake_I, real_T, fake_T = _legacy_inputs(2)
+    want = jax_legacy(jnp.asarray(real_I), jnp.asarray(fake_I), jnp.asarray(real_T),
+                      jnp.asarray(fake_T), eval_metrics=names, lpips_params=jp,
+                      inception_params=jax_init_inception(0), prefix="x_")
+    got = compute_evaluation_metrics(T(real_I), T(fake_I), T(real_T), T(fake_T),
+                                     eval_metrics=names, lpips_net=net,
+                                     inception=InceptionBlock0(init_inception_params(0)),
+                                     prefix="x_")
+    assert list(got) == list(want) and len(got) == 9 and "metric_x_T_FID" in got
+    for key in want:
+        rtol = 1e-3 if "FID" in key else 1e-4
+        np.testing.assert_allclose(got[key], want[key], rtol=rtol, err_msg=key)
+
+
+def test_legacy_lpips_runs_in_chunks_of_16():
+    """LPIPS pairs go 16 at a time, the last chunk short (the T_LPIPS K1
+    shapes (≤ 16·2, 224², ·) on the card), the distances in order."""
+    from vts_torch.metrics.evaluate import lpips_chunked
+    seen = []
+
+    def net(x, y):
+        seen.append(x.shape[0])
+        return (x - y).flatten(1).mean(1)
+    x, y = torch.randn(37, 4, 4, 1), torch.randn(37, 4, 4, 1)
+    got = lpips_chunked(net, x, y)
+    assert seen == [16, 16, 5]
+    torch.testing.assert_close(got, (x - y).flatten(1).mean(1), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("reduction", ["none", "mean"])
+def test_tactile_fid_matches_jax(reduction):
+    """T_FID, both reductions, float64 on the host in both: rtol 1e-6."""
+    from vts_tpu.metrics.tactile_fid import im2col_3x3 as jax_im2col
+    from vts_tpu.metrics.tactile_fid import tactile_patch_fid as jax_fid
+    from vts_torch.metrics.tactile_fid import im2col_3x3, tactile_patch_fid
+    _, _, real_T, fake_T = _legacy_inputs(6)
+    np.testing.assert_array_equal(im2col_3x3(real_T[0]), jax_im2col(real_T[0]))
+    want = jax_fid(real_T, fake_T, reduction)
+    got = tactile_patch_fid(real_T, fake_T, reduction)
+    assert np.isfinite(got) and got > 0
+    np.testing.assert_allclose(got, want, rtol=1e-6)

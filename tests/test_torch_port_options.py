@@ -5,7 +5,9 @@ JAX compile:
     (found by walking their actions) parses in the port's parser of the same
     phase or raises ``NotImplementedError`` naming the flag — with its
     default, each of its choices, and with no value where it takes none;
-    never an argparse error — and has the reference's default there.  The round-5 production commands (the
+    never an argparse error — and has the reference's default there; the
+    same for the skit parsers (``--model skit``, which adds the style-code
+    and skit-dataset flags).  The round-5 production commands (the
     ``sched_prod`` and ``sched_anneal`` arms and their best-checkpoint
     tests, ``scripts/round5_queue.sh``, ``scripts/r5_anneal.sh``) parse
     unmodified, with ``--device`` added;
@@ -47,11 +49,11 @@ PROD_TEST = ["--model", "sinskit", "--name", "sched_prod", "--epoch", "best", "-
              "--dtype", "bfloat16"]
 
 
-def _jax_parser(phase, tmp):
+def _jax_parser(phase, tmp, extra=()):
     from vts_tpu.config import TestOptions as JTest
     from vts_tpu.config import TrainOptions as JTrain
     opts = (JTrain if phase == "train" else JTest)()
-    opts.gather_options(["--checkpoints_dir", str(tmp)])
+    opts.gather_options(["--checkpoints_dir", str(tmp), *extra])
     return opts.parser
 
 
@@ -74,11 +76,10 @@ def _values(action):
     return vals
 
 
-@pytest.mark.parametrize("phase", ["train", "test"])
-def test_every_reference_option_parses_or_is_refused_by_name(phase, tmp_path):
-    parser = _jax_parser(phase, tmp_path / "jax")
+def _walk(phase, tmp_path, model=()):
+    parser = _jax_parser(phase, tmp_path / "jax", model)
     port = _port(phase)
-    base = ["--checkpoints_dir", str(tmp_path / "port"), "--device", "cpu"]
+    base = ["--checkpoints_dir", str(tmp_path / "port"), "--device", "cpu", *model]
     tried = refused = 0
     for action in parser._actions:
         if not action.option_strings or action.dest == "help":
@@ -98,6 +99,18 @@ def test_every_reference_option_parses_or_is_refused_by_name(phase, tmp_path):
     assert tried > 150 and 0 < refused < tried / 4, (tried, refused)
 
 
+@pytest.mark.parametrize("phase", ["train", "test"])
+def test_every_reference_option_parses_or_is_refused_by_name(phase, tmp_path):
+    _walk(phase, tmp_path)
+
+
+@pytest.mark.parametrize("phase", ["train", "test"])
+def test_every_reference_skit_option_parses_or_is_refused_by_name(phase, tmp_path):
+    """``--model skit``'s parsers: the sinskit flags, the style-code flags and
+    the skit dataset's."""
+    _walk(phase, tmp_path, ("--model", "skit"))
+
+
 # Settings that parse and build their model, and the refusals that stand
 PORTED = [["--T_resolution_multiplier", "2"], ["--T_resolution_multiplier", "4"],
           ["--gan_mode", "wgan"], ["--gan_mode", "wgangp"], ["--gan_mode", "hinge"],
@@ -106,9 +119,10 @@ PORTED = [["--T_resolution_multiplier", "2"], ["--T_resolution_multiplier", "4"]
           ["--netD2", "pixel"], ["--diffaugment", "bscton"], ["--lr_policy", "plateau"],
           ["--init_type", "xavier_uniform"], ["--init_type", "orthogonal"],
           ["--init_type", "none"], ["--positional_encoding_mode", "csg"],
-          ["--no_dropout", "false"], ["--preprocess", "zoom_and_crop"]]
-STILL_REFUSED = [["--display_id", "1"], ["--mesh", "data:2"], ["--eval_mode", "legacy"],
-                 ["--use_style_code", "true"], ["--model", "skit"], ["--netD", "stylegan2"],
+          ["--no_dropout", "false"], ["--preprocess", "zoom_and_crop"],
+          ["--use_style_code", "true"], ["--model", "skit"], ["--eval_mode", "legacy"],
+          ["--dataset_mode", "skit"]]
+STILL_REFUSED = [["--display_id", "1"], ["--mesh", "data:2"], ["--netD", "stylegan2"],
                  ["--netD2", "tilestylegan2"], ["--diffaugment", "bsb"]]
 
 
@@ -140,6 +154,27 @@ def test_defaults_match_the_reference(phase, tmp_path):
             ._actions if a.option_strings and a.dest != "help"}
     assert {k: (v, port.get(k)) for k, v in ref.items() if port.get(k, "missing") != v} == {}
     assert set(port) - set(ref) == {"device", "use_style_code"}
+
+
+@pytest.mark.parametrize("phase", ["train", "test"])
+def test_skit_defaults_match_the_reference(phase, tmp_path):
+    """``--model skit``: every flag of the reference's skit parser of each
+    phase has the reference's default (the style code on, one style level,
+    the skit dataset); the port adds only ``--device``."""
+    from vts_torch.config import options as o
+    ref = {a.dest: a.default for a in _jax_parser(phase, tmp_path, ("--model", "skit"))._actions
+           if a.option_strings and a.dest != "help"}
+    parser = (o._train_parser if phase == "train" else o._test_parser)()
+    o._skit_model_flags(parser)
+    o._skit_dataset_flags(parser)
+    port = {a.dest: parser.get_default(a.dest) for a in parser._actions
+            if a.option_strings and a.dest != "help"}
+    assert {k: (v, port.get(k)) for k, v in ref.items() if port.get(k, "missing") != v} == {}
+    assert set(port) - set(ref) == {"device"}
+    opt = _port(phase).parse(["--model", "skit", "--checkpoints_dir", str(tmp_path),
+                              "--device", "cpu"], quiet=True)
+    assert (opt.use_style_code, opt.num_layer_style_code, opt.dataset_mode,
+            opt.style_code_dim) == (True, 1, "skit", 512)
 
 
 @pytest.mark.parametrize("argv", [PROD_TRAIN, ANNEAL_TRAIN, PROD_TEST],

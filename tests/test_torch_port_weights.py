@@ -9,7 +9,10 @@ the CPU, on synthetic checkpoints that the tests write with ``torch.save``
 
 both packages' loaders give identical params, the LPIPS distances and the
 block-0 features agree within rtol 1e-5, and ``--lpips_weights`` /
-``--inception_weights`` reach the model in both phases.
+``--inception_weights`` reach the model in both phases.  And the reference's
+generator checkpoints (``.pth``, a sinskitG G and a skitG G with
+``style_code_mapping{i}`` layers) through ``vts_torch.utils.convert_torch``
+and ``vts_tpu``'s converter: identical trees, G outputs within 1e-4.
 """
 
 import jax.numpy as jnp
@@ -117,3 +120,81 @@ def test_weight_flags_reach_the_model(phase, tmp_path):
     assert torch.equal(model.lpips_net.lin4, torch.from_numpy(load_lpips_weights(lp)["lin"][4]))
     bn = load_inception_weights(inc)["Conv2d_2b_3x3"]["var"]
     assert torch.equal(model.inception.Conv2d_2b_3x3_var, torch.from_numpy(bn))
+
+
+# The reference CustomUnetGenerator's state-dict names for the port's CustomUNet
+# keys (models/networks.py:1430-1532, thirdparty/unet/unet_parts_custom.py)
+def _reference_unet_state(net, seed):
+    """A state dict in the reference's naming, with a ``module.`` prefix, of
+    ``net``'s shapes, filled from a seeded generator."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, t in net.state_dict().items():
+        group, name, *rest = key.split(".")
+        leaf = rest[-1]
+        if group == "style":
+            ref = f"{name}.0.{leaf}"
+        elif group == "down":
+            ref = f"{name}.model.{0 if name == 'down0' else 1}.{leaf}"
+        else:
+            ref = f"{name}.model.1.{leaf}"
+        sd["module." + ref] = torch.from_numpy(
+            (rng.normal(size=tuple(t.shape)) * 0.1).astype(np.float32))
+    return sd
+
+
+PTH_CASES = {"sinskitG": {},
+             "skitG_project": dict(use_style_code=True, style_code_mapping_mode="project",
+                                   num_layer_style_code=2)}
+
+
+@pytest.mark.parametrize("case", list(PTH_CASES))
+def test_pth_generator_import_matches_jax(case, tmp_path):
+    """A reference ``best_net_G.pth`` (a ``module.``-prefixed state dict,
+    written here with ``torch.save``) through the port's converter CLI and
+    through ``vts_tpu``'s ``convert_checkpoint``: identical trees (the
+    msgpack file read by flax as well), and both G's give the same output
+    from them within 1e-4 (as ``test_torch_port_networks.py`` holds G)."""
+    import jax
+    from flax.serialization import msgpack_restore as flax_restore
+    from vts_tpu.networks.unet_custom import CustomUNet as JaxCustomUNet
+    from vts_tpu.utils.convert_torch import convert_checkpoint as jax_convert
+    from vts_torch.networks.unet_custom import CustomUNet
+    from vts_torch.utils.convert_jax import unet_params_to_torch
+    from vts_torch.utils.convert_torch import main
+    from vts_torch.utils.msgpack import msgpack_restore
+    kw = PTH_CASES[case]
+    net = CustomUNet(9, ngf=4, input_size=256, **kw).eval()
+    sd = _reference_unet_state(net, seed=len(case))
+    assert any(k.startswith("module.up7.model.1.") for k in sd)
+    assert any(".0.weight" in k and "style_code_mapping" in k for k in sd) == bool(kw)
+    pth, out = str(tmp_path / "best_net_G.pth"), str(tmp_path / "ck" / "best_net_G.msgpack")
+    torch.save(sd, pth)
+    main(["--input", pth, "--output", out])
+    with open(out, "rb") as f:
+        raw = f.read()
+    got, flax_got = msgpack_restore(raw), flax_restore(raw)
+    want = jax_convert(pth, "unet256_custom")
+    _equal_trees(got, want)
+    _equal_trees(flax_got, want)
+    jnet = JaxCustomUNet(ngf=4, num_downs=8, num_layer_separate=4, train=False, input_size=256,
+                         **kw)
+    rng = np.random.default_rng(2)
+    x = rng.uniform(-1, 1, (1, 256, 256, 9)).astype(np.float32)
+    args = (jnp.asarray(x),) + ((jnp.asarray(rng.normal(size=(1, 512)), jnp.float32),)
+                                if kw else ())
+    ref = np.asarray(jnet.apply({"params": jax.tree_util.tree_map(jnp.asarray, want["params"])},
+                                *args))
+    net.load_state_dict(unet_params_to_torch(got["params"]))
+    with torch.no_grad():
+        out_t = torch.cat(net(*(torch.from_numpy(np.asarray(a)) for a in args)), -1).numpy()
+    assert np.abs(out_t - ref).max() <= 1e-4 and np.abs(ref).max() > 1e-2
+
+
+def test_pth_import_refuses_the_archs_not_ported(tmp_path):
+    from vts_torch.utils.convert_torch import convert_checkpoint
+    pth = str(tmp_path / "g.pth")
+    torch.save({"model.1.weight": torch.zeros(4, 3, 7, 7)}, pth)
+    for arch in ("resnet_9blocks", "global", "spade"):
+        with pytest.raises(NotImplementedError, match=arch):
+            convert_checkpoint(pth, arch)

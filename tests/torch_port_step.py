@@ -161,13 +161,16 @@ def load_jax_states(model, states):
         getattr(model, f"net{name}").load_state_dict(sd)
 
 
-def run_step(tmp, n, d3=False, extra=(), draw_kw=None):
+def run_step(tmp, n, d3=False, extra=(), draw_kw=None, batch_fn=None):
     """One JAX step and one port step at epoch 1 from the same weights, batch
     and draws → (JAX model with its updated states and outputs, JAX losses,
     port model after its step).  ``extra``: flags for both packages;
-    ``draw_kw``: keyword arguments of :func:`jax_draws` beyond the key and n."""
+    ``draw_kw``: keyword arguments of :func:`jax_draws` beyond the key and n;
+    ``batch_fn``: maps the batch before both models take it."""
     from vts_tpu.models import create_model as jax_create_model
     jopt, batch = jax_batch(tmp, n, d3, extra)
+    if batch_fn is not None:
+        batch = batch_fn(batch)
     jmodel = jax_create_model(jopt)
     jmodel.setup(batch)
     jmodel.set_input(batch)

@@ -3,8 +3,15 @@
 
 :class:`TestOptions` and :class:`TrainOptions` declare every flag that the
 reference's sinskit parser of the same phase declares, with its defaults
-for that phase, plus ``--device`` (default ``cuda``).  Each flag does one
-of three things:
+for that phase, plus ``--device`` (default ``cuda``) and
+``--use_style_code``.  As the reference's parser does, ``--model skit``
+(or ``skitG``) adds the style-code flags (``--style_code_dim``,
+``--style_code_mode``, ``--style_code_mapping_mode``,
+``--num_layer_style_code`` (default 1), ``--precomputed_style_codes``) and
+makes ``--use_style_code`` true and ``--dataset_mode`` skit by default, and
+``--dataset_mode skit`` adds the skit dataset's flags (``--material_list``,
+``--dataroot_prefix``, ``--dataroot_suffix``, ``--style_image_dir``,
+``--style_image_size``).  Each flag does one of three things:
 
   * it is read, as in the reference (the data, model, loss, schedule,
     checkpoint and gallery flags; ``--suffix`` renames the run as
@@ -28,10 +35,11 @@ of three things:
     the training-only flags that the test parser declares too (the D, loss
     and schedule flags);
   * it raises ``NotImplementedError`` naming the flag when set to what the
-    port does not run: another ``--model``, ``--dataset_mode`` or
-    ``--netG``, ``--normG``/``--normD`` other than instance, batch or none,
-    ``--eval_mode legacy``, ``--display_id`` > 0 (the live dashboard),
-    ``--multihost``, ``--use_style_code``; in training also the StyleGAN2
+    port does not run: a ``--model`` other than sinskit and skit, a
+    ``--dataset_mode`` other than singleskit and skit, another ``--netG``,
+    ``--normG``/``--normD`` other than instance, batch or none,
+    ``--display_id`` > 0 (the live dashboard), ``--multihost``; in
+    training also the StyleGAN2
     ``--netD``/``--netD2``, a DiffAugment policy that repeats a letter,
     ``--pool_size`` > 0 and ``--mesh``.
 
@@ -253,6 +261,33 @@ def _train_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _skit_model_flags(p: argparse.ArgumentParser) -> None:
+    """``--model skit`` (``vts_tpu/models/skit.py``): the style-code flags and
+    the model's defaults (the style code on, the skit dataset)."""
+    a = p.add_argument
+    a("--style_code_dim", type=int, default=512)
+    a("--style_code_mode", type=str, default="concat", choices=["concat", "adain"])
+    a("--style_code_mapping_mode", type=str, default="tile", choices=["tile", "project"])
+    a("--num_layer_style_code", type=int, default=1,
+      help="decoder levels that take the style code, innermost first (-1: every level)")
+    a("--precomputed_style_codes", type=str2bool, default=False,
+      help="a batch's own style_code is used when present, whatever this says")
+    p.set_defaults(model="skit", dataset_mode="skit", use_style_code=True)
+
+
+def _skit_dataset_flags(p: argparse.ArgumentParser) -> None:
+    """``--dataset_mode skit`` (``vts_tpu/data/skit.py``)."""
+    a = p.add_argument
+    a("--material_list", type=str, default="",
+      help="comma-separated material names; each maps to "
+           "<dataroot_prefix><material><dataroot_suffix>")
+    a("--dataroot_prefix", type=str, default="singleskit_")
+    a("--dataroot_suffix", type=str, default="_padded_1800_x1")
+    a("--style_image_dir", type=str, default="",
+      help="external style images for cross-material style swap")
+    a("--style_image_size", type=int, default=224)
+
+
 def _refuse(flag: str, what: str) -> None:
     raise NotImplementedError(f"{flag} {what} is not ported yet")
 
@@ -260,10 +295,13 @@ def _refuse(flag: str, what: str) -> None:
 _NORMS = ("instance", "batch", "none")
 
 
+_SKIT_MODELS = ("skit", "skitg")
+
+
 def _check_common(opt) -> None:
-    if opt.model.lower() not in ("sinskit", "sinskitg"):
+    if opt.model.lower() not in ("sinskit", "sinskitg") + _SKIT_MODELS:
         _refuse("--model", repr(opt.model))
-    if opt.dataset_mode.lower() != "singleskit":
+    if opt.dataset_mode.lower() not in ("singleskit", "skit"):
         _refuse("--dataset_mode", repr(opt.dataset_mode))
     if opt.netG != "unet256_custom":
         _refuse("--netG", repr(opt.netG))
@@ -272,10 +310,6 @@ def _check_common(opt) -> None:
     m = int(opt.T_resolution_multiplier)
     if m < 1 or m & (m - 1):
         raise ValueError(f"--T_resolution_multiplier {m} must be a power of two")
-    if opt.use_style_code:
-        _refuse("--use_style_code", "true")
-    if opt.eval_mode != "batched":
-        _refuse("--eval_mode", "legacy")
     if opt.display_id > 0:
         _refuse("--display_id", "> 0 (the live dashboard)")
     if opt.multihost:
@@ -298,6 +332,14 @@ class _Options:
         ``<phase>_opt.txt`` under ``<checkpoints_dir>/<name>`` like the
         reference."""
         parser = self._parser()
+        # the reference's staged parse: the model's flags and defaults, then
+        # the dataset's, each once the name that selects it is known
+        known, _ = parser.parse_known_args(args)
+        if known.model.lower() in _SKIT_MODELS:
+            _skit_model_flags(parser)
+            known, _ = parser.parse_known_args(args)
+        if known.dataset_mode.lower() == "skit":
+            _skit_dataset_flags(parser)
         opt = parser.parse_args(args)
         opt.isTrain = self.isTrain
         self.check(opt)

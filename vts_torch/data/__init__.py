@@ -1,6 +1,7 @@
 """Dataset factory and batch loader (``vts_tpu/data/__init__.py``).
 
-``create_dataset(opt)`` wraps the ``--dataset_mode`` dataset in a loader
+``create_dataset(opt)`` wraps the ``--dataset_mode`` dataset (``singleskit``,
+one garment, or ``skit``, several) in a loader
 that yields batch dicts of stacked numpy arrays (leading batch axis).  As in
 the reference, training shuffles with a generator seeded by ``seed + epoch``
 (``set_epoch``) and drops the last partial batch; the test loader
@@ -16,8 +17,9 @@ from typing import Dict, Iterator
 import numpy as np
 
 from .singleskit import SingleSkitDataset
+from .skit import SkitDataset
 
-DATASETS = {"singleskit": SingleSkitDataset}
+DATASETS = {"singleskit": SingleSkitDataset, "skit": SkitDataset}
 
 
 def collate(samples) -> Dict[str, np.ndarray]:

@@ -28,3 +28,10 @@ def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
             raise ValueError(f"imaginary component {np.max(np.abs(covmean.imag))}")
         covmean = covmean.real
     return float(diff.dot(diff) + np.trace(sigma1) + np.trace(sigma2) - 2 * np.trace(covmean))
+
+
+def gaussian_stats(features: np.ndarray):
+    """features (num_samples, dim) → (mu, sigma), sigma with np.cov's n − 1."""
+    mu = np.mean(features, axis=0)
+    sigma = np.cov(features, rowvar=False)
+    return mu, sigma

@@ -1,11 +1,13 @@
-"""Model factory (``vts_tpu/models/__init__.py``): sinskit only, so far.
-Names are looked up lowercased, as the reference's registry does."""
+"""Model factory (``vts_tpu/models/__init__.py``): sinskit (sinskitG) and skit
+(skitG).  Names are looked up lowercased, as the reference's registry does."""
 
 from __future__ import annotations
 
 from .sinskit import SinSKITModel
+from .skit import SKITModel
 
-MODELS = {"sinskit": SinSKITModel, "sinskitg": SinSKITModel}
+MODELS = {"sinskit": SinSKITModel, "sinskitg": SinSKITModel, "skit": SKITModel,
+          "skitg": SKITModel}
 
 
 def create_model(opt):

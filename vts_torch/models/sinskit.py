@@ -55,8 +55,16 @@ LPIPS runs its backbone in bf16 with fp32 head sums.  The eval forward
 The LPIPS and Inception towers are ``--lpips_weights`` and
 ``--inception_weights`` when given, else the reference's seeded ones.
 
-The settings not ported yet (style codes, the legacy per-metric evaluation,
-...) are refused by the options (:mod:`vts_torch.config.options`).
+``--use_style_code`` (the skitG generator, :mod:`vts_torch.models.skit`):
+G takes the batch's ``style_code`` (N, style_code_dim) in the training step,
+its eval forward and :meth:`test`, with no gradient into it; the CLIP tower
+that encodes it is built at setup, in both phases, and is the same tower
+D3 uses.  ``--eval_mode legacy`` scores each sample with the reference's
+per-metric loop (:func:`vts_torch.metrics.evaluate.compute_evaluation_metrics`)
+in place of the batched pass.
+
+The settings not ported yet are refused by the options
+(:mod:`vts_torch.config.options`).
 """
 
 from __future__ import annotations
@@ -72,7 +80,7 @@ from ..losses.gan import feature_matching_loss, gan_loss, gradient_penalty
 from ..losses.gan_masked import masked_mean, masked_patch_sum, per_sample_gan_loss
 from ..losses.lpips import LPIPS, init_lpips_params, load_lpips_weights
 from ..losses.vision_aided import D3Heads, d3_logits, init_d3_head_params, softplus
-from ..metrics.evaluate import DEFAULT_EVAL_METRICS
+from ..metrics.evaluate import DEFAULT_EVAL_METRICS, compute_evaluation_metrics
 from ..metrics.evaluate_batch import compute_evaluation_metrics_batched
 from ..metrics.inception import InceptionBlock0, init_inception_params, load_inception_weights
 from ..networks import define_D, define_G
@@ -147,9 +155,9 @@ class SinSKITModel:
             if opt.lambda_G2_GAN > 0:
                 self.model_names.append("D2")
             self.use_d3 = bool(opt.use_vision_aided_loss)
-            self.clip: Optional[CLIPViT] = None
             self.d3_heads: Optional[D3Heads] = None
             self.generator = torch.Generator().manual_seed(int(opt.seed))
+        self.clip: Optional[CLIPViT] = None
         lw, iw = opt.lpips_weights, opt.inception_weights
         self.lpips_net = LPIPS(load_lpips_weights(lw) if lw else init_lpips_params(0)).to(
             self.device)
@@ -169,14 +177,25 @@ class SinSKITModel:
 
     def setup(self, example_batch=None) -> None:
         """Seeded init (``--seed``) of G, and of D and D2 in training, then onto
-        the device with Adam moments for each network that trains; with
-        ``--use_vision_aided_loss``, D3's frozen CLIP tower (``--clip_weights``
-        or the seeded one) and heads."""
+        the device with Adam moments for each network that trains; the
+        frozen CLIP tower (``--clip_weights`` or the seeded one) for the style
+        code and for D3, with D3's heads, when either is on."""
         seed = int(self.opt.seed)
         self.netG.reset_parameters(torch.Generator().manual_seed(seed))
         self.netG.to(self.device)
         n_params = sum(p.numel() for p in self.netG.parameters())
         print(f"[sinskit] netG params: {n_params / 1e6:.3f} M")
+        if self.opt.use_style_code or (self.isTrain and self.use_d3):
+            # frozen, on the device once (the tower is ~350 MB in fp32); not
+            # among the networks that are saved or stepped
+            cw = self.opt.clip_weights
+            self.clip = CLIPViT(load_clip_weights(cw) if cw else init_clip_params(0)).to(
+                self.device)
+            print(f"[sinskit] CLIP ViT-B/32 ({cw or 'seeded tower'}) for "
+                  + " and ".join(w for w, on in (
+                      ("the style code", self.opt.use_style_code),
+                      (f"D3 from epoch {self.opt.vision_aided_warmup_epoch}",
+                       self.isTrain and self.use_d3)) if on))
         if not self.isTrain:
             self.netG.eval()
             return
@@ -191,14 +210,7 @@ class SinSKITModel:
         for name, net in self.nets().items():
             self.adam[name] = Adam(net.named_parameters(), self.opt.beta1, self.opt.beta2)
         if self.use_d3:
-            # frozen, on the device once (the tower is ~350 MB in fp32); not
-            # among the networks that are saved or stepped
-            cw = self.opt.clip_weights
-            self.clip = CLIPViT(load_clip_weights(cw) if cw else init_clip_params(0)).to(
-                self.device)
             self.d3_heads = D3Heads(init_d3_head_params(0)).to(self.device)
-            print(f"[sinskit] D3: CLIP ViT-B/32 ({cw or 'seeded tower'}) from epoch "
-                  f"{self.opt.vision_aided_warmup_epoch}")
 
     def _pe(self, n: int, h: int, w: int):
         """The positional encoding, built on the host once per (n, h, w) and
@@ -308,7 +320,8 @@ class SinSKITModel:
         # ---- 1. G forward, graph kept; its output stays in the compute dtype ----
         pe = self._pe(n, h, w)
         x_in = torch.cat([S, pe], dim=-1) if pe is not None else S
-        fake_I, fake_T = self._split_g_out(self.netG(x_in), M_d, M_T.to(cd))
+        style = self._style_code(batch)
+        fake_I, fake_T = self._split_g_out(self.netG(x_in, style), M_d, M_T.to(cd))
         fake_I_d, fake_T_d = fake_I.detach(), fake_T.detach()
         if opt.use_diffaug:
             aug_real_I = diffaug.diff_augment(I_d, opt.diffaugment, draws=draws["aug_real"]) * M_d
@@ -479,6 +492,11 @@ class SinSKITModel:
         return gradient_penalty(lambda z: net(z, update_stats=False), real, fake,
                                 alpha=draws[key])
 
+    def _style_code(self, batch: Dict[str, torch.Tensor]):
+        """The batch's style code for G (no gradient into it), or None."""
+        code = batch.get("style_code") if self.opt.use_style_code else None
+        return None if code is None else code.detach()
+
     def _split_g_out(self, out, M, M_T):
         """G's (visual, tactile) pair → (fake_I, fake_T) masked by M and M_T."""
         vis, tac = out
@@ -486,7 +504,7 @@ class SinSKITModel:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def _forward_eval(self, S: torch.Tensor, M: torch.Tensor):
+    def _forward_eval(self, S: torch.Tensor, M: torch.Tensor, style_code=None):
         """The fp32 eval forward; a ``--normG batch`` G normalizes with its
         running statistics (the reference's ``netG_eval``).  fake_T comes out
         at the touch canvas, masked by M_T."""
@@ -496,7 +514,7 @@ class SinSKITModel:
         was_training = self.netG.training
         self.netG.eval()
         try:
-            out = self.netG(x, dtype=torch.float32)
+            out = self.netG(x, style_code, dtype=torch.float32)
         finally:
             self.netG.train(was_training)
         M_T = M if self.mult == 1 else resize_nearest(M, (h * self.mult, w * self.mult))
@@ -505,7 +523,7 @@ class SinSKITModel:
     def test(self) -> None:
         S = self._input["S"]
         M = self._input.get("M", torch.ones_like(S))
-        fake_I, fake_T = self._forward_eval(S, M)
+        fake_I, fake_T = self._forward_eval(S, M, self._style_code(self._input))
         self._outputs = {"fake_I": fake_I, "fake_T": fake_T}
 
     # ------------------------------------------------------------------
@@ -597,10 +615,11 @@ class SinSKITModel:
         return {k: float(v) for k, v in zip(names, vals)}
 
     def compute_metrics(self, phase: str = "val") -> Dict[str, float]:
-        """The 8 metrics on the batched path, per sample, averaged over the
-        batch.  The test phase scores the test coord set (keys
-        ``metric_<name>``); in training the train coord set (``metric_train_
-        <name>``) and the val set (``metric_<name>``)."""
+        """The 8 metrics per sample, averaged over the batch: on the batched
+        path, or with ``--eval_mode legacy`` the reference's per-metric loop
+        on each sample's valid patches (cut by K2).  The test phase scores the
+        test coord set (keys ``metric_<name>``); in training the train coord
+        set (``metric_train_<name>``) and the val set (``metric_<name>``)."""
         fake_I = self._outputs["fake_I"]
         inp = self._input
         if phase == "test" or not self.isTrain or getattr(self, "data_phase", "") == "test":
@@ -618,10 +637,22 @@ class SinSKITModel:
             if not bool(valid.any()):
                 continue
             real_T = inp[tkey].reshape((n, -1) + tuple(inp[tkey].shape[-3:]))
+            fake_T = self._outputs["fake_T"]
             per_sample = []
             for i in range(n):
+                if self.opt.eval_mode == "legacy":
+                    v = valid[i]
+                    if not bool(v.any()):
+                        continue
+                    fake_T_patch = gather_patches_from_coords(fake_T[i:i + 1],
+                                                              coords[i:i + 1], 32, self.mult)
+                    per_sample.append(compute_evaluation_metrics(
+                        inp["I"][i:i + 1], fake_I[i:i + 1], real_T[i][v], fake_T_patch[v],
+                        eval_metrics=self.eval_metrics, lpips_net=self.lpips_net,
+                        inception=self.inception, prefix=prefix))
+                    continue
                 per_sample.extend(d for d in compute_evaluation_metrics_batched(
-                    inp["I"][i:i + 1], fake_I[i:i + 1], self._outputs["fake_T"][i:i + 1],
+                    inp["I"][i:i + 1], fake_I[i:i + 1], fake_T[i:i + 1],
                     coords[i:i + 1], real_T[i:i + 1], valid[i:i + 1],
                     eval_metrics=self.eval_metrics, lpips_net=self.lpips_net,
                     inception=self.inception, mult=self.mult, prefix=prefix) if d)

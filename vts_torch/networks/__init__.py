@@ -12,14 +12,22 @@ from .unet_custom import CustomUNet
 
 def define_G(opt, input_nc: int, output_nc: int,
              dtype: torch.dtype = torch.float32) -> CustomUNet:
-    """Generator factory; ``unet256_custom`` only in this port so far."""
+    """Generator factory; ``unet256_custom`` only in this port so far.  The
+    style-code options default as the reference's factory defaults them
+    when the model's parser did not declare them (a sinskit run with
+    ``--use_style_code``)."""
     if opt.netG != "unet256_custom":
         raise NotImplementedError(f"netG {opt.netG!r} is not ported yet")
     return CustomUNet(
         input_nc, ngf=opt.ngf, out_nc=output_nc, num_downs=8,
         num_layer_separate=opt.num_layer_separate, norm_type=opt.normG,
         use_dropout=not opt.no_dropout,
-        use_style_code=opt.use_style_code,
+        use_style_code=bool(opt.use_style_code),
+        style_code_dim=int(getattr(opt, "style_code_dim", 512)),
+        style_code_mode=getattr(opt, "style_code_mode", "concat"),
+        style_code_mapping_mode=getattr(opt, "style_code_mapping_mode", "tile"),
+        num_layer_style_code=int(getattr(opt, "num_layer_style_code", -1)),
+        input_size=int(opt.crop_size),
         t_mult=int(opt.T_resolution_multiplier),
         init_type=opt.init_type, init_gain=opt.init_gain, dtype=dtype)
 

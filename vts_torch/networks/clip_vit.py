@@ -1,4 +1,5 @@
-"""CLIP ViT-B/32 image tower, frozen: the backbone of the vision-aided D3.
+"""CLIP ViT-B/32 image tower, frozen: the backbone of the vision-aided D3
+and the skitG style encoder (:func:`clip_style_code`, its 512-d embedding).
 Counterpart of ``vts_tpu/networks/clip_vit.py``.
 
 Patch-32 conv → class token + positional embedding → ``ln_pre`` → 12
@@ -224,3 +225,10 @@ def clip_image_features(clip: CLIPViT, images: torch.Tensor, tap_layers: Sequenc
             taps.append(h)
     pooled = layer_norm(clip.ln_post, h[:, 0, :])
     return pooled @ clip.proj, taps
+
+
+def clip_style_code(clip: CLIPViT, images: torch.Tensor) -> torch.Tensor:
+    """The skitG style code: the (N, 512) embedding of images (N, H, W, 3) in
+    [-1, 1] (resized to 224² by :func:`clip_image_features` when H is not
+    224)."""
+    return clip_image_features(clip, images)[0]

@@ -9,10 +9,13 @@ the 8 metrics and pickles them to
 ``<results_dir>/<name>/<phase>_<epoch>/eval_metrics[_i].pkl``, and writes the
 HTML gallery there: per sample its visuals as PNGs, the raw tactile field
 (``*_fake_gxgy_raw.npz``) and the patch coords (``*_patch_coords.json``),
-and ``index.html``.  On CUDA the run turns TF32 off (cuDNN convs and
+and ``index.html``.  When the samples carry a ``material_index`` (the skit
+dataset), the mean of each metric over each material's samples goes to
+``eval_metrics_per_material.pkl`` there, keyed by material name, with one
+printed line per material.  On CUDA the run turns TF32 off (cuDNN convs and
 matmuls in full fp32).
 
-Run:  python -m vts_torch.test --model sinskit --epoch best \\
+Run:  python -m vts_torch.test --model sinskit|skit --epoch best \\
           --dataroot synthetic://smoke?size=1800 [--device cuda|cpu]
 """
 
@@ -42,6 +45,28 @@ def save_metrics(web_dir: str, metrics: Dict[str, float], index=None) -> str:
     return path
 
 
+def mean_metrics(rows: List[Dict[str, float]]) -> Dict[str, float]:
+    """The mean of each metric over the rows that have it."""
+    keys = set().union(*rows)
+    return {k: float(np.mean([m[k] for m in rows if k in m])) for k in keys}
+
+
+def save_per_material(web_dir: str, all_metrics: List[Dict[str, float]],
+                      sample_material: List[int], names) -> Dict[str, Dict[str, float]]:
+    """``eval_metrics_per_material.pkl``: {material name: the mean of each
+    metric over its samples}, one line printed per material."""
+    per_mat: Dict[str, Dict[str, float]] = {}
+    for mat in sorted({m for m in sample_material if m >= 0}):
+        rows = [met for met, mi in zip(all_metrics, sample_material) if mi == mat]
+        label = names[mat] if mat < len(names) else str(mat)
+        per_mat[label] = mean_metrics(rows)
+        print(f"material [{label}] ({len(rows)} samples): " +
+              " ".join(f"{k}={v:.4f}" for k, v in sorted(per_mat[label].items())))
+    with open(os.path.join(web_dir, "eval_metrics_per_material.pkl"), "wb") as f:
+        pickle.dump(per_mat, f)
+    return per_mat
+
+
 def test(argv=None, opt=None) -> List[Dict[str, float]]:
     if opt is None:
         opt = TestOptions().parse(argv)
@@ -61,6 +86,7 @@ def test(argv=None, opt=None) -> List[Dict[str, float]]:
         webpage = HTML(web_dir, f"Experiment = {opt.name}, Phase = {opt.phase}, "
                                 f"Epoch = {opt.epoch}")
         all_metrics: List[Dict[str, float]] = []
+        sample_material: List[int] = []
         for i, data in enumerate(dataset):
             if i >= opt.num_test:
                 break
@@ -72,6 +98,8 @@ def test(argv=None, opt=None) -> List[Dict[str, float]]:
             metrics = model.compute_metrics(phase="test")
             save_metrics(web_dir, metrics, index=i)
             all_metrics.append(metrics)
+            mat = data.get("material_index")
+            sample_material.append(-1 if mat is None else int(np.asarray(mat).reshape(-1)[0]))
             visuals = model.get_current_visuals()
             name = getattr(dataset.dataset, "name", f"sample_{i}")
             save_images(webpage, visuals, f"{name}_{i}.png", width=opt.display_winsize,
@@ -82,12 +110,12 @@ def test(argv=None, opt=None) -> List[Dict[str, float]]:
             print(f"processed sample {i}: " +
                   " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
         if all_metrics:
-            keys = set().union(*all_metrics)
-            mean_metrics = {k: float(np.mean([m[k] for m in all_metrics if k in m]))
-                            for k in keys}
-            save_metrics(web_dir, mean_metrics)
-            print("mean metrics: " + " ".join(f"{k}={v:.4f}"
-                                              for k, v in sorted(mean_metrics.items())))
+            means = mean_metrics(all_metrics)
+            save_metrics(web_dir, means)
+            print("mean metrics: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())))
+        if any(m >= 0 for m in sample_material):
+            save_per_material(web_dir, all_metrics, sample_material,
+                              getattr(dataset.dataset, "materials", []))
         webpage.save()
         if device.type == "cuda":
             torch.cuda.synchronize(device)

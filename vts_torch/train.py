@@ -171,7 +171,7 @@ def _train(opt, device):
             model.test()
             t_eval = time.time()
             metrics = model.compute_metrics()
-            print(f"[eval] epoch {epoch} metric suite (batched) took "
+            print(f"[eval] epoch {epoch} metric suite ({opt.eval_mode}) took "
                   f"{time.time() - t_eval:.1f} s")
             visualizer.print_current_metrics(epoch, metrics)
             visualizer.save_current_metrics(epoch, metrics)

@@ -46,9 +46,14 @@ def _convt_from_torch(w):
 
 def unet_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
     """flax ``CustomUNet`` params tree → :class:`vts_torch.networks.unet_custom.CustomUNet`
-    state dict (``up0_T_extra{j}`` stages and ``--normG batch`` norms included)."""
+    state dict (``up0_T_extra{j}`` stages, ``--normG batch`` norms and the
+    skitG ``style_code_mapping{k}`` projections included: a flax Dense
+    kernel (in, out) ↔ ``style.style_code_mapping{k}.weight`` (out, in))."""
     sd = OrderedDict()
     for name, sub in params.items():
+        if name.startswith("style_code_mapping"):
+            sd[f"style.{name}.weight"] = _t(np.asarray(sub["Dense_0"]["kernel"]).T)
+            continue
         group = "down" if name.startswith("down") else "up" if name.startswith("up") else None
         if group is None:
             raise KeyError(f"unexpected CustomUNet param group {name!r}")
@@ -77,6 +82,9 @@ def torch_to_unet_params(state_dict: Dict[str, torch.Tensor]) -> Dict:
     :func:`torch_to_unet_stats`)."""
     params: Dict = {}
     for key, t in state_dict.items():
+        if key.startswith("style."):
+            params[key.split(".")[1]] = {"Dense_0": {"kernel": _np(t).T.copy()}}
+            continue
         group, name, mod, kind = key.split(".")
         if mod == "norm":
             if kind not in ("mean", "var"):
@@ -96,6 +104,8 @@ def torch_to_unet_stats(state_dict: Dict[str, torch.Tensor]) -> Dict:
     a U-Net without batch norm)."""
     stats: Dict = {}
     for key, t in state_dict.items():
+        if key.startswith("style."):
+            continue
         _, name, mod, kind = key.split(".")
         if mod == "norm" and kind in ("mean", "var"):
             stats.setdefault(name, {}).setdefault("BatchNorm_0", {})[kind] = _np(t).copy()
