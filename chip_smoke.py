@@ -100,6 +100,21 @@ Phases, each of which must pass or the script exits non-zero:
      chunks of 16 pairs: (32, 224², ·) and the remainder) within the fp32
      limit; a 256² skitG step on cuda and on cpu from the same weights,
      style code (encoded on the cpu) and draws, held as the x2 step of 4c is;
+  4f. the edit → render workflow (:func:`edit_render_workflow`): two on-disk
+     garments written from the synthetic one at 1800² and their edited
+     twins (sketch and mask mirrored, no visual image, no touch records);
+     ``vts_torch.launch ours launch --mode process`` trains both at once on
+     the card at the full-width defaults, cut in length only (1 epoch of 2
+     samples, D3 off), then each alone; ``launch ours test`` (8 finite
+     metrics each), ``launch ours_edit test`` on the edited sketches (the
+     gallery and the raw touch map at the canvas size, ``{}`` metrics, no
+     per-material roll-up; fake_I moved by the edit beyond run-to-run
+     noise); every child reports running on cuda; the metric roll-up with
+     its MEAN row, ``launch ours compare``, the postprocess of each raw touch
+     map in all five modes (1280×800 maps in [0, 1]; which CLAHE branch
+     ran); a short 256² training run with ``--display_id 1 --display_port 0``
+     whose ``/data.json`` is read over 127.0.0.1 while it trains (the loss
+     history grows; the server is closed at the end);
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
@@ -124,7 +139,9 @@ Phases, each of which must pass or the script exits non-zero:
      evaluation's shapes; one skitG test sample (garment A) under each
      evaluation, with its launches, the style encode, and the untraced
      skitG D3-active step (median of 5 after 2 warm-ups, samples/s, peak
-     memory, launches).
+     memory, launches); phase 4f's edit test sample (median of 3 after 1),
+     its launcher walls (two processes at once, and one after the other)
+     and the postprocess's host time per map in each mode.
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel and
 path: an ``eval`` row covers one test sample (its launches are the test
@@ -146,6 +163,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -739,6 +757,265 @@ class CountPatchOffsets:
 
     def __exit__(self, *exc):
         self.k2.patch_offsets = self.real
+
+
+# ------------------------------------------------------------------ 4f ---
+# the edit → render workflow: two on-disk garments and their edited sketches
+ROOT = os.path.dirname(os.path.abspath(__file__))
+EDIT_MATERIALS = ("synthA", "synthB")
+# what vts_torch.train and vts_torch.test report: the run, its phase, its device
+DEVICE_LINE = re.compile(r"\[device\] (\S+) (trains|tests) on (cpu|cuda:\d+ \([^)]*\))")
+# the launcher's children at the full-width training defaults, cut in length
+# only: 1 epoch of 2 samples, D3 off, no gallery
+WORKFLOW_TRAIN = ["--data_len", "2", "--n_epochs", "1", "--n_epochs_decay", "0",
+                  "--use_vision_aided_loss", "false", "--no_html"]
+# the dashboard's short 256² run: 6 epochs of 4 steps, a loss line each step
+DASH_TRAIN = ["--dataroot", SMALL_DATA, "--crop_size", "256", "--center_w", "192",
+              "--center_h", "128", "--ngf", "4", "--ndf", "4", "--batch_size_G2", "4",
+              "--batch_size_G2_val", "3", "--add_fake_T_sample_size", "3", "--data_len", "4",
+              "--n_epochs", "6", "--n_epochs_decay", "0", "--use_vision_aided_loss", "false",
+              "--no_html", "--val_for_each_epoch", "false", "--print_freq", "1",
+              "--display_id", "1", "--display_port", "0"]
+
+
+def stop(proc):
+    """Kill whatever still runs of ``proc``'s session: ``proc`` and the
+    children it started."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:          # the session has ended
+        pass
+    proc.wait()
+
+
+def launcher(argv, log, device, n_children, timeout=900):
+    """``python -m vts_torch.launch <argv>`` from the repo root, its output in
+    ``log``; checks exit code 0 and that each of the ``n_children`` children
+    reported running on ``device``.  Its wall time in s."""
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "vts_torch.launch", *argv], cwd=ROOT,
+                                stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        finally:
+            stop(proc)
+    wall = time.perf_counter() - t0
+    with open(log) as f:
+        text = f.read()
+    check(rc == 0, f"launch {' '.join(argv[:2])} exited {rc}:\n{text[-6000:]}")
+    # the children share the log, so a line of one can follow another's
+    # unfinished line: match the reports, not whole lines
+    devices = DEVICE_LINE.findall(text)
+    check(len(devices) == n_children and all(d.startswith(device) for _, _, d in devices),
+          f"launch {' '.join(argv[:2])}: the children report {devices}, not {n_children} on "
+          f"{device}")
+    print(f"[workflow] launch {' '.join(argv[:2])} ({n_children} children): {wall:.1f} s")
+    for name, verb, dev in devices:
+        print(f"[workflow] {name} {verb} on {dev}")
+    return wall
+
+
+def watch_dashboard(argv, device, timeout=600):
+    """``vts_torch.train <argv>`` with the dashboard on: polls its /data.json
+    over 127.0.0.1 while it trains; checks that the loss history grew, that
+    the run reported ``device``, exited 0 and closed the server.  The
+    history's lengths as read."""
+    import threading
+    import urllib.request
+    proc = subprocess.Popen([sys.executable, "-m", "vts_torch.train", *argv], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    lines, url = [], []
+
+    def read():
+        for ln in proc.stdout:
+            lines.append(ln)
+            if ln.startswith("[visualizer] live dashboard at ") and not url:
+                url.append(ln.split(" at ", 1)[1].strip())
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    sizes = []
+    deadline = time.time() + timeout
+    try:
+        while proc.poll() is None and time.time() < deadline:
+            if url:
+                try:
+                    with urllib.request.urlopen(url[0] + "data.json", timeout=5) as r:
+                        sizes.append(len(json.load(r)["losses"]))
+                except OSError:                 # the run closing its server
+                    pass
+            time.sleep(0.01)
+        rc = proc.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        stop(proc)
+    reader.join(timeout=30)
+    text = "".join(lines)
+    check(rc == 0, f"the dashboard run exited {rc}:\n{text[-6000:]}")
+    check(url and f"[visualizer] live dashboard at {url[0]} closed" in text,
+          f"the dashboard was not started and closed: {text[-3000:]}")
+    check([d for _, _, d in DEVICE_LINE.findall(text) if d.startswith(device)],
+          f"the dashboard run did not report {device}")
+    grew = sorted(set(sizes))
+    check(len(grew) >= 3 and sizes == sorted(sizes),
+          f"the dashboard's loss history did not grow while training: {len(sizes)} reads, "
+          f"lengths {grew}")
+    return sizes
+
+
+def edit_render_workflow(tmp, device, size=PADDED, query="", flags=(), train_flags=WORKFLOW_TRAIN,
+                         dash_flags=DASH_TRAIN):
+    """The paper's edit → render workflow through the port's entry points:
+    two on-disk garments (synthA, synthB: S, I, M, touch records) and their
+    edited twins (the sketch and mask mirrored, nothing else) written from
+    the synthetic garment; ``launch ours launch --mode process`` (both
+    garments at once on the device), each again alone; ``launch ours test``
+    (8 finite metrics each); ``launch ours_edit test`` on the edited
+    sketches (a gallery and the raw touch map at the canvas size, ``{}``
+    metrics, no per-material roll-up; fake_I moved by the edit beyond
+    run-to-run noise); the metric roll-up with its MEAN row; ``launch ours
+    compare``; ``postprocess`` on each raw touch map in every mode; a short
+    training run whose dashboard is read while it trains.  ``flags`` go to
+    every child, ``train_flags`` to the training ones.  Its times."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    from vts_torch import postprocess
+    from vts_torch.config import TestOptions
+    from vts_torch.data import create_dataset
+    from vts_torch.data.synthetic import materialize_synthetic, save_garment
+    from vts_torch.launch import main as launch_main
+    from vts_torch.models import create_model
+    from vts_torch.utils import compile_metrics
+
+    data, logs = os.path.join(tmp, "wf_data"), os.path.join(tmp, "wf_logs")
+    os.makedirs(logs, exist_ok=True)
+
+    def root(m, edit=False):
+        return os.path.join(data, f"singleskit_{m}{'_edit' if edit else ''}_padded_{size}_x1")
+    for m in EDIT_MATERIALS:
+        g = materialize_synthetic(f"synthetic://{m}?size={size}{query}")
+        save_garment(g, data)
+        for sub, kind, arr in (("testS", "sketch", g.sketch), ("testM", "mask", g.mask)):
+            os.makedirs(os.path.join(root(m, edit=True), sub))
+            Image.fromarray(arr[:, ::-1].copy()).save(
+                os.path.join(root(m, edit=True), sub, f"{m}_{kind}.png"))
+    mats = ",".join(EDIT_MATERIALS)
+    ckpt, res, res_edit = (os.path.join(tmp, d) for d in ("wf_ckpt", "wf_res", "wf_res_edit"))
+
+    def launch(phase, method, materials, log, ckpt=ckpt, res=res, edit=False, extra=()):
+        return launcher([method, phase, "--mode", "process", "--materials", materials,
+                         "--dataroot-template", root("{material}", edit),
+                         "--checkpoints_dir", ckpt, "--results_dir", res, "--", *flags, *extra],
+                        os.path.join(logs, log), device, materials.count(",") + 1)
+
+    out = {"two_s": launch("launch", "ours", mats, "launch.log", extra=train_flags),
+           "one_by_one_s": [launch("launch", "ours", m, f"launch_{m}.log", extra=train_flags,
+                                   ckpt=ckpt + "_seq", res=res + "_seq")
+                            for m in EDIT_MATERIALS]}
+    names = [f"{m}_sinskitG_baseline_ours" for m in EDIT_MATERIALS]
+    for name in names:
+        check(os.path.exists(os.path.join(ckpt, name, "best_net_G.msgpack")),
+              f"{name}: no best_net_G.msgpack")
+    launch("test", "ours", mats, "test.log")
+    for name in names:
+        with open(os.path.join(res, name, "test_best", "eval_metrics.pkl"), "rb") as f:
+            metrics = pickle.load(f)
+        print(f"[workflow] {name} test: " + " ".join(f"{k}={v:.6g}"
+                                                    for k, v in sorted(metrics.items())))
+        check(len(metrics) == 8 and all(math.isfinite(v) for v in metrics.values()),
+              f"{name}: expected 8 finite metrics, got {metrics}")
+    launch("test", "ours_edit", mats, "test_edit.log", res=res_edit, edit=True)
+    topt = TestOptions().parse(["--name", names[0], "--epoch", "best", "--dataroot",
+                                root("synthA"), "--checkpoints_dir", ckpt, "--results_dir", res,
+                                *flags], quiet=True)
+    raws = []
+    for m, name in zip(EDIT_MATERIALS, names):
+        web = os.path.join(res_edit, name, "test_best")
+        with open(os.path.join(web, "eval_metrics.pkl"), "rb") as f:
+            metrics = pickle.load(f)
+        files = sorted(os.listdir(os.path.join(web, "images")))
+        raw = os.path.join(web, "images", f"{m}_sketch_0_fake_gxgy_raw.npz")
+        with np.load(raw) as z:
+            shapes = (z["gx"].shape, z["gy"].shape)
+        print(f"[workflow] {name} edit test: metrics {metrics}, {len(files)} gallery files, "
+              f"raw touch map {shapes}")
+        check(metrics == {} and not os.path.exists(
+            os.path.join(web, "eval_metrics_per_material.pkl")),
+              f"{name}: the edit test wrote metrics {metrics}")
+        check(shapes == ((topt.crop_size, topt.crop_size),) * 2
+              and f"{m}_sketch_0_fake_I.png" in files
+              and os.path.exists(os.path.join(web, "index.html")),
+              f"{name}: the edit gallery is incomplete: {files}, {shapes}")
+        raws.append(raw)
+    # the edit moves fake_I beyond run-to-run noise; one edit sample's wall
+    batch = next(iter(create_dataset(topt)))
+    topt.dataroot = root("synthA", edit=True)
+    edit_batch = next(iter(create_dataset(topt)))
+    model = create_model(topt)
+    model.setup()
+    model.load_networks("best")
+    fakes = []
+    for b in (batch, batch, edit_batch):
+        model.set_input(b)
+        model.test()
+        fakes.append(model._outputs["fake_I"].float())
+    d_same, d_edit = ((fakes[0] - f).abs().max().item() for f in fakes[1:])
+    print(f"[workflow] synthA's fake_I, edited sketch vs its own: max|d| {d_edit:.4g} (its own "
+          f"twice: {d_same:.4g})")
+    check(d_edit > max(10 * d_same, 1e-5), "the edited sketch gives the garment's own fake_I")
+    walls = []
+    for i in range(4):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.set_input(edit_batch)
+        model.test()
+        got = model.compute_metrics(phase="test")
+        model._outputs["fake_T"].sum().item()
+        if i:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    check(got == {}, f"an edit sample computed metrics {got}")
+    out["edit_sample_ms"] = walls
+    del model, fakes
+    # the roll-up, the comparison pages, the friction maps
+    table = compile_metrics.main(["--results_dir", res, "--materials", mats])
+    check(list(table) == [*EDIT_MATERIALS, "MEAN"] and len(table["MEAN"]) == 8,
+          f"the roll-up: {table}")
+    check(launch_main(["ours", "compare", "--materials", mats, "--results_dir", res]) == 0
+          and all(os.path.exists(os.path.join(res, f"comparison_{m}", "index.html"))
+                  for m in EDIT_MATERIALS), "launch ours compare wrote no page")
+    try:
+        import cv2  # noqa: F401
+        out["clahe"] = "cv2 (OpenCV CLAHE)"
+    except ImportError:
+        out["clahe"] = "the histogram fallback (no cv2)"
+    print(f"[workflow] postprocess: the equalize mode's CLAHE runs through {out['clahe']}")
+    out["pp_ms"] = {}
+    with np.load(raws[0]) as z:
+        gx, gy = z["gx"], z["gy"]
+    for mode in postprocess.MODES:
+        for raw in raws:
+            png = postprocess.main(["--input", raw, "--mode", mode])
+            check(np.asarray(Image.open(png)).shape == (800, 1280), f"{png}: not 1280×800")
+        fmap = postprocess.postprocess_gz(gx, gy, mode)
+        check(fmap.shape == (800, 1280) and 0 <= fmap.min() and fmap.max() <= 1
+              and fmap.max() > 0, f"postprocess {mode}: {fmap.shape} in "
+                                  f"[{fmap.min()}, {fmap.max()}]")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            postprocess.postprocess_gz(gx, gy, mode)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["pp_ms"][mode] = statistics.median(times)
+    # the dashboard of a short training run, read while it trains
+    sizes = watch_dashboard([*dash_flags, "--name", "dash", "--device", device,
+                             "--checkpoints_dir", ckpt, "--results_dir", res], device)
+    print(f"[workflow] the dashboard's loss history as read while training: {len(sizes)} reads, "
+          f"{len(set(sizes))} lengths, {sizes[0]} → {sizes[-1]} points")
+    return out
 
 
 def main() -> int:
@@ -1618,9 +1895,29 @@ def main() -> int:
     del pair
     torch.backends.cudnn.deterministic = cudnn_det
 
+    # --------------------------------------------------------------- 4f ---
+    print(f"[phase] phase 4f (the edit → render workflow) from {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    workflow = edit_render_workflow(tmp, "cuda")
+    workflow_s = time.time() - t0
+    print(f"[workflow] took {workflow_s:.1f} s")
+
     # ---------------------------------------------------------------- 5 ---
     print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s; the card: {card_state()} "
           f"(SM clock, power, temperature)")
+    edit_ms, seq_s = workflow["edit_sample_ms"], workflow["one_by_one_s"]
+    print(f"[time workflow] {smi}: one {CANVAS}² edit test sample (set_input, G forward, no "
+          f"metrics): {statistics.median(edit_ms):.1f} ms wall, median of {len(edit_ms)} "
+          f"({', '.join(f'{w:.1f}' for w in edit_ms)})")
+    print(f"[time workflow] {smi}: two garments trained through the launcher (1 epoch of 2 "
+          f"samples each at {CANVAS}², D3 off; process start, data, set-up, validation and "
+          f"checkpoints included) in two processes on the card at once: "
+          f"{workflow['two_s']:.1f} s wall; one after the other: {seq_s[0]:.1f} + {seq_s[1]:.1f} "
+          f"= {sum(seq_s):.1f} s")
+    print(f"[time workflow] {smi}: postprocess_gz {CANVAS}² -> 1280x800 on the host, ms per map "
+          f"(median of 3): " + ", ".join(f"{m} {v:.1f}" for m, v in workflow["pp_ms"].items())
+          + f" (equalize through {workflow['clahe']})")
     rows = {}                     # (kernel, path) -> per-sample or per-step sums
     shape_rows = []
 
@@ -2181,7 +2478,7 @@ def main() -> int:
                             bound_fp32_ms=bound_ms(acc["flops"], acc["bytes"])[0],
                             launches_in_run=in_run[path][kname]))
     print(f"[shapes] {json.dumps(shape_rows)}")
-    print(f"[done] chip_smoke took {time.time() - t_start:.1f} s")
+    print(f"[done] chip_smoke took {time.time() - t_start:.1f} s (phase 4f: {workflow_s:.1f} s)")
     tmp_dir.cleanup()
 
     print(smi)

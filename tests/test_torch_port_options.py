@@ -121,8 +121,8 @@ PORTED = [["--T_resolution_multiplier", "2"], ["--T_resolution_multiplier", "4"]
           ["--init_type", "none"], ["--positional_encoding_mode", "csg"],
           ["--no_dropout", "false"], ["--preprocess", "zoom_and_crop"],
           ["--use_style_code", "true"], ["--model", "skit"], ["--eval_mode", "legacy"],
-          ["--dataset_mode", "skit"]]
-STILL_REFUSED = [["--display_id", "1"], ["--mesh", "data:2"], ["--netD", "stylegan2"],
+          ["--dataset_mode", "skit"], ["--display_id", "1", "--display_port", "0"]]
+STILL_REFUSED = [["--mesh", "data:2"], ["--netD", "stylegan2"],
                  ["--netD2", "tilestylegan2"], ["--diffaugment", "bsb"]]
 
 

@@ -1,8 +1,9 @@
 """(h) The slice end to end on the CPU: the port's synthetic test batch equals
 the JAX ``create_dataset`` batch exactly, and ``vts_tpu.test.test`` and
 ``vts_torch.test.test --device cpu`` on one JAX-written checkpoint give the
-same 8 metrics.  (i) ``vts_torch``, its test and train entry points and the
-training modules import without JAX and without vts_tpu."""
+same 8 metrics.  (i) ``vts_torch``, its test and train entry points, the
+training modules and the host tools (postprocess, launcher, metric roll-up,
+comparison pages, dashboard) import without JAX and without vts_tpu."""
 
 import os
 import subprocess
@@ -90,6 +91,9 @@ def test_port_imports_without_jax_or_vts_tpu():
             "import vts_torch.utils.profiler, vts_torch.utils.visualizer; "
             "import vts_torch.networks.clip_vit, vts_torch.losses.vision_aided; "
             "import vts_torch.ops.resize_mm, vts_torch.utils.collage, vts_torch.utils.html; "
+            "import vts_torch.postprocess, vts_torch.launch, vts_torch.utils.misc; "
+            "import vts_torch.utils.compile_metrics, vts_torch.utils.compare; "
+            "import vts_torch.utils.live, vts_torch.data.synthetic; "
             "bad = [m for m in sys.modules if m.startswith('vts_tpu') "
             "or m.split('.')[0] in ('jax', 'flax', 'optax') and sys.modules[m] is not None]; "
             "assert not bad, bad; print('ok')")

@@ -215,15 +215,15 @@ def test_cpu_train_then_test_smoke(tmp_path):
 
 def test_train_requires_no_html_and_refuses_unported_settings(tmp_path):
     """The settings the port does not run raise ``NotImplementedError`` naming
-    the flag when parsed: the live dashboard (``--display_id`` > 0), a mesh,
-    the StyleGAN2 D.  The cropped LPIPS, bf16, the gallery (``--no_html`` is
-    not required) and the settings ported since (the plateau schedule, the
-    hinge and WGAN losses, the other D norms and nets, the other init types,
-    the other DiffAugment letters, tactile super-resolution, the legacy
-    evaluation, style codes, the skit model and dataset) parse."""
+    the flag when parsed: a mesh, the StyleGAN2 D.  The cropped LPIPS, bf16,
+    the gallery (``--no_html`` is not required) and the settings ported since
+    (the plateau schedule, the hinge and WGAN losses, the other D norms and
+    nets, the other init types, the other DiffAugment letters, tactile
+    super-resolution, the legacy evaluation, style codes, the skit model and
+    dataset, the live dashboard) parse."""
     from vts_torch.config import TrainOptions
     base = ["--checkpoints_dir", str(tmp_path), "--device", "cpu"]
-    for extra in (["--display_id", "1"], ["--mesh", "data:2"], ["--netD", "stylegan2"]):
+    for extra in (["--mesh", "data:2"], ["--netD", "stylegan2"]):
         with pytest.raises(NotImplementedError, match=extra[0]):
             TrainOptions().parse(base + extra, quiet=True)
     opt = TrainOptions().parse(base + ["--lpips_crop", "64", "--dtype", "bfloat16"], quiet=True)
@@ -232,6 +232,6 @@ def test_train_requires_no_html_and_refuses_unported_settings(tmp_path):
                   ["--normD", "instance"], ["--netD", "pixel"], ["--init_type", "orthogonal"],
                   ["--diffaugment", "bsc"], ["--T_resolution_multiplier", "2"],
                   ["--eval_mode", "legacy"], ["--use_style_code", "True"], ["--model", "skit"],
-                  ["--dataset_mode", "skit"]):
+                  ["--dataset_mode", "skit"], ["--display_id", "1"]):
         opt = TrainOptions().parse(base + extra, quiet=True)
         assert str(getattr(opt, extra[0][2:])) == extra[1], extra

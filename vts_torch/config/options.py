@@ -14,7 +14,8 @@ makes ``--use_style_code`` true and ``--dataset_mode`` skit by default, and
 ``--style_image_size``).  Each flag does one of three things:
 
   * it is read, as in the reference (the data, model, loss, schedule,
-    checkpoint and gallery flags; ``--suffix`` renames the run as
+    checkpoint and gallery flags, and the loggers' ``--display_id``,
+    ``--display_port`` and ``--use_wandb``; ``--suffix`` renames the run as
     ``<name>_<suffix.format(**opt)>``; ``--max_dataset_size`` caps the
     epoch; ``--lpips_weights``/``--inception_weights`` load the perceptual
     towers; in training also ``--dtype``, ``--lpips_crop`` and
@@ -26,8 +27,7 @@ makes ``--use_style_code`` true and ``--dataset_mode`` skit by default, and
     ``--steps_per_dispatch``, ``--device_sample_cache``,
     ``--cache_data_device``, ``--lpips_tap_cache``, ``--d3_logit_cache``,
     ``--platform``), the loader's ``--num_threads`` and ``--cache_dir``,
-    the loggers' ``--use_wandb``, ``--verbose``, ``--display_port``, and
-    flags the reference declares but never reads for this model
+    ``--verbose``, and flags the reference declares but never reads for this model
     (``--easy_label``, ``--load_iter``, ``--direction``, ``--load_size``,
     ``--no_flip``, ``--use_eval_mode``, ``--padded_size``, ...).  The test
     phase's ``--dtype`` and ``--lpips_crop`` are of this kind: the eval
@@ -38,9 +38,7 @@ makes ``--use_style_code`` true and ``--dataset_mode`` skit by default, and
     port does not run: a ``--model`` other than sinskit and skit, a
     ``--dataset_mode`` other than singleskit and skit, another ``--netG``,
     ``--normG``/``--normD`` other than instance, batch or none,
-    ``--display_id`` > 0 (the live dashboard), ``--multihost``; in
-    training also the StyleGAN2
-    ``--netD``/``--netD2``, a DiffAugment policy that repeats a letter,
+    ``--multihost``; in training also the StyleGAN2 ``--netD``/``--netD2``, a DiffAugment policy that repeats a letter,
     ``--pool_size`` > 0 and ``--mesh``.
 
 ``--no_dropout false`` is accepted and builds no dropout: the reference's
@@ -188,7 +186,10 @@ def _common(p: argparse.ArgumentParser, train: bool) -> None:
     a("--subdir_valT", type=str, default="valT" if train else "")
     # visuals and the HTML gallery
     a("--display_winsize", type=int, default=256)
-    a("--display_id", type=int, default=0, help="> 0: the live dashboard (not ported)")
+    a("--display_id", type=int, default=0,
+      help="> 0: the live dashboard on 127.0.0.1:<display_port> while training")
+    a("--display_port", type=int, default=8097, help="the live dashboard's port (0: any free)")
+    a("--use_wandb", action="store_true", help="log to wandb when it is installed")
     a("--display_freq", type=int, default=100 if train else 400)
     a("--print_freq", type=int, default=100)
     a("--no_html", action="store_true",
@@ -206,7 +207,6 @@ def _common(p: argparse.ArgumentParser, train: bool) -> None:
         ("--no_antialias_up", bool, False), ("--direction", str, "AtoB"),
         ("--num_threads", int, 0), ("--cache_data_device", bool, False),
         ("--load_size", int, 286), ("--cache_dir", str, ""),
-        ("--display_port", int, 8097), ("--use_wandb", bool, False),
         ("--verbose", bool, False), ("--load_iter", int, 0),
         ("--model_phase", str, "train" if train else "eval"),
         ("--padded_size", int, 1800), ("--save_S_patch", str2bool, not train),
@@ -310,8 +310,6 @@ def _check_common(opt) -> None:
     m = int(opt.T_resolution_multiplier)
     if m < 1 or m & (m - 1):
         raise ValueError(f"--T_resolution_multiplier {m} must be a power of two")
-    if opt.display_id > 0:
-        _refuse("--display_id", "> 0 (the live dashboard)")
     if opt.multihost:
         _refuse("--multihost", "(several hosts)")
 

@@ -50,6 +50,13 @@ def load_touch_npz(path: str) -> TouchRecord:
                              data["touch_center_thresh"], path)
 
 
+def save_touch_npz(path: str, rec: TouchRecord) -> None:
+    """Write ``rec`` in the on-disk format :func:`load_touch_npz` reads."""
+    np.savez(path, gx_raw=rec.gx, gy_raw=rec.gy, vision_mask_x=rec.roi_x,
+             vision_mask_y=rec.roi_y, vision_mask_h=rec.roi_h, vision_mask_w=rec.roi_w,
+             touch_thresh=rec.touch_mask, touch_center_thresh=rec.touch_center_mask)
+
+
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".tif", ".tiff", ".webp")
 
 

@@ -1,7 +1,9 @@
 """Single-garment SKIT dataset (``vts_tpu/data/singleskit.py``), test and
 training phases.
 
-One garment = sketch S + visual I + object mask M + touch records.  A sample
+One garment = sketch S + visual I + object mask M + touch records; an
+edited sketch (a dataroot named ``*edit*`` with no I folder) has S and M
+only, and its samples no I and no touch keys.  A sample
 is a crop (``crop_size``; the center crop at test time, a random crop that
 keeps the protected center with ``--preprocess crop``) made a multiple of
 256, with every touch ROI propagated analytically; with ``zoom`` in
@@ -93,8 +95,13 @@ class SingleSkitDataset:
             self.S_img = _read_image(s_paths[0], gray=opt.sketch_nc == 1)
             if opt.use_bg_mask:
                 self.M_img = _read_image(list_images(sub(opt.subdir_M))[0], gray=True)
-            self.I_img = _read_image(list_images(sub(opt.subdir_I))[0], gray=False)
-            self.records = [load_touch_npz(p) for p in list_touch_npz(sub(opt.subdir_T))]
+            if os.path.exists(sub(opt.subdir_I)):
+                self.I_img = _read_image(list_images(sub(opt.subdir_I))[0], gray=False)
+                self.records = [load_touch_npz(p) for p in list_touch_npz(sub(opt.subdir_T))]
+            elif "edit" in root:                        # an edited sketch: S and M only
+                self.I_img, self.records = None, []
+            else:
+                raise ValueError("I and T data required for non-edited sketches")
             val_dir = getattr(opt, "subdir_valT", "") if self.is_train else ""
             self.val_records = [load_touch_npz(p) for p in list_touch_npz(sub(val_dir))] \
                 if val_dir else []
@@ -118,18 +125,17 @@ class SingleSkitDataset:
         S1, I1, M1 = self.S_img, self.I_img, self.M_img
         if "zoom" in opt.preprocess:
             sf_h, sf_w = (float(v) for v in self.zoom_levels[index])
-            S1, I1 = (zoom_img(im, sf_h, sf_w) for im in (S1, I1))
-            M1 = zoom_img(M1, sf_h, sf_w) if M1 is not None else None
+            S1 = zoom_img(S1, sf_h, sf_w)
+            I1, M1 = (zoom_img(im, sf_h, sf_w) if im is not None else None for im in (I1, M1))
         center_crop = "crop" not in opt.preprocess
         S2, rr, cx, cy = crop_img(S1, opt.crop_size, opt.crop_size,
                                   center_w=opt.center_w, center_h=opt.center_h,
                                   center_crop=center_crop, rng=rng)
-        I2 = crop_img(I1, opt.crop_size, opt.crop_size, rr, cx, cy)[0]
-        M2 = crop_img(M1, opt.crop_size, opt.crop_size, rr, cx, cy)[0] \
-            if M1 is not None else None
+        I2, M2 = (crop_img(im, opt.crop_size, opt.crop_size, rr, cx, cy)[0]
+                  if im is not None else None for im in (I1, M1))
         S3, rw, rh = make_power_2_img(S2, 256)
-        I3 = make_power_2_img(I2, 256)[0]
-        M3 = make_power_2_img(M2, 256)[0] if M2 is not None else None
+        I3, M3 = (make_power_2_img(im, 256)[0] if im is not None else None
+                  for im in (I2, M2))
         aug = {
             "H": float(self.S_img.shape[0]), "W": float(self.S_img.shape[1]),
             "scale_factor_h": sf_h, "scale_factor_w": sf_w,
@@ -141,8 +147,9 @@ class SingleSkitDataset:
         sample: Dict[str, np.ndarray] = {
             "S": to_array(S3, normalize=True),
             "augmentation_params": pack_aug_params(aug),
-            "I": to_array(I3, normalize=True),
         }
+        if I3 is not None:
+            sample["I"] = to_array(I3, normalize=True)
         if M3 is not None:
             sample["M"] = (to_array(M3, normalize=False) > 0.5).astype(np.float32)
         if self.records:

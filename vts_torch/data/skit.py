@@ -12,7 +12,9 @@ Each item also carries ``material_index`` (int32) and ``style_image``, the
 style encoder's input: the next image of ``--style_image_dir`` when it
 holds any, else the garment's own visual image as uint8 (``((I·0.5 + 0.5)
 ·255)``, truncated); either resized to ``--style_image_size``² by PIL's
-``Image.resize`` at its default resampling, then mapped to [-1, 1].
+``Image.resize`` at its default resampling, then mapped to [-1, 1].  An
+edited sketch's item (no I) without ``--style_image_dir`` has no
+``style_image``, as in the reference.
 """
 
 from __future__ import annotations
@@ -74,7 +76,9 @@ class SkitDataset:
         size = int(self.opt.style_image_size)
         if self.style_paths:
             img = Image.open(self.style_paths[index % len(self.style_paths)]).convert("RGB")
-        else:
+        elif "I" in sample:
             img = Image.fromarray(((sample["I"] * 0.5 + 0.5) * 255).astype(np.uint8).squeeze())
+        else:                                   # an edited sketch: no style source
+            return sample
         sample["style_image"] = to_array(img.resize((size, size)), normalize=True)
         return sample

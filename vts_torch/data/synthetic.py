@@ -7,19 +7,22 @@ images stay numpy arrays (no PIL, no files) and the touch records stay
 :class:`TouchRecord` objects with the dtypes a ``.npz`` round trip gives.
 
 ``synthetic://<name>?size=P&patches=N&val_patches=V&center_w=..&center_h=..
-&mult=1&seed=..`` names a garment exactly as the reference does.
+&mult=1&seed=..`` names a garment exactly as the reference does;
+:func:`save_garment` writes one to disk in the reference's layout, for the
+on-disk dataroots of the launcher and the edited sketches.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 import urllib.parse
 from typing import Dict, List, Tuple
 
 import numpy as np
 
-from .npz import TouchRecord, make_touch_record
+from .npz import TouchRecord, make_touch_record, save_touch_npz
 
 
 @dataclasses.dataclass
@@ -30,6 +33,7 @@ class Garment:
     image: np.ndarray           # (P, P, 3) uint8
     mask: np.ndarray            # (P, P) uint8
     records: Dict[str, List[TouchRecord]]   # trainT / valT / testT
+    mult: int = 1
 
 
 def _height_field(h: int, w: int, rng: np.random.Generator, n_waves: int = 6,
@@ -123,7 +127,26 @@ def generate_garment(name: str, padded_size: int = 1800, center_w: int = 1280,
                    sketch=_quantize(pad(sketch_c, 1.0)),
                    image=_quantize(pad(visual_c, 1.0)),
                    mask=_quantize(pad(mask_c, 0.0)),
-                   records=records)
+                   records=records, mult=mult)
+
+
+def save_garment(g: Garment, out_dir: str) -> str:
+    """Write ``g`` as the reference writes a synthetic garment, an on-disk
+    dataroot ``<out_dir>/singleskit_<name>_padded_<P>_x<mult>`` (S, I and M
+    PNGs of both phases, the touch records of trainT, valT and testT), and
+    return its path."""
+    from PIL import Image
+    root = os.path.join(out_dir, f"singleskit_{g.name}_padded_{g.padded_size}_x{g.mult}")
+    for phase in ("train", "test"):
+        for sub, kind, arr in (("S", "sketch", g.sketch), ("I", "image", g.image),
+                               ("M", "mask", g.mask)):
+            os.makedirs(os.path.join(root, phase + sub), exist_ok=True)
+            Image.fromarray(arr).save(os.path.join(root, phase + sub, f"{g.name}_{kind}.png"))
+    for sub, recs in g.records.items():
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for i, rec in enumerate(recs):
+            save_touch_npz(os.path.join(root, sub, f"{g.name}_{sub}_{i:03d}_tactile.npz"), rec)
+    return root
 
 
 def materialize_synthetic(uri: str, opt=None) -> Garment:

@@ -15,3 +15,11 @@ def resolve_device(name: str = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def describe(dev: torch.device) -> str:
+    """``cuda:0 (<card name>)`` or ``cpu``: the device a run reports it runs on."""
+    if dev.type != "cuda":
+        return str(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return f"cuda:{index} ({torch.cuda.get_device_name(index)})"

@@ -12,7 +12,10 @@ the code from the first source the batch has:
      nothing beyond that key, as in the reference);
   2. ``batch["style_image"]``, encoded (the skit dataset's: the garment's
      own image at 224², or one of ``--style_image_dir``);
-  3. the full-resolution ``I``, encoded (resized to 224² inside CLIP).
+  3. the full-resolution ``I``, encoded (resized to 224² inside CLIP);
+
+and fails with the reference's message when the batch has none of them (an
+edited sketch without ``--style_image_dir``).
 
 The encode runs without a gradient on the one CLIP tower the model holds,
 which D3 shares.
@@ -40,5 +43,7 @@ class SKITModel(SinSKITModel):
         super().set_input(batch, phase)
         inp = self._input
         if self.opt.use_style_code and "style_code" not in inp:
-            inp["style_code"] = self.encode_style(inp["style_image"] if "style_image" in inp
-                                                  else inp["I"])
+            source = inp.get("style_image", inp.get("I"))
+            if source is None:
+                raise ValueError("skitG needs a style image or visual image")
+            inp["style_code"] = self.encode_style(source)

@@ -12,8 +12,10 @@ HTML gallery there: per sample its visuals as PNGs, the raw tactile field
 and ``index.html``.  When the samples carry a ``material_index`` (the skit
 dataset), the mean of each metric over each material's samples goes to
 ``eval_metrics_per_material.pkl`` there, keyed by material name, with one
-printed line per material.  On CUDA the run turns TF32 off (cuDNN convs and
-matmuls in full fp32).
+printed line per material.  An edited sketch (no visual image, no touch
+records) has no metrics: its gallery and raw tactile field are written and
+``eval_metrics.pkl`` holds ``{}``, as in the reference.  On CUDA the run
+turns TF32 off (cuDNN convs and matmuls in full fp32).
 
 Run:  python -m vts_torch.test --model sinskit|skit --epoch best \\
           --dataroot synthetic://smoke?size=1800 [--device cuda|cpu]
@@ -30,7 +32,7 @@ import torch
 
 from .config import TestOptions
 from .data import create_dataset
-from .device import resolve_device
+from .device import describe, resolve_device
 from .models import create_model
 from .utils.html import HTML
 from .utils.visualizer import save_images
@@ -76,6 +78,7 @@ def test(argv=None, opt=None) -> List[Dict[str, float]]:
     opt.no_flip = True
     opt.display_id = 0
     device = resolve_device(opt.device)
+    print(f"[device] {opt.name} tests on {describe(device)}", flush=True)
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -14,8 +14,10 @@ sum of the lower-is-better validation metrics drives a
 :class:`~vts_torch.models.base.PlateauTracker`).  With ``--anneal_epoch`` and
 ``--anneal_set``, the options named there change once, at the start of that
 epoch (``[anneal]`` line): the step reads them anew every time, and the
-loader takes the new batch size.  On CUDA the run turns TF32 off (cuDNN
-convs and matmuls in full fp32).
+loader takes the new batch size.  Each epoch's wall time goes to the
+loggers (``plot_epoch_time``); with ``--display_id`` > 0 the live dashboard
+serves the run on 127.0.0.1 until training ends.  On CUDA the run turns
+TF32 off (cuDNN convs and matmuls in full fp32).
 
 Run:  python -m vts_torch.train --model sinskit --dataroot synthetic://demo \\
           --data_len 3 [--device cuda|cpu] ...
@@ -31,7 +33,7 @@ import torch
 
 from .config import TrainOptions
 from .data import create_dataset
-from .device import resolve_device
+from .device import describe, resolve_device
 from .models import create_model
 from .models.base import PlateauTracker
 from .utils.visualizer import Visualizer
@@ -106,16 +108,19 @@ def train(argv=None, opt=None):
     if opt is None:
         opt = TrainOptions().parse(argv)
     device = resolve_device(opt.device)
+    print(f"[device] {opt.name} trains on {describe(device)}", flush=True)
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    visualizer = Visualizer(opt)
     try:
-        return _train(opt, device)
+        return _train(opt, device, visualizer)
     finally:
+        visualizer.close()
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def _train(opt, device):
+def _train(opt, device, visualizer):
     anneal_pending = bool(opt.anneal_epoch) and bool(opt.anneal_set)
     if anneal_pending:
         if opt.step_mode == "split":
@@ -125,7 +130,6 @@ def _train(opt, device):
     dataset = create_dataset(opt)
     print(f"The number of training images = {len(dataset.dataset)}")
     model = create_model(opt)
-    visualizer = Visualizer(opt)
     total_iters = 0
     best_metrics: Dict[str, float] = {}
     plateau = PlateauTracker() if opt.lr_policy == "plateau" else None
@@ -193,8 +197,10 @@ def _train(opt, device):
         model.save_networks("latest")
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        epoch_time = time.time() - epoch_start
+        visualizer.plot_epoch_time(epoch, epoch_time)
         print(f"End of epoch {epoch} / {opt.n_epochs + opt.n_epochs_decay} \t "
-              f"Time Taken: {time.time() - epoch_start:.0f} sec")
+              f"Time Taken: {epoch_time:.0f} sec")
         model.update_learning_rate(epoch)
     print(f"Training finished in {time.time() - t_start:.0f} s")
     return model
