@@ -115,6 +115,24 @@ Phases, each of which must pass or the script exits non-zero:
      ran); a short 256² training run with ``--display_id 1 --display_port 0``
      whose ``/data.json`` is read over 127.0.0.1 while it trains (the loss
      history grows; the server is closed at the end);
+  4g. the pix2pix baseline (:func:`pix2pix_baseline`): ``vts_torch.train
+     --model pix2pix --dataset_mode patchskit`` on the 1800² garment at the
+     shipped training defaults (ngf/ndf 64, resnet_9blocks, batch-norm G and
+     basic Ds, batch 32 of 32² patches from the 1536² view, vanilla GAN and
+     L1·100), cut in length only: 5 epochs of the view's 64 touch squares
+     (10 steps), the full-image validation after each epoch, the gallery at
+     sample 320; every loss finite, no ``pred_fake_T_full`` panel, the G, D
+     and D2 checkpoints with their Adam files (``best`` and ``latest``), K1
+     and K2 launched by the validations and K1 dx and K2 bwd not at all;
+     its best G through ``vts_torch.test --model pix2pix`` on the 1536²
+     canvas (K = 64 test patches): 8 finite metrics, K1 and K2 launched as
+     ``PER_SAMPLE`` says, no patch_offsets call on the host, the gallery and
+     the raw gx/gy npz; K1 at that sample's shapes within the fp32 limit; a
+     32² step at batch 4 with ngf/ndf 8 on cuda and on cpu from the same
+     weights and patches, held as in phase 4, the running statistics of G,
+     D and D2 within 1e-5, and G's 256² eval forward within 1e-4 of its max;
+     the launcher's ``pix2pix launch --mode process`` child on phase 4f's
+     on-disk garment (1 epoch) on the card;
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
@@ -141,16 +159,22 @@ Phases, each of which must pass or the script exits non-zero:
      skitG D3-active step (median of 5 after 2 warm-ups, samples/s, peak
      memory, launches); phase 4f's edit test sample (median of 3 after 1),
      its launcher walls (two processes at once, and one after the other)
-     and the postprocess's host time per map in each mode.
+     and the postprocess's host time per map in each mode; the untraced
+     full-width pix2pix step (median of 5 after 2 warm-ups, samples/s, peak
+     memory), one full-canvas pix2pix test sample (median of 3 after 1, its
+     G forward and launches) and one traced pix2pix step in a process of its
+     own (``vts_torch.utils.profiler --phase train``: the idle share).
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel and
 path: an ``eval`` row covers one test sample (its launches are the test
 run's, which holds one sample, less the gallery's), a ``train`` row one
 training step (its launches are those of a timed D3-active step, counted
 from 0), a ``train_bf16`` row one step of the production lane before its
-anneal (likewise), a ``train_tmult2`` row one D3-active x2 step and an
+anneal (likewise), a ``train_tmult2`` row one D3-active x2 step, an
 ``eval_legacy`` row one skitG test sample under --eval_mode legacy (its
-launches counted in that sample); ``ms``, ``plain_ms``,
+launches counted in that sample) and an ``eval_pix2pix`` row one pix2pix
+test sample (K = 64 test patches; the test run's launches less the
+gallery's); ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` sum the per-shape times over those launches,
 and ``max_abs_err`` is the worst of the checks at that path's shapes.  The
 last line is ``{"ok": true, "device": {...}}``.  Nothing is printed as a result unless
@@ -911,7 +935,8 @@ def edit_render_workflow(tmp, device, size=PADDED, query="", flags=(), train_fla
                          "--checkpoints_dir", ckpt, "--results_dir", res, "--", *flags, *extra],
                         os.path.join(logs, log), device, materials.count(",") + 1)
 
-    out = {"two_s": launch("launch", "ours", mats, "launch.log", extra=train_flags),
+    out = {"data": data,
+           "two_s": launch("launch", "ours", mats, "launch.log", extra=train_flags),
            "one_by_one_s": [launch("launch", "ours", m, f"launch_{m}.log", extra=train_flags,
                                    ckpt=ckpt + "_seq", res=res + "_seq")
                             for m in EDIT_MATERIALS]}
@@ -1015,6 +1040,173 @@ def edit_render_workflow(tmp, device, size=PADDED, query="", flags=(), train_fla
                              "--checkpoints_dir", ckpt, "--results_dir", res], device)
     print(f"[workflow] the dashboard's loss history as read while training: {len(sizes)} reads, "
           f"{len(set(sizes))} lengths, {sizes[0]} → {sizes[-1]} points")
+    return out
+
+
+# ------------------------------------------------------------------ 4g ---
+# pix2pix at its shipped training defaults (ngf/ndf 64, resnet_9blocks, the
+# batch-norm G and basic Ds, batch 32 of 32² patches cut from the 1536²
+# view, the vanilla GAN and L1·100), cut in length only: an epoch holds the
+# view's 64 touch squares (two steps), so 5 epochs make 10 steps, with the
+# full-image validation after each and the gallery at sample 320 (the tenth
+# step, as --display_freq says by default)
+P2P_DATA = f"synthetic://smoke?size={PADDED}"
+P2P_TRAIN = ["--model", "pix2pix", "--dataset_mode", "patchskit", "--name", "p2p",
+             "--dataroot", P2P_DATA, "--device", "cuda", "--n_epochs", "5",
+             "--n_epochs_decay", "0", "--val_for_each_epoch", "true"]
+P2P_TEST = ["--model", "pix2pix", "--name", "p2p", "--epoch", "best", "--dataroot", P2P_DATA,
+            "--device", "cuda"]
+P2P_LOSSES = {"D_fake", "D_real", "D2_fake", "D2_real", "G_GAN_I", "G_GAN_T", "G_L1", "G_total"}
+# K1 at a pix2pix test sample, whose test parser cuts K = 64 test patches:
+# the canvas LPIPS on [real, fake], the patch LPIPS on 2·64 224² patches,
+# once for gx and once for gy
+K_P2P = 64
+K1_P2P = K1_SHAPES[:3] + [(2 * K_P2P, 224, 224, 64, 64, 2), (2 * K_P2P, 112, 112, 64, 128, 2),
+                          (2 * K_P2P, 112, 112, 128, 128, 2)]
+
+
+def patch_batch(b, seed=0):
+    """Random 32² pix2pix patches (S, I, M, T_images, I_masks) at batch b."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    return {"S": r.uniform(-1, 1, (b, 32, 32, 1)).astype(np.float32),
+            "I": r.uniform(-1, 1, (b, 32, 32, 3)).astype(np.float32),
+            "M": np.ones((b, 32, 32, 1), np.float32),
+            "T_images": r.uniform(-1, 1, (b, 1, 32, 32, 2)).astype(np.float32),
+            "I_masks": np.ones((b, 1, 32, 32, 1), np.float32)}
+
+
+def pix2pix_baseline(tmp, dirs, wf_data, run_train, run_test):
+    """Phase 4g: ``vts_torch.train --model pix2pix`` at the full-width
+    defaults (:data:`P2P_TRAIN`), its best G through ``vts_torch.test`` on
+    the 1536² canvas, a 32² step (batch 4, ngf/ndf 8) and a 256² eval
+    forward on cuda against cpu, and the launcher's pix2pix child on the
+    on-disk garment of phase 4f.  What phase 5 needs of it."""
+    import numpy as np
+
+    from vts_torch.config import TrainOptions
+    from vts_torch.models import create_model
+    from vts_torch.ops import conv3x3 as k1
+
+    out = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    with Gallery() as gallery:
+        model = run_train(P2P_TRAIN + dirs)
+    torch.cuda.synchronize()
+    run = read_counts()
+    losses = model.get_current_losses()
+    steps = model.adam["G"].count
+    print(f"[pix2pix] {steps} steps of batch 32 over 5 epochs + 5 full-image validations + the "
+          f"gallery in {time.time() - t0:.2f} s (first run, incl. data and model set-up); G "
+          f"{sum(p.numel() for p in model.netG.parameters()) / 1e6:.3f} M params; last losses: "
+          + " ".join(f"{k}={v:.6g}" for k, v in losses.items()))
+    print(f"[pix2pix] launches during the training run: {run}")
+    print(gallery.line("pix2pix training gallery (32² patches)"))
+    check(set(losses) == P2P_LOSSES and all(math.isfinite(v) for v in losses.values()),
+          f"a pix2pix training loss is missing or not finite: {losses}")
+    check(steps == 10, f"the pix2pix run took {steps} steps, not 10")
+    check(run["conv3x3_bias_relu"] > 0 and run["gather_patches"] > 0
+          and run["conv3x3_dx"] == 0 and run["scatter_patches"] == 0,
+          f"the pix2pix run (GAN + L1, the metrics in its validations) launched {run}")
+    ck = os.path.join(tmp, "ckpt", "p2p")
+    missing = [f"{tag}_{kind}_{net}.msgpack" for tag in ("best", "latest")
+               for net in ("G", "D", "D2") for kind in ("net", "opt")
+               if not os.path.exists(os.path.join(ck, f"{tag}_{kind}_{net}.msgpack"))]
+    check(not missing, f"pix2pix checkpoints not written: {missing}")
+    pngs = os.listdir(os.path.join(ck, "web", "images"))
+    check(gallery.passes == 1 and any(f.endswith("_fake_I.png") for f in pngs)
+          and not any("pred_fake_T_full" in f for f in pngs),
+          f"the pix2pix gallery: {gallery.passes} passes, {sorted(pngs)}")
+    out["train_model"] = model
+
+    # its best G on the full canvas through the test driver
+    reset_counts()
+    with CountPatchOffsets() as host_offsets, Gallery() as gallery:
+        metrics = run_test(P2P_TEST + dirs)[0]
+    torch.cuda.synchronize()
+    out["run_launches"] = read_counts()
+    out["sample_launches"] = {k: v - gallery.launches[k] for k, v in out["run_launches"].items()}
+    print(f"[pix2pix test] {CANVAS}² canvas, K {K_P2P}: " +
+          " ".join(f"{k}={v:.6g}" for k, v in sorted(metrics.items())))
+    print(f"[pix2pix test] launches during the test run: {out['run_launches']}; the sample's, "
+          f"without the gallery: {out['sample_launches']}")
+    check(len(metrics) == 8 and all(math.isfinite(v) for v in metrics.values()),
+          f"pix2pix test: expected 8 finite metrics, got {metrics}")
+    check(out["sample_launches"] == PER_SAMPLE,
+          f"a pix2pix test sample launched {out['sample_launches']}, not {PER_SAMPLE}")
+    check(host_offsets.calls == 0, f"the pix2pix test called patch_offsets "
+                                   f"{host_offsets.calls} times on the host")
+    web = os.path.join(tmp, "res", "p2p", "test_best")
+    written = os.listdir(os.path.join(web, "images"))
+    check(os.path.exists(os.path.join(web, "index.html"))
+          and any(f.endswith("_fake_gxgy_raw.npz") for f in written)
+          and not any("pred_fake_T_full" in f for f in written),
+          f"the pix2pix test gallery: {sorted(written)}")
+
+    # K1 at the pix2pix eval shapes against its plain version
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    out["k1_rows"] = []
+    for (n, h, w, c, co, per) in K1_P2P:
+        x = torch.relu(torch.randn(n, h, w, c, generator=gen)).cuda()
+        wt = (torch.randn(3, 3, c, co, generator=gen) * math.sqrt(2.0 / (9 * c))).cuda()
+        b = (torch.randn(co, generator=gen) * 0.1).cuda()
+        got, ref = k1.conv3x3_bias_relu(x, wt, b), k1.conv3x3_bias_relu_plain(x, wt, b)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item() + 1e-5
+        print(f"[K1 pix2pix check] {(n, h, w, c)}->{co}: max|d| {err:.3e} (tol {tol:.3e})")
+        check(err <= tol, f"K1 disagrees with its plain version at {(n, h, w, c, co)}")
+        out["k1_rows"].append(dict(shape=[n, h, w, c, co], per_sample=per, err=err,
+                                   tensors=(x, wt, b)))
+        del got, ref
+
+    # a 32² step (batch 4, ngf/ndf 8) on cuda and on cpu from the same weights
+    small = ["--model", "pix2pix", "--name", "p2p_small", "--dataroot", SMALL_DATA,
+             "--crop_size", "256", "--center_w", "192", "--center_h", "128", "--ngf", "8",
+             "--ndf", "8", "--batch_size", "4", "--no_html"] + dirs
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    pair = {}
+    for key in ("cpu", "cuda"):
+        pair[key] = create_model(TrainOptions().parse(small + ["--device", key], quiet=True))
+        pair[key].setup()
+        pair[key].set_input(patch_batch(4))
+        pair[key].optimize_parameters(1)
+    compare_steps("32² pix2pix step", pair["cpu"], pair["cuda"])
+    worst = 0.0
+    for net in ("G", "D", "D2"):
+        for k, v in getattr(pair["cpu"], f"net{net}").state_dict().items():
+            if k.endswith((".mean", ".var")):
+                d = (getattr(pair["cuda"], f"net{net}").state_dict()[k].cpu() - v).abs().max()
+                worst = max(worst, d.item())
+    print(f"[pix2pix ref] 32² step, running statistics of G, D and D2 cuda vs cpu: max|d| "
+          f"{worst:.3e}")
+    check(worst <= 1e-5, "pix2pix running statistics on cuda disagree with cpu")
+    x = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, (1, 256, 256, 1))
+                         .astype(np.float32))
+    with torch.no_grad():
+        ref, got = (pair[k]._forward_eval(x.to(pair[k].device), torch.ones_like(x[..., :1])
+                                          .to(pair[k].device)) for k in ("cpu", "cuda"))
+    err = max((g.cpu() - r).abs().max().item() / r.abs().max().item() for g, r in zip(got, ref))
+    print(f"[pix2pix ref] 256² eval forward (running statistics) cuda vs cpu: max|d|/max|ref| "
+          f"{err:.3e}")
+    check(err <= 1e-4, "the pix2pix eval forward on cuda disagrees with cpu")
+    torch.backends.cudnn.deterministic = cudnn_det
+    del pair
+
+    # the launcher's pix2pix child on the on-disk garment of phase 4f, 1 epoch
+    root = os.path.join(wf_data, f"singleskit_{{material}}_padded_{PADDED}_x1")
+    out["launch_s"] = launcher(
+        ["pix2pix", "launch", "--mode", "process", "--materials", "synthA",
+         "--dataroot-template", root, "--checkpoints_dir", os.path.join(tmp, "p2p_ckpt"),
+         "--results_dir", os.path.join(tmp, "p2p_res"), "--", "--n_epochs", "1",
+         "--n_epochs_decay", "0", "--no_html"],
+        os.path.join(tmp, "wf_logs", "launch_pix2pix.log"), "cuda", 1)
+    check(os.path.exists(os.path.join(tmp, "p2p_ckpt", "synthA_pix2pix_baseline",
+                                      "latest_net_G.msgpack")),
+          "the launcher's pix2pix child wrote no checkpoint")
     return out
 
 
@@ -1903,6 +2095,14 @@ def main() -> int:
     workflow_s = time.time() - t0
     print(f"[workflow] took {workflow_s:.1f} s")
 
+    # --------------------------------------------------------------- 4g ---
+    print(f"[phase] phase 4g (the pix2pix baseline) from {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    p2p = pix2pix_baseline(tmp, dirs, workflow["data"], run_train, run_test)
+    p2p_s = time.time() - t0
+    print(f"[pix2pix] phase 4g took {p2p_s:.1f} s")
+
     # ---------------------------------------------------------------- 5 ---
     print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s; the card: {card_state()} "
           f"(SM clock, power, temperature)")
@@ -1979,6 +2179,8 @@ def main() -> int:
     time_k1_eval(k1_rows, "eval")
     # the legacy evaluation of garment A's skitG test sample (--eval_mode legacy)
     time_k1_eval(legacy_rows, "eval_legacy")
+    # a pix2pix test sample (K = 64 test patches)
+    time_k1_eval(p2p["k1_rows"], "eval_pix2pix")
 
     def time_k1_train(rows, path, peak, tag):
         """K1 and K1 dx at each training shape of ``rows``, in the rows'
@@ -2085,6 +2287,10 @@ def main() -> int:
     # the legacy evaluation cuts the same stack, one launch per sample
     time_gather("eval_legacy", 1, (img2[:1],), dict(coords=coords[:1].contiguous()),
                 k2.patch_offsets(coords[0])[:2], "fake_T at the test patches")
+    time_gather("eval_pix2pix", PER_SAMPLE["gather_patches"], (img2[:1],),
+                dict(coords=coords[:1, :K_P2P].contiguous()),
+                k2.patch_offsets(coords[0, :K_P2P])[:2],
+                f"fake_T at pix2pix's {K_P2P} test patches")
     for row in k2_train:
         time_gather("train", 1, row["images"], row["kw"], row["offsets"],
                     f"group {row['group']}")
@@ -2412,6 +2618,72 @@ def main() -> int:
                                           f"not {PER_STEP}")
     del model, batch
     torch.cuda.empty_cache()
+
+    # pix2pix untraced: one full-width training step (median of 5 after 2
+    # warm-ups), one full-canvas test sample (median of 3 after 1, the
+    # launches of one); then one traced step in a process of its own
+    print(f"[phase] pix2pix walls from {time.time() - t_start:.1f} s")
+    model = p2p.pop("train_model")
+    batch = next(iter(create_dataset(TrainOptions().parse(P2P_TRAIN + dirs, quiet=True))))
+    model.set_input(batch)
+    walls, peaks = [], []
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    for i in range(7):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model.optimize_parameters(1)
+        model.get_current_losses()
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    p2p_wall = statistics.median(walls)
+    print(f"[time pix2pix step] {smi}: one full-width pix2pix training step (batch 32 of 32² "
+          f"patches, ngf/ndf 64, resnet_9blocks, batch-norm G and Ds): {p2p_wall:.1f} ms wall, "
+          f"median of {len(walls)} ({', '.join(f'{w:.1f}' for w in walls)}); "
+          f"{32e3 / p2p_wall:.1f} samples/s; peak memory {max(peaks):.2f} GiB, of which "
+          f"{held:.2f} GiB was held by this process before the step")
+    del model, batch
+    topt = TestOptions().parse(P2P_TEST + dirs, quiet=True)
+    batch = next(iter(create_dataset(topt)))
+    model = create_model(topt)
+    model.setup()
+    model.load_networks("best")
+    model.set_input(batch)
+    walls, g_ms = [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        if i == 1:
+            reset_counts()
+        t0 = time.perf_counter()
+        model.test()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.compute_metrics()
+        torch.cuda.synchronize()
+        if i == 1:
+            p2p_one = read_counts()
+        if i:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            g_ms.append((t1 - t0) * 1e3)
+    print(f"[time pix2pix sample] {smi}: one {CANVAS}² pix2pix test sample (K {K_P2P}): "
+          f"{statistics.median(walls):.1f} ms wall (G forward {statistics.median(g_ms):.1f} ms), "
+          f"median of {len(walls)} ({', '.join(f'{w:.1f}' for w in walls)}); launches "
+          f"{p2p_one}")
+    check(p2p_one == PER_SAMPLE, f"a pix2pix test sample launched {p2p_one}, not {PER_SAMPLE}")
+    del model, batch
+    torch.cuda.empty_cache()
+    prof = subprocess.run([sys.executable, "-m", "vts_torch.utils.profiler", "--phase", "train",
+                           *P2P_TRAIN, *dirs], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    check(prof.returncode == 0, f"the traced pix2pix step failed:\n{prof.stderr[-3000:]}")
+    rec = json.loads(prof.stdout.strip().splitlines()[-1])
+    print(f"[time pix2pix traced] {smi}: one traced full-width pix2pix step in a fresh process "
+          f"(vts_torch.utils.profiler --phase train): wall {rec['wall_ms']:.1f} ms, device busy "
+          f"{rec['device_busy_ms']:.1f} ms, idle share {rec['device_idle_share']:.3f}, peak "
+          f"memory {rec['peak_memory_gib']:.2f} GiB; top kernels: "
+          + "; ".join(f"{k['name'][:60]} {k['ms']:.2f} ms" for k in rec["kernels_ms"][:6]))
     # device-only times of every kernel, and of their library calls
     print(f"[phase] device-only times from {time.time() - t_start:.1f} s")
     print(f"[device-only] the card: {card_state()} (SM clock, power, temperature)")
@@ -2450,9 +2722,11 @@ def main() -> int:
                                    "no Pallas kernel)")}
     kernels = []
     per_path = {"eval": test_launches, "train": step_launches, "train_bf16": lane_step_launches,
-                "train_tmult2": x2_step_launches, "eval_legacy": skit_sample["legacy"]}
+                "train_tmult2": x2_step_launches, "eval_legacy": skit_sample["legacy"],
+                "eval_pix2pix": p2p["sample_launches"]}
     in_run = {"eval": run_launches, "train": train_launches, "train_bf16": lane_run_launches,
-              "train_tmult2": x2_run_launches, "eval_legacy": legacy_run_launches}
+              "train_tmult2": x2_run_launches, "eval_legacy": legacy_run_launches,
+              "eval_pix2pix": p2p["run_launches"]}
     for (kname, path), acc in rows.items():
         launches = per_path[path][kname]
         check(launches == acc["per"], f"{kname} ({path}): {launches} launches, timed {acc['per']}")
@@ -2478,7 +2752,8 @@ def main() -> int:
                             bound_fp32_ms=bound_ms(acc["flops"], acc["bytes"])[0],
                             launches_in_run=in_run[path][kname]))
     print(f"[shapes] {json.dumps(shape_rows)}")
-    print(f"[done] chip_smoke took {time.time() - t_start:.1f} s (phase 4f: {workflow_s:.1f} s)")
+    print(f"[done] chip_smoke took {time.time() - t_start:.1f} s (phase 4f: {workflow_s:.1f} s, "
+          f"phase 4g: {p2p_s:.1f} s)")
     tmp_dir.cleanup()
 
     print(smi)

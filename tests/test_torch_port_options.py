@@ -76,7 +76,7 @@ def _values(action):
     return vals
 
 
-def _walk(phase, tmp_path, model=()):
+def _walk(phase, tmp_path, model=(), min_tried=150):
     parser = _jax_parser(phase, tmp_path / "jax", model)
     port = _port(phase)
     base = ["--checkpoints_dir", str(tmp_path / "port"), "--device", "cpu", *model]
@@ -96,7 +96,7 @@ def _walk(phase, tmp_path, model=()):
                     assert flag in str(e), (flag, tail, str(e))
                 except SystemExit:
                     pytest.fail(f"{phase}: {flag} {tail} is an argparse error in the port")
-    assert tried > 150 and 0 < refused < tried / 4, (tried, refused)
+    assert tried > min_tried and 0 < refused < tried / 4, (tried, refused)
 
 
 @pytest.mark.parametrize("phase", ["train", "test"])
@@ -111,6 +111,37 @@ def test_every_reference_skit_option_parses_or_is_refused_by_name(phase, tmp_pat
     _walk(phase, tmp_path, ("--model", "skit"))
 
 
+@pytest.mark.parametrize("phase", ["train", "test"])
+def test_every_reference_pix2pix_option_parses_or_is_refused_by_name(phase, tmp_path):
+    """``--model pix2pix``'s parsers: the base flags, pix2pix's and the
+    patchskit dataset's (a netG other than the ResNets is refused); it
+    declares fewer flags than sinskit's (142 tries in training, 119 in the test phase)."""
+    _walk(phase, tmp_path, ("--model", "pix2pix"), min_tried=110)
+
+
+@pytest.mark.parametrize("phase", ["train", "test"])
+def test_pix2pix_defaults_match_the_reference(phase, tmp_path):
+    """``--model pix2pix``: every flag of the reference's pix2pix parser of
+    each phase has the reference's default (the base parser's where sinskit
+    overrides it, then pix2pix's own); what the port adds besides
+    ``--device`` are the sinskit flags, which pix2pix's step does not read."""
+    from vts_torch.config import options as o
+    jp = _jax_parser(phase, tmp_path, ("--model", "pix2pix"))
+    ref = {a.dest: jp.get_default(a.dest) for a in jp._actions
+           if a.option_strings and a.dest != "help"}
+    parser = (o._train_parser if phase == "train" else o._test_parser)()
+    o._pix2pix_model_flags(parser, phase == "train")
+    port = {a.dest: parser.get_default(a.dest) for a in parser._actions
+            if a.option_strings and a.dest != "help"}
+    assert {k: (v, port.get(k)) for k, v in ref.items() if port.get(k, "missing") != v} == {}
+    sinskit = {a.dest for a in _jax_parser(phase, tmp_path)._actions if a.option_strings}
+    assert set(port) - set(ref) <= sinskit | {"device", "use_style_code"}
+    opt = _port(phase).parse(["--model", "pix2pix", "--checkpoints_dir", str(tmp_path),
+                              "--device", "cpu"], quiet=True)
+    assert (opt.netG, opt.ngf, opt.dataset_mode, opt.return_patch, opt.batch_size) == \
+        ("resnet_9blocks", 64, "patchskit", phase == "train", 32 if phase == "train" else 1)
+
+
 # Settings that parse and build their model, and the refusals that stand
 PORTED = [["--T_resolution_multiplier", "2"], ["--T_resolution_multiplier", "4"],
           ["--gan_mode", "wgan"], ["--gan_mode", "wgangp"], ["--gan_mode", "hinge"],
@@ -121,9 +152,11 @@ PORTED = [["--T_resolution_multiplier", "2"], ["--T_resolution_multiplier", "4"]
           ["--init_type", "none"], ["--positional_encoding_mode", "csg"],
           ["--no_dropout", "false"], ["--preprocess", "zoom_and_crop"],
           ["--use_style_code", "true"], ["--model", "skit"], ["--eval_mode", "legacy"],
-          ["--dataset_mode", "skit"], ["--display_id", "1", "--display_port", "0"]]
+          ["--dataset_mode", "skit"], ["--display_id", "1", "--display_port", "0"],
+          ["--model", "pix2pix"]]
 STILL_REFUSED = [["--mesh", "data:2"], ["--netD", "stylegan2"],
-                 ["--netD2", "tilestylegan2"], ["--diffaugment", "bsb"]]
+                 ["--netD2", "tilestylegan2"], ["--diffaugment", "bsb"],
+                 ["--model", "pix2pixhd"], ["--model", "spade"]]
 
 
 @pytest.mark.parametrize("argv", PORTED + STILL_REFUSED,
@@ -210,7 +243,8 @@ def test_model_and_dataset_names_are_case_insensitive(tmp_path):
     opt.model = "SINSKIT"
     assert isinstance(create_model(opt), SinSKITModel)
     with pytest.raises(NotImplementedError, match="--model"):
-        _port("test").parse(["--model", "pix2pix", "--checkpoints_dir", str(tmp_path)], quiet=True)
+        _port("test").parse(["--model", "pix2pixhd", "--checkpoints_dir", str(tmp_path)],
+                            quiet=True)
 
 
 def test_test_driver_forces_batch_one(tmp_path, monkeypatch):

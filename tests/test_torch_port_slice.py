@@ -94,6 +94,8 @@ def test_port_imports_without_jax_or_vts_tpu():
             "import vts_torch.postprocess, vts_torch.launch, vts_torch.utils.misc; "
             "import vts_torch.utils.compile_metrics, vts_torch.utils.compare; "
             "import vts_torch.utils.live, vts_torch.data.synthetic; "
+            "import vts_torch.models.pix2pix, vts_torch.networks.resnet_gen; "
+            "import vts_torch.data.patchskit, vts_torch.utils.convert_torch; "
             "bad = [m for m in sys.modules if m.startswith('vts_tpu') "
             "or m.split('.')[0] in ('jax', 'flax', 'optax') and sys.modules[m] is not None]; "
             "assert not bad, bad; print('ok')")

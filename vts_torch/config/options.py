@@ -11,7 +11,14 @@ for that phase, plus ``--device`` (default ``cuda``) and
 makes ``--use_style_code`` true and ``--dataset_mode`` skit by default, and
 ``--dataset_mode skit`` adds the skit dataset's flags (``--material_list``,
 ``--dataroot_prefix``, ``--dataroot_suffix``, ``--style_image_dir``,
-``--style_image_size``).  Each flag does one of three things:
+``--style_image_size``).  ``--model pix2pix`` adds ``--lambda_L1`` and
+``--return_patch`` and takes the reference's pix2pix defaults: the base
+parser's where sinskit overrides them and pix2pix does not (ngf/ndf 64,
+Adam β 0.5/0.999, lr 2e-4, 200 + 200 epochs, ...), then pix2pix's own (the
+``resnet_9blocks`` batch-norm G, the ``basic`` D, the patchskit dataset at
+crop 1536; in training batch 32 of patches, the 320-sample cadences, the
+vanilla GAN; in the test phase the full canvas at batch 1, 64 test patches).
+Each flag does one of three things:
 
   * it is read, as in the reference (the data, model, loss, schedule,
     checkpoint and gallery flags, and the loggers' ``--display_id``,
@@ -27,7 +34,8 @@ makes ``--use_style_code`` true and ``--dataset_mode`` skit by default, and
     ``--steps_per_dispatch``, ``--device_sample_cache``,
     ``--cache_data_device``, ``--lpips_tap_cache``, ``--d3_logit_cache``,
     ``--platform``), the loader's ``--num_threads`` and ``--cache_dir``,
-    ``--verbose``, and flags the reference declares but never reads for this model
+    ``--verbose``, the sinskit flags under ``--model pix2pix`` (its step
+    reads none of them), and flags the reference declares but never reads for this model
     (``--easy_label``, ``--load_iter``, ``--direction``, ``--load_size``,
     ``--no_flip``, ``--use_eval_mode``, ``--padded_size``, ...).  The test
     phase's ``--dtype`` and ``--lpips_crop`` are of this kind: the eval
@@ -35,8 +43,10 @@ makes ``--use_style_code`` true and ``--dataset_mode`` skit by default, and
     the training-only flags that the test parser declares too (the D, loss
     and schedule flags);
   * it raises ``NotImplementedError`` naming the flag when set to what the
-    port does not run: a ``--model`` other than sinskit and skit, a
-    ``--dataset_mode`` other than singleskit and skit, another ``--netG``,
+    port does not run: a ``--model`` other than sinskit, skit and pix2pix
+    (pix2pixhd and spade are not ported yet), a ``--dataset_mode`` other
+    than singleskit, skit and patchskit, a ``--netG`` other than
+    unet256_custom (sinskit, skit) or resnet_{9,6,4}blocks (pix2pix),
     ``--normG``/``--normD`` other than instance, batch or none,
     ``--multihost``; in training also the StyleGAN2 ``--netD``/``--netD2``, a DiffAugment policy that repeats a letter,
     ``--pool_size`` > 0 and ``--mesh``.
@@ -115,6 +125,10 @@ def _common(p: argparse.ArgumentParser, train: bool) -> None:
     a("--normD", type=str, default="batch")
     a("--init_type", type=str, default="xavier", choices=_INIT)
     a("--init_gain", type=float, default=0.02)
+    a("--no_antialias", action="store_true",
+      help="resnet G: stride-2 convs in place of the blur downsample")
+    a("--no_antialias_up", action="store_true",
+      help="resnet G: transposed convs in place of the blur upsample")
     a("--no_dropout", type=str2bool, nargs="?", const=True, default=True,
       help="false is accepted and builds no dropout: the reference's dropout layers are "
            "always deterministic, so inert in training and eval")
@@ -203,8 +217,7 @@ def _common(p: argparse.ArgumentParser, train: bool) -> None:
     _no_effect(p, (
         ("--easy_label", str, "experiment_name"), ("--platform", str, ""),
         ("--coordinator_address", str, ""), ("--num_processes", int, -1),
-        ("--process_id", int, -1), ("--no_antialias", bool, False),
-        ("--no_antialias_up", bool, False), ("--direction", str, "AtoB"),
+        ("--process_id", int, -1), ("--direction", str, "AtoB"),
         ("--num_threads", int, 0), ("--cache_data_device", bool, False),
         ("--load_size", int, 286), ("--cache_dir", str, ""),
         ("--verbose", bool, False), ("--load_iter", int, 0),
@@ -288,6 +301,28 @@ def _skit_dataset_flags(p: argparse.ArgumentParser) -> None:
     a("--style_image_size", type=int, default=224)
 
 
+def _pix2pix_model_flags(p: argparse.ArgumentParser, train: bool) -> None:
+    """``--model pix2pix`` (``vts_tpu/models/pix2pix.py``): its flags, the
+    base parser's defaults that sinskit's override and pix2pix's keep, and
+    pix2pix's own defaults for the phase."""
+    a = p.add_argument
+    a("--lambda_L1", type=float, default=100.0)
+    a("--return_patch", type=str2bool, default=train,
+      help="the patchskit dataset's items: 32² patches (true) or the full record")
+    p.set_defaults(ngf=64, ndf=64, netD="basic", netG="resnet_9blocks", normG="batch",
+                   normD="batch", dataset_mode="patchskit", crop_size=1536,
+                   preprocess="resize_and_crop")
+    if train:
+        p.set_defaults(gan_mode="vanilla", batch_size=32, num_threads=4, display_freq=320,
+                       print_freq=320, save_latest_freq=320, validation_freq=320, save_epoch_freq=50,
+                       pool_size=0, display_id=0, n_epochs=200, n_epochs_decay=200,
+                       beta1=0.5, beta2=0.999, lr=0.0002, val_for_each_epoch=False)
+    else:
+        p.set_defaults(gan_mode="lsgan", batch_size=1, save_S_patch=True,
+                       sample_bbox_per_patch=1, data_len=1, num_test=50,
+                       num_touch_patch_for_logging=10, batch_size_G2=64)
+
+
 def _refuse(flag: str, what: str) -> None:
     raise NotImplementedError(f"{flag} {what} is not ported yet")
 
@@ -296,15 +331,17 @@ _NORMS = ("instance", "batch", "none")
 
 
 _SKIT_MODELS = ("skit", "skitg")
+_RESNET_G = ("resnet_9blocks", "resnet_6blocks", "resnet_4blocks")
 
 
 def _check_common(opt) -> None:
-    if opt.model.lower() not in ("sinskit", "sinskitg") + _SKIT_MODELS:
+    model = opt.model.lower()
+    if model not in ("sinskit", "sinskitg", "pix2pix") + _SKIT_MODELS:
         _refuse("--model", repr(opt.model))
-    if opt.dataset_mode.lower() not in ("singleskit", "skit"):
+    if opt.dataset_mode.lower() not in ("singleskit", "skit", "patchskit"):
         _refuse("--dataset_mode", repr(opt.dataset_mode))
-    if opt.netG != "unet256_custom":
-        _refuse("--netG", repr(opt.netG))
+    if opt.netG not in (_RESNET_G if model == "pix2pix" else ("unet256_custom",)):
+        _refuse("--netG", f"{opt.netG!r} with --model {opt.model}")
     if opt.normG not in _NORMS:
         _refuse("--normG", repr(opt.normG))
     m = int(opt.T_resolution_multiplier)
@@ -335,6 +372,9 @@ class _Options:
         known, _ = parser.parse_known_args(args)
         if known.model.lower() in _SKIT_MODELS:
             _skit_model_flags(parser)
+            known, _ = parser.parse_known_args(args)
+        elif known.model.lower() == "pix2pix":
+            _pix2pix_model_flags(parser, self.isTrain)
             known, _ = parser.parse_known_args(args)
         if known.dataset_mode.lower() == "skit":
             _skit_dataset_flags(parser)

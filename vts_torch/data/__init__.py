@@ -1,7 +1,8 @@
 """Dataset factory and batch loader (``vts_tpu/data/__init__.py``).
 
 ``create_dataset(opt)`` wraps the ``--dataset_mode`` dataset (``singleskit``,
-one garment, or ``skit``, several) in a loader
+one garment; ``skit``, several; ``patchskit``, one garment's touch squares
+as paired patches, for pix2pix) in a loader
 that yields batch dicts of stacked numpy arrays (leading batch axis).  As in
 the reference, training shuffles with a generator seeded by ``seed + epoch``
 (``set_epoch``) and drops the last partial batch; the test loader
@@ -16,10 +17,12 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from .patchskit import PatchSkitDataset
 from .singleskit import SingleSkitDataset
 from .skit import SkitDataset
 
-DATASETS = {"singleskit": SingleSkitDataset, "skit": SkitDataset}
+DATASETS = {"singleskit": SingleSkitDataset, "skit": SkitDataset,
+            "patchskit": PatchSkitDataset}
 
 
 def collate(samples) -> Dict[str, np.ndarray]:

@@ -113,6 +113,11 @@ class SinSKITModel:
     """Lifecycle as in the reference: setup → set_input → optimize_parameters
     / test → get_current_losses / compute_metrics → save/load_networks."""
 
+    # the gallery's full-canvas D2 logit map after a training step
+    pred_fake_T_full_visual = True
+    # the touch-patch stacks (by prefix) that set_input masks by their object masks
+    masked_stacks = ("", "val_")
+
     def __init__(self, opt):
         lpc = int(opt.lpips_crop)
         if lpc < 0 or (lpc and (lpc % 16 or lpc < 64)):
@@ -158,7 +163,14 @@ class SinSKITModel:
             self.d3_heads: Optional[D3Heads] = None
             self.generator = torch.Generator().manual_seed(int(opt.seed))
         self.clip: Optional[CLIPViT] = None
-        lw, iw = opt.lpips_weights, opt.inception_weights
+        self._pe_cache: Dict = {}
+        self._init_metrics_and_state()
+
+    def _init_metrics_and_state(self) -> None:
+        """The LPIPS and Inception towers of the metrics (``--lpips_weights``
+        and ``--inception_weights`` when given, else the seeded ones) on the
+        device, and the empty per-step state."""
+        lw, iw = self.opt.lpips_weights, self.opt.inception_weights
         self.lpips_net = LPIPS(load_lpips_weights(lw) if lw else init_lpips_params(0)).to(
             self.device)
         self.inception = InceptionBlock0(
@@ -168,7 +180,6 @@ class SinSKITModel:
         self._input: Dict[str, torch.Tensor] = {}
         self._outputs: Dict[str, torch.Tensor] = {}
         self._losses: Dict[str, torch.Tensor] = {}
-        self._pe_cache: Dict = {}
         self.metrics: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
@@ -229,7 +240,8 @@ class SinSKITModel:
     def set_input(self, batch: Dict[str, np.ndarray], phase: str = "train") -> None:
         """Batch of numpy arrays → device tensors; S and I are masked by M, the
         patch stacks fold (N, K, …) → (N·K, …) (coords keep (N, K, 8)) and the
-        tactile patches are masked by their object masks."""
+        tactile patches of :attr:`masked_stacks` are masked by their object
+        masks."""
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                for k, v in batch.items()
                if k not in ("name", "sample_idx") and isinstance(v, np.ndarray)
@@ -241,7 +253,7 @@ class SinSKITModel:
         for key in _PATCH_STACKS:
             if key in dev and dev[key].dim() >= 2:
                 dev[key] = dev[key].reshape((-1,) + tuple(dev[key].shape[2:]))
-        for pre in ("", "val_"):
+        for pre in self.masked_stacks:
             if f"{pre}T_images" in dev:
                 dev[f"{pre}T_images"] = dev[f"{pre}T_images"] * dev[f"{pre}I_masks"]
         self._input = dev
@@ -582,7 +594,7 @@ class SinSKITModel:
         for k in ("aug_real_I", "aug_fake_I", "pred_fake_I"):
             if k in out:
                 vis[k] = host(out[k])
-        if self.isTrain and "D2" in self.model_names:
+        if self.isTrain and "D2" in self.model_names and self.pred_fake_T_full_visual:
             vis["pred_fake_T_full"] = host(self._pred_fake_T_full())
         n_log = int(self.opt.num_touch_patch_for_logging)
         n_b = fake_T.shape[0]

@@ -7,15 +7,26 @@ import torch
 
 from .discriminators import (MultiscaleDiscriminator, NLayerDiscriminator, PatchDiscriminator,
                              PixelDiscriminator)
+from .resnet_gen import ResnetGenerator
 from .unet_custom import CustomUNet
 
+_RESNET_BLOCKS = {"resnet_9blocks": 9, "resnet_6blocks": 6, "resnet_4blocks": 4}
 
-def define_G(opt, input_nc: int, output_nc: int,
-             dtype: torch.dtype = torch.float32) -> CustomUNet:
-    """Generator factory; ``unet256_custom`` only in this port so far.  The
+
+def define_G(opt, input_nc: int, output_nc: int, dtype: torch.dtype = torch.float32):
+    """Generator factory: ``unet256_custom`` (sinskitG, skitG) and
+    ``resnet_{9,6,4}blocks`` (pix2pix); every other name raises.  The
     style-code options default as the reference's factory defaults them
     when the model's parser did not declare them (a sinskit run with
     ``--use_style_code``)."""
+    if opt.netG in _RESNET_BLOCKS:
+        return ResnetGenerator(
+            input_nc, ngf=opt.ngf, out_nc=output_nc, n_blocks=_RESNET_BLOCKS[opt.netG],
+            norm_type=opt.normG, use_dropout=not opt.no_dropout,
+            no_antialias=bool(opt.no_antialias), no_antialias_up=bool(opt.no_antialias_up),
+            t_resolution_multiplier=int(opt.T_resolution_multiplier),
+            generate_T_imgs=bool(getattr(opt, "generate_T_imgs", False)),
+            init_type=opt.init_type, init_gain=opt.init_gain, dtype=dtype)
     if opt.netG != "unet256_custom":
         raise NotImplementedError(f"netG {opt.netG!r} is not ported yet")
     return CustomUNet(

@@ -13,12 +13,16 @@ Layouts: ``Conv4x4`` holds a torch OIHW weight; ``ConvT4x4`` holds the
 (in, out, kh, kw) weight of ``ConvTranspose2d(k=4, s=2, p=1)`` — the
 reference's flax ``ConvTranspose(padding=2)`` kernel spatially flipped and
 io-transposed (:mod:`vts_torch.utils.convert_jax`).
+
+The antialiased resamplers of the ResNet generator (:func:`blur_downsample`,
+:func:`blur_upsample`) are depthwise convs with a fixed binomial filter.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -303,3 +307,66 @@ class Up(nn.Module):
             x = torch.cat([x, skip], dim=-1)
         x = self.convt(torch.relu(x), dtype)
         return torch.tanh(x) if self.outermost else self.norm(x)
+
+
+# ---------------------------------------------------------------------------
+# antialiased resampling (binomial FIR blur), ``vts_tpu/networks/blocks.py``
+# ---------------------------------------------------------------------------
+
+_BINOMIAL = {1: [1.0], 2: [1.0, 1.0], 3: [1.0, 2.0, 1.0], 4: [1.0, 3.0, 3.0, 1.0],
+             5: [1.0, 4.0, 6.0, 4.0, 1.0], 6: [1.0, 5.0, 10.0, 10.0, 5.0, 1.0],
+             7: [1.0, 6.0, 15.0, 20.0, 15.0, 6.0, 1.0]}
+_PAD_MODES = {"reflect": "reflect", "refl": "reflect", "repl": "replicate",
+              "replicate": "replicate", "zero": "constant"}
+
+
+def binomial_filter_2d(filt_size: int) -> np.ndarray:
+    """The outer product of a Pascal row with itself, summed to 1 (float32)."""
+    a = np.asarray(_BINOMIAL[filt_size], dtype=np.float32)
+    f = np.outer(a, a)
+    return f / f.sum()
+
+
+def _pad_nchw(x, pads, mode: str):
+    """Pad an NCHW tensor by ``pads`` = (top, bottom, left, right) in one of
+    the reference's mode names (reflect/refl, repl/replicate, zero)."""
+    pt, pb, pl, pr = pads
+    return F.pad(x, (pl, pr, pt, pb), mode=_PAD_MODES[mode])
+
+
+def _depthwise(filt: np.ndarray, x) -> torch.Tensor:
+    c = x.shape[1]
+    k = torch.as_tensor(filt, device=x.device).to(x.dtype)
+    return k[None, None].expand(c, 1, *filt.shape)
+
+
+def blur_downsample(x, filt_size: int = 3, stride: int = 2, pad_type: str = "reflect",
+                    pad_off: int = 0):
+    """Antialiased downsample of NHWC ``x``: pad (asymmetric (p0, p1) by the
+    filter size, reflect by default), a depthwise binomial filter, stride;
+    ``filt_size`` 1 only strides (after a pad of ``pad_off``)."""
+    h = _to_nchw(x)
+    if filt_size == 1:
+        if pad_off:
+            h = _pad_nchw(h, (pad_off,) * 4, pad_type)
+        return _to_nhwc(h[:, :, ::stride, ::stride])
+    p0 = (filt_size - 1) // 2 + pad_off
+    p1 = int(np.ceil((filt_size - 1) / 2.0)) + pad_off
+    h = _pad_nchw(h, (p0, p1, p0, p1), pad_type)
+    filt = binomial_filter_2d(filt_size)
+    return _to_nhwc(F.conv2d(h, _depthwise(filt, h), stride=stride, groups=h.shape[1]))
+
+
+def blur_upsample(x, filt_size: int = 4, stride: int = 2, pad_type: str = "repl"):
+    """Antialiased upsample of NHWC ``x``: pad 1 (replicate by default), a
+    transposed depthwise binomial filter × stride² at padding 1 + (filt_size
+    − 1) // 2, then crop the first row and column, and the last ones too for
+    an even filter."""
+    h = _pad_nchw(_to_nchw(x), (1, 1, 1, 1), pad_type)
+    filt = binomial_filter_2d(filt_size) * (stride ** 2)
+    y = F.conv_transpose2d(h, _depthwise(filt, h), stride=stride,
+                           padding=1 + (filt_size - 1) // 2, groups=h.shape[1])
+    y = y[:, :, 1:, 1:]
+    if filt_size % 2 == 0:
+        y = y[:, :, :-1, :-1]
+    return _to_nhwc(y)

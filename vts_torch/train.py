@@ -6,9 +6,12 @@ samples (and on each epoch's first batch), the visuals and the HTML gallery
 under ``<checkpoints_dir>/<name>/web/`` every ``--display_freq`` samples
 (none under ``--no_html``), the ``latest`` checkpoint every
 ``--save_latest_freq`` samples; at each epoch's end the
-validation metrics of the epoch's first sample with the reference's best
-vote — save ``best`` when at least half of the non-train metrics improve
-(lower is better for LPIPS, AE, MSE, SIFID; higher for PSNR, SSIM) — the
+validation metrics of the epoch's first sample (for a model trained on
+patches, ``--return_patch``, of the full view of a validation loader built
+once with ``return_patch`` false, ``data_len`` 1 and batch 1) with the
+reference's best vote — save ``best`` when at least half of the non-train
+metrics improve (lower is better for LPIPS, AE, MSE, SIFID; higher for
+PSNR, SSIM) — the
 epoch checkpoints, and the lr schedule (under ``--lr_policy plateau`` the
 sum of the lower-is-better validation metrics drives a
 :class:`~vts_torch.models.base.PlateauTracker`).  With ``--anneal_epoch`` and
@@ -134,6 +137,7 @@ def _train(opt, device, visualizer):
     best_metrics: Dict[str, float] = {}
     plateau = PlateauTracker() if opt.lr_policy == "plateau" else None
     eval_batch = None
+    val_loader = None
     t_start = time.time()
     first = True
     for epoch in range(opt.epoch_count, opt.n_epochs + opt.n_epochs_decay + 1):
@@ -170,8 +174,17 @@ def _train(opt, device, visualizer):
                 model.save_networks("latest")
             t_data_mark = time.time()
 
-        if opt.val_for_each_epoch and eval_batch is not None:
-            model.set_input(eval_batch)
+        if opt.val_for_each_epoch and (eval_batch is not None
+                                       or getattr(opt, "return_patch", False)):
+            if getattr(opt, "return_patch", False):
+                # a model trained on patches validates on the full view
+                if val_loader is None:
+                    val_opt = copy.copy(opt)
+                    val_opt.return_patch, val_opt.data_len, val_opt.batch_size = False, 1, 1
+                    val_loader = create_dataset(val_opt)
+                model.set_input(next(iter(val_loader)), phase="val")
+            else:
+                model.set_input(eval_batch)
             model.test()
             t_eval = time.time()
             metrics = model.compute_metrics()
@@ -202,6 +215,8 @@ def _train(opt, device, visualizer):
         print(f"End of epoch {epoch} / {opt.n_epochs + opt.n_epochs_decay} \t "
               f"Time Taken: {epoch_time:.0f} sec")
         model.update_learning_rate(epoch)
+        if hasattr(model, "update_fixed_params"):
+            model.update_fixed_params(epoch)
     print(f"Training finished in {time.time() - t_start:.0f} s")
     return model
 

@@ -112,6 +112,56 @@ def torch_to_unet_stats(state_dict: Dict[str, torch.Tensor]) -> Dict:
     return stats
 
 
+# ------------------------------------------------------- ResNet generator ---
+# The port's ResnetGenerator names its submodules as flax does, so a key is
+# the flax tree path, dot-joined:
+#   Conv_i.weight|bias, ResnetBlock_b.Conv_{0,1}.weight  ↔ params[...][kernel|bias]
+#   ConvTranspose_i.weight|bias                          ↔ the flax ConvTranspose
+#   BatchNorm_i.scale|bias (ResnetBlock_b.BatchNorm_j.·) ↔ params[...][scale|bias]
+#   BatchNorm_i.mean|var                                 ↔ batch_stats[...][mean|var]
+
+def resnet_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """flax ``ResnetGenerator`` params → :class:`vts_torch.networks.resnet_gen.ResnetGenerator`
+    state-dict entries (every leaf of the tree: params, or Adam moments in
+    the params' layout)."""
+    sd = OrderedDict()
+    for path, v in _leaves(params):
+        key = ".".join(path[:-1])
+        if path[-1] == "kernel":
+            sd[key + ".weight"] = (_convt_to_torch if path[-2].startswith("ConvTranspose")
+                                   else _conv_to_torch)(v)
+        elif path[-2].startswith("BatchNorm"):
+            sd[".".join(path)] = _t(v)
+        else:
+            sd[key + ".bias"] = _t(v)
+    return sd
+
+
+def resnet_stats_to_torch(stats: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """A batch-norm ResnetGenerator's flax ``batch_stats`` → its running
+    ``mean``/``var`` buffers."""
+    return OrderedDict((".".join(path), _t(v)) for path, v in _leaves(stats))
+
+
+def torch_to_resnet_params(state_dict: Dict[str, torch.Tensor]):
+    """Inverse of :func:`resnet_params_to_torch` and
+    :func:`resnet_stats_to_torch` → (flax params, flax batch_stats)."""
+    params: Dict = {}
+    stats: Dict = {}
+    for key, t in state_dict.items():
+        path = tuple(key.split("."))
+        module, leaf = path[-2], path[-1]
+        if module.startswith("BatchNorm"):
+            _set(stats if leaf in ("mean", "var") else params, path, _np(t).copy())
+        elif leaf == "weight":
+            _set(params, path[:-1] + ("kernel",),
+                 (_convt_from_torch if module.startswith("ConvTranspose")
+                  else _conv_from_torch)(t))
+        else:
+            _set(params, path, _np(t).copy())
+    return params, stats
+
+
 # ---------------------------------------------------------------- LPIPS ---
 
 def lpips_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":

@@ -10,8 +10,9 @@ else the seeded init stays), runs one warm-up sample, then one sample under
 training model and the first batch from the ``vts_torch.train`` flags, runs
 two warm-up steps, then one training step (losses fetched to the host)
 under the profiler, at ``--vision_aided_warmup_epoch`` (D3 active, as in
-every epoch from there on) when the run's epochs reach it and
-``--use_vision_aided_loss`` is on, else at ``--epoch_count``; the training
+every epoch from there on) when the run's epochs reach it and the model
+has D3 (``--use_vision_aided_loss``; pix2pix has none), else at
+``--epoch_count``; the training
 flags pass through as given, so the production lane's ``--dtype bfloat16
 --batch_size 4 --lpips_crop 768`` profiles that lane's step.  Prints, as
 one JSON line: the wall time, the device-busy time (the union of the CUDA
@@ -107,8 +108,7 @@ def profile_train_step(argv, trace_path: str = None) -> dict:
     model.set_input(batch)
 
     epoch = opt.epoch_count
-    d3 = opt.use_vision_aided_loss and opt.vision_aided_warmup_epoch <= \
-        opt.n_epochs + opt.n_epochs_decay
+    d3 = model.use_d3 and opt.vision_aided_warmup_epoch <= opt.n_epochs + opt.n_epochs_decay
     if d3:
         epoch = max(epoch, opt.vision_aided_warmup_epoch)
 
