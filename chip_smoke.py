@@ -133,6 +133,30 @@ Phases, each of which must pass or the script exits non-zero:
      D and D2 within 1e-5, and G's 256² eval forward within 1e-4 of its max;
      the launcher's ``pix2pix launch --mode process`` child on phase 4f's
      on-disk garment (1 epoch) on the card;
+  4h. the pix2pixHD baseline (:func:`pix2pixhd_baseline`): ``vts_torch.train
+     --model pix2pixHD --dataset_mode patchskit`` on the 1800² garment at the
+     shipped training defaults (the instance-norm global G with ngf 64, 4
+     downsamplings and 9 blocks; two 2-scale multiscale Ds with intermediate
+     features, ndf 64; lsgan, GAN-feat·10, VGG19·10; batch 32 of 32²
+     patches), cut in length only: 2 epochs of the view's 64 touch squares
+     (4 steps), the full-image validation after each; every loss finite,
+     G_GAN_Feat 0 (the reference's term), G_VGG finite and > 0, the G, D
+     and D2 checkpoints with their Adam files, K1 and K2 launched by the
+     validations and K1 dx and K2 bwd not at all; its best G through
+     ``vts_torch.test --model pix2pixHD`` on the 1536² canvas (K = 64): 8
+     finite metrics, K1 and K2 launched as ``PER_SAMPLE`` says, no
+     patch_offsets call on the host, the gallery and the raw gx/gy npz, and
+     the shapes K1 and K2 launched at against a pix2pix test sample's (the
+     same: phase 5 reuses pix2pix's rows; else these shapes are checked
+     against the plain version here and timed in phase 5); a 32² step at
+     batch 4 (ngf/ndf 8, 2 downsamplings, 2 blocks, the VGG loss,
+     ``--correct_gan_feat true``, a pool of 2 with fixed draws) on cuda and
+     on cpu from the same weights, held as the x2 step of 4c is (G meets the
+     VGG19 loss's fp32 max-pool near-ties) with the round-off leaves found
+     from the CPU gradient, and the pool within 1e-5; G's 256²
+     eval forward from the same weights within 1e-4 of its max; the launcher's ``pix2pixhd launch
+     --mode process`` child on phase 4f's on-disk garment (1 epoch) on the
+     card;
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
@@ -163,7 +187,9 @@ Phases, each of which must pass or the script exits non-zero:
      full-width pix2pix step (median of 5 after 2 warm-ups, samples/s, peak
      memory), one full-canvas pix2pix test sample (median of 3 after 1, its
      G forward and launches) and one traced pix2pix step in a process of its
-     own (``vts_torch.utils.profiler --phase train``: the idle share).
+     own (``vts_torch.utils.profiler --phase train``: the idle share); the
+     same three for pix2pixHD, the traced step's process also profiling
+     the step's VGG19 loss alone (its device time).
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel and
 path: an ``eval`` row covers one test sample (its launches are the test
@@ -172,9 +198,11 @@ training step (its launches are those of a timed D3-active step, counted
 from 0), a ``train_bf16`` row one step of the production lane before its
 anneal (likewise), a ``train_tmult2`` row one D3-active x2 step, an
 ``eval_legacy`` row one skitG test sample under --eval_mode legacy (its
-launches counted in that sample) and an ``eval_pix2pix`` row one pix2pix
+launches counted in that sample), an ``eval_pix2pix`` row one pix2pix
 test sample (K = 64 test patches; the test run's launches less the
-gallery's); ``ms``, ``plain_ms``,
+gallery's) and an ``eval_pix2pixhd`` row one pix2pixHD test sample
+(likewise; its times are the ``eval_pix2pix`` row's when phase 4h found the
+same shapes); ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` sum the per-shape times over those launches,
 and ``max_abs_err`` is the worst of the checks at that path's shapes.  The
 last line is ``{"ok": true, "device": {...}}``.  Nothing is printed as a result unless
@@ -783,6 +811,39 @@ class CountPatchOffsets:
         self.k2.patch_offsets = self.real
 
 
+class RecordShapes:
+    """While entered: the shapes K1 launches at, (N, H, W, C, Co), and those
+    K2 launches at, (the images' shapes, N, K, cut), each sorted: two runs
+    whose lists are equal launched the kernels at the same shapes."""
+
+    def __enter__(self):
+        from vts_torch.ops import conv3x3 as k1
+        from vts_torch.ops import patch as k2
+        self.mods = ((k1, "_forward"), (k2, "_gather_group"))
+        self.real = [getattr(m, a) for m, a in self.mods]
+        self.k1, self.k2 = [], []
+        fwd, group = self.real
+
+        def k1_fwd(x, w, b, relu):
+            if x.is_cuda:
+                self.k1.append(tuple(x.shape) + (w.shape[-1],))
+            return fwd(x, w, b, relu)
+
+        def k2_group(images, win, cutout, mode):
+            if images[0].is_cuda:
+                self.k2.append((tuple(tuple(im.shape) for im in images), win.n, win.k, cutout))
+            return group(images, win, cutout, mode)
+        k1._forward, k2._gather_group = k1_fwd, k2_group
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a), real in zip(self.mods, self.real):
+            setattr(m, a, real)
+
+    def shapes(self):
+        return sorted(self.k1), sorted(self.k2)
+
+
 # ------------------------------------------------------------------ 4f ---
 # the edit → render workflow: two on-disk garments and their edited sketches
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1076,6 +1137,27 @@ def patch_batch(b, seed=0):
             "I_masks": np.ones((b, 1, 32, 32, 1), np.float32)}
 
 
+def k1_eval_rows(spec, what, seed):
+    """K1 against its plain version at each (N, H, W, C, Co, per sample) of
+    ``spec``, within 1e-4·max|ref| + 1e-5: the rows phase 5 times."""
+    from vts_torch.ops import conv3x3 as k1
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    rows = []
+    for (n, h, w, c, co, per) in spec:
+        x = torch.relu(torch.randn(n, h, w, c, generator=gen)).cuda()
+        wt = (torch.randn(3, 3, c, co, generator=gen) * math.sqrt(2.0 / (9 * c))).cuda()
+        b = (torch.randn(co, generator=gen) * 0.1).cuda()
+        got, ref = k1.conv3x3_bias_relu(x, wt, b), k1.conv3x3_bias_relu_plain(x, wt, b)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item() + 1e-5
+        print(f"[K1 {what} check] {(n, h, w, c)}->{co}: max|d| {err:.3e} (tol {tol:.3e})")
+        check(err <= tol, f"K1 disagrees with its plain version at {(n, h, w, c, co)}")
+        rows.append(dict(shape=[n, h, w, c, co], per_sample=per, err=err, tensors=(x, wt, b)))
+        del got, ref
+    return rows
+
+
 def pix2pix_baseline(tmp, dirs, wf_data, run_train, run_test):
     """Phase 4g: ``vts_torch.train --model pix2pix`` at the full-width
     defaults (:data:`P2P_TRAIN`), its best G through ``vts_torch.test`` on
@@ -1123,9 +1205,10 @@ def pix2pix_baseline(tmp, dirs, wf_data, run_train, run_test):
 
     # its best G on the full canvas through the test driver
     reset_counts()
-    with CountPatchOffsets() as host_offsets, Gallery() as gallery:
+    with CountPatchOffsets() as host_offsets, Gallery() as gallery, RecordShapes() as shapes:
         metrics = run_test(P2P_TEST + dirs)[0]
     torch.cuda.synchronize()
+    out["shapes"] = shapes.shapes()
     out["run_launches"] = read_counts()
     out["sample_launches"] = {k: v - gallery.launches[k] for k, v in out["run_launches"].items()}
     print(f"[pix2pix test] {CANVAS}² canvas, K {K_P2P}: " +
@@ -1146,21 +1229,9 @@ def pix2pix_baseline(tmp, dirs, wf_data, run_train, run_test):
           f"the pix2pix test gallery: {sorted(written)}")
 
     # K1 at the pix2pix eval shapes against its plain version
-    gen = torch.Generator(device="cpu").manual_seed(12)
-    out["k1_rows"] = []
-    for (n, h, w, c, co, per) in K1_P2P:
-        x = torch.relu(torch.randn(n, h, w, c, generator=gen)).cuda()
-        wt = (torch.randn(3, 3, c, co, generator=gen) * math.sqrt(2.0 / (9 * c))).cuda()
-        b = (torch.randn(co, generator=gen) * 0.1).cuda()
-        got, ref = k1.conv3x3_bias_relu(x, wt, b), k1.conv3x3_bias_relu_plain(x, wt, b)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        tol = 1e-4 * ref.abs().max().item() + 1e-5
-        print(f"[K1 pix2pix check] {(n, h, w, c)}->{co}: max|d| {err:.3e} (tol {tol:.3e})")
-        check(err <= tol, f"K1 disagrees with its plain version at {(n, h, w, c, co)}")
-        out["k1_rows"].append(dict(shape=[n, h, w, c, co], per_sample=per, err=err,
-                                   tensors=(x, wt, b)))
-        del got, ref
+    check(out["shapes"][0] == sorted(tuple(r[:5]) for r in K1_P2P for _ in range(r[5])),
+          f"a pix2pix test sample launched K1 at {out['shapes'][0]}, not at K1_P2P's shapes")
+    out["k1_rows"] = k1_eval_rows(K1_P2P, "pix2pix", seed=12)
 
     # a 32² step (batch 4, ngf/ndf 8) on cuda and on cpu from the same weights
     small = ["--model", "pix2pix", "--name", "p2p_small", "--dataroot", SMALL_DATA,
@@ -1208,6 +1279,239 @@ def pix2pix_baseline(tmp, dirs, wf_data, run_train, run_test):
                                       "latest_net_G.msgpack")),
           "the launcher's pix2pix child wrote no checkpoint")
     return out
+
+
+# ------------------------------------------------------------------ 4h ---
+# pix2pixHD at its shipped training defaults (the instance-norm global G:
+# ngf 64, 4 downsamplings, 9 blocks; two 2-scale multiscale Ds with
+# intermediate features, ndf 64; lsgan, GAN-feat·10 and VGG19·10; batch 32
+# of 32² patches from the 1536² view), cut in length only: 2 epochs of the
+# view's 64 touch squares (4 steps), the full-image validation after each
+HD_TRAIN = ["--model", "pix2pixHD", "--dataset_mode", "patchskit", "--name", "p2phd",
+            "--dataroot", P2P_DATA, "--device", "cuda", "--n_epochs", "2",
+            "--n_epochs_decay", "0", "--val_for_each_epoch", "true"]
+HD_TEST = ["--model", "pix2pixHD", "--name", "p2phd", "--epoch", "best", "--dataroot", P2P_DATA,
+           "--device", "cuda"]
+HD_LOSSES = {"D_fake", "D_real", "D2_fake", "D2_real", "G_GAN", "G_GAN_Feat", "G_VGG",
+             "G_total"}
+
+
+def pix2pixhd_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
+    """Phase 4h: ``vts_torch.train --model pix2pixHD`` at the full-width
+    defaults (:data:`HD_TRAIN`), its best G through ``vts_torch.test`` on the
+    1536² canvas (the kernels' shapes there against pix2pix's test sample's,
+    ``p2p_shapes``), a 32² step (batch 4, ngf/ndf 8, 2 downsamplings, 2
+    blocks, the VGG loss, the corrected GAN-feat term, a pool of 2 with
+    fixed draws) and a 256² eval forward on cuda against cpu, and the
+    launcher's pix2pixhd child on the on-disk garment of phase 4f.  What
+    phase 5 needs of it."""
+    import numpy as np
+
+    from vts_torch.config import TrainOptions
+    from vts_torch.models import create_model
+
+    out = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    model = run_train(HD_TRAIN + dirs)
+    torch.cuda.synchronize()
+    run = read_counts()
+    losses = model.get_current_losses()
+    steps = model.adam["G"].count
+    print(f"[pix2pixhd] {steps} steps of batch 32 over 2 epochs + 2 full-image validations in "
+          f"{time.time() - t0:.2f} s (first run, incl. data and model set-up); G "
+          f"{sum(p.numel() for p in model.netG.parameters()) / 1e6:.3f} M params, D "
+          f"{sum(p.numel() for p in model.netD.parameters()) / 1e6:.3f} M; last losses: "
+          + " ".join(f"{k}={v:.6g}" for k, v in losses.items()))
+    print(f"[pix2pixhd] launches during the training run: {run}")
+    check(set(losses) == HD_LOSSES and all(math.isfinite(v) for v in losses.values()),
+          f"a pix2pixHD training loss is missing or not finite: {losses}")
+    check(losses["G_GAN_Feat"] == 0.0 and losses["G_VGG"] > 0,
+          f"pix2pixHD: G_GAN_Feat {losses['G_GAN_Feat']} (the reference's term is 0), G_VGG "
+          f"{losses['G_VGG']} (> 0)")
+    check(steps == 4, f"the pix2pixHD run took {steps} steps, not 4")
+    check(run["conv3x3_bias_relu"] > 0 and run["gather_patches"] > 0
+          and run["conv3x3_dx"] == 0 and run["scatter_patches"] == 0,
+          f"the pix2pixHD run (GAN, GAN-feat and VGG19 on cuDNN; the metrics in its "
+          f"validations) launched {run}")
+    ck = os.path.join(tmp, "ckpt", "p2phd")
+    missing = [f"{tag}_{kind}_{net}.msgpack" for tag in ("best", "latest")
+               for net in ("G", "D", "D2") for kind in ("net", "opt")
+               if not os.path.exists(os.path.join(ck, f"{tag}_{kind}_{net}.msgpack"))]
+    check(not missing, f"pix2pixHD checkpoints not written: {missing}")
+    out["train_model"] = model
+
+    # its best G on the full canvas through the test driver
+    reset_counts()
+    with CountPatchOffsets() as host_offsets, Gallery() as gallery, RecordShapes() as shapes:
+        metrics = run_test(HD_TEST + dirs)[0]
+    torch.cuda.synchronize()
+    out["run_launches"] = read_counts()
+    out["sample_launches"] = {k: v - gallery.launches[k] for k, v in out["run_launches"].items()}
+    print(f"[pix2pixhd test] {CANVAS}² canvas, K {K_P2P}: " +
+          " ".join(f"{k}={v:.6g}" for k, v in sorted(metrics.items())))
+    print(f"[pix2pixhd test] launches during the test run: {out['run_launches']}; the "
+          f"sample's, without the gallery: {out['sample_launches']}")
+    check(len(metrics) == 8 and all(math.isfinite(v) for v in metrics.values()),
+          f"pix2pixHD test: expected 8 finite metrics, got {metrics}")
+    check(out["sample_launches"] == PER_SAMPLE,
+          f"a pix2pixHD test sample launched {out['sample_launches']}, not {PER_SAMPLE}")
+    check(host_offsets.calls == 0, f"the pix2pixHD test called patch_offsets "
+                                   f"{host_offsets.calls} times on the host")
+    web = os.path.join(tmp, "res", "p2phd", "test_best")
+    written = os.listdir(os.path.join(web, "images"))
+    check(os.path.exists(os.path.join(web, "index.html"))
+          and any(f.endswith("_fake_gxgy_raw.npz") for f in written),
+          f"the pix2pixHD test gallery: {sorted(written)}")
+    # the kernels' shapes: pix2pix's rows are reused when they are the same,
+    # else these are checked here and timed in phase 5
+    k1_shapes, k2_shapes = shapes.shapes()
+    out["same_shapes"] = (k1_shapes, k2_shapes) == p2p_shapes
+    print(f"[pix2pixhd test] K1 and K2 at the shapes of a pix2pix test sample: "
+          f"{out['same_shapes']} (K1 {sorted(set(k1_shapes))}, K2 {k2_shapes})")
+    out["k1_rows"] = [] if out["same_shapes"] else k1_eval_rows(
+        [r + (k1_shapes.count(r),) for r in sorted(set(k1_shapes))], "pix2pixhd", seed=13)
+    out["k2_k"] = max(k for _, _, k, _ in k2_shapes)      # the sample's (the gallery cuts 10)
+
+    # a 32² step (batch 4, ngf/ndf 8) on cuda and on cpu from the same weights
+    small = ["--model", "pix2pixHD", "--name", "p2phd_small", "--dataroot", SMALL_DATA,
+             "--crop_size", "256", "--center_w", "192", "--center_h", "128", "--ngf", "8",
+             "--ndf", "8", "--batch_size", "4", "--n_downsample_global", "2",
+             "--n_blocks_global", "2", "--correct_gan_feat", "true", "--pool_size", "2",
+             "--no_html"] + dirs
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    pair = {}
+    for key in ("cpu", "cuda"):
+        pair[key] = create_model(TrainOptions().parse(small + ["--device", key], quiet=True))
+        pair[key].setup()
+    draws = pair["cpu"].draw(4)
+    for key in ("cpu", "cuda"):
+        pair[key].set_input(patch_batch(4))
+        pair[key].optimize_parameters(1, draws=draws)
+    # G meets the VGG19 loss, whose fp32 max-pool, ReLU and |·| near-ties
+    # settle differently on cuda and cpu: the x2 rule (see compare_steps)
+    compare_steps("32² pix2pixHD step (VGG, corrected GAN-feat, pool)", pair["cpu"],
+                  pair["cuda"], g_scale=4.0, named=False)
+    (buf_c, n_c), (buf_g, n_g) = pair["cpu"]._pool, pair["cuda"]._pool
+    err = (buf_g.cpu() - buf_c).abs().max().item() / buf_c.abs().max().item()
+    print(f"[pix2pixhd ref] 32² step, the pool (count {n_g} / {n_c}) cuda vs cpu: "
+          f"max|d|/max|ref| {err:.3e}")
+    check(n_c == n_g == 2 and err <= 1e-5, "the pix2pixHD pool on cuda disagrees with cpu")
+    # the eval forward from the same weights: after the step they differ where
+    # Adam's first step, lr·g/(|g| + 1e-8), turned a near-zero gradient's
+    # round-off into a ±lr move, which the instance norms of an ngf-8 G
+    # carry to ~1e-2 of its output (measured on an H100)
+    pair["cuda"].netG.load_state_dict(pair["cpu"].netG.state_dict())
+    x = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, (1, 256, 256, 1))
+                         .astype(np.float32))
+    with torch.no_grad():
+        ref, got = (pair[k]._forward_eval(x.to(pair[k].device), torch.ones_like(x[..., :1])
+                                          .to(pair[k].device)) for k in ("cpu", "cuda"))
+    err = max((g.cpu() - r).abs().max().item() / r.abs().max().item() for g, r in zip(got, ref))
+    print(f"[pix2pixhd ref] 256² eval forward cuda vs cpu from the same weights: max|d|/max|ref| "
+          f"{err:.3e}")
+    check(err <= 1e-4, "the pix2pixHD eval forward on cuda disagrees with cpu")
+    torch.backends.cudnn.deterministic = cudnn_det
+    del pair
+
+    # the launcher's pix2pixhd child on the on-disk garment of phase 4f, 1 epoch
+    root = os.path.join(wf_data, f"singleskit_{{material}}_padded_{PADDED}_x1")
+    out["launch_s"] = launcher(
+        ["pix2pixhd", "launch", "--mode", "process", "--materials", "synthA",
+         "--dataroot-template", root, "--checkpoints_dir", os.path.join(tmp, "hd_ckpt"),
+         "--results_dir", os.path.join(tmp, "hd_res"), "--", "--n_epochs", "1",
+         "--n_epochs_decay", "0", "--no_html"],
+        os.path.join(tmp, "wf_logs", "launch_pix2pixhd.log"), "cuda", 1)
+    check(os.path.exists(os.path.join(tmp, "hd_ckpt", "synthA_pix2pixHD_baseline",
+                                      "latest_net_G.msgpack")),
+          "the launcher's pix2pixhd child wrote no checkpoint")
+    return out
+
+
+def pix2pixhd_times(hd, dirs, smi):
+    """Phase 5's pix2pixHD times: one untraced full-width training step
+    (median of 5 after 2 warm-ups, samples/s, peak memory), one full-canvas
+    test sample (median of 3 after 1, its G forward and launches), and one
+    traced step in a process of its own (the idle share) with the step's
+    VGG19 loss profiled alone on its outputs (its device time)."""
+    from vts_torch.config import TestOptions, TrainOptions
+    from vts_torch.data import create_dataset
+    from vts_torch.models import create_model
+
+    model = hd.pop("train_model")
+    batch = next(iter(create_dataset(TrainOptions().parse(HD_TRAIN + dirs, quiet=True))))
+    model.set_input(batch)
+    walls, peaks = [], []
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    for i in range(7):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model.optimize_parameters(1)
+        model.get_current_losses()
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    hd_wall = statistics.median(walls)
+    print(f"[time pix2pixhd step] {smi}: one full-width pix2pixHD training step (batch 32 of "
+          f"32² patches, ngf/ndf 64, the instance-norm global G with 4 downsamplings and 9 "
+          f"blocks, two 2-scale Ds, lsgan + GAN-feat + VGG19): {hd_wall:.1f} ms wall, median "
+          f"of {len(walls)} ({', '.join(f'{w:.1f}' for w in walls)}); {32e3 / hd_wall:.1f} "
+          f"samples/s; peak memory {max(peaks):.2f} GiB, of which {held:.2f} GiB was held by "
+          f"this process before the step")
+    del model, batch
+    torch.cuda.empty_cache()
+    topt = TestOptions().parse(HD_TEST + dirs, quiet=True)
+    batch = next(iter(create_dataset(topt)))
+    model = create_model(topt)
+    model.setup()
+    model.load_networks("best")
+    model.set_input(batch)
+    walls, g_ms = [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        if i == 1:
+            reset_counts()
+        t0 = time.perf_counter()
+        model.test()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.compute_metrics()
+        torch.cuda.synchronize()
+        if i == 1:
+            hd_one = read_counts()
+        if i:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            g_ms.append((t1 - t0) * 1e3)
+    print(f"[time pix2pixhd sample] {smi}: one {CANVAS}² pix2pixHD test sample (K {K_P2P}): "
+          f"{statistics.median(walls):.1f} ms wall (G forward {statistics.median(g_ms):.1f} "
+          f"ms), median of {len(walls)} ({', '.join(f'{w:.1f}' for w in walls)}); G forward "
+          f"alone {', '.join(f'{w:.1f}' for w in g_ms)} ms; launches {hd_one}")
+    check(hd_one == PER_SAMPLE, f"a pix2pixHD test sample launched {hd_one}, not {PER_SAMPLE}")
+    del model, batch
+    torch.cuda.empty_cache()
+    prof = subprocess.run([sys.executable, "-m", "vts_torch.utils.profiler", "--phase", "train",
+                           *HD_TRAIN, *dirs], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    check(prof.returncode == 0, f"the traced pix2pixHD step failed:\n{prof.stderr[-3000:]}")
+    rec = json.loads(prof.stdout.strip().splitlines()[-1])
+    vgg = rec["vgg19"]
+    print(f"[time pix2pixhd traced] {smi}: one traced full-width pix2pixHD step in a fresh "
+          f"process (vts_torch.utils.profiler --phase train): wall {rec['wall_ms']:.1f} ms, "
+          f"device busy {rec['device_busy_ms']:.1f} ms, idle share "
+          f"{rec['device_idle_share']:.3f}, peak memory {rec['peak_memory_gib']:.2f} GiB; top "
+          f"kernels: " + "; ".join(f"{k['name'][:60]} {k['ms']:.2f} ms"
+                                   for k in rec["kernels_ms"][:8]))
+    print(f"[time pix2pixhd vgg19] {smi}: the step's VGG19 loss alone on its outputs (fake_I, "
+          f"gx and gy tiled to 3 channels, one pass of 96 32² images each for x and y, the "
+          f"backward to the inputs; profiled after the step): wall {vgg['wall_ms']:.2f} ms, "
+          f"device busy {vgg['device_busy_ms']:.2f} ms "
+          f"({vgg['device_busy_ms'] / rec['device_busy_ms']:.3f} of the step's); top kernels: "
+          + "; ".join(
+              f"{k['name'][:60]} {k['ms']:.3f} ms" for k in vgg["kernels_ms"][:6]))
 
 
 def main() -> int:
@@ -2103,6 +2407,14 @@ def main() -> int:
     p2p_s = time.time() - t0
     print(f"[pix2pix] phase 4g took {p2p_s:.1f} s")
 
+    # --------------------------------------------------------------- 4h ---
+    print(f"[phase] phase 4h (the pix2pixHD baseline) from {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    hd = pix2pixhd_baseline(tmp, dirs, workflow["data"], run_train, run_test, p2p["shapes"])
+    hd_s = time.time() - t0
+    print(f"[pix2pixhd] phase 4h took {hd_s:.1f} s")
+
     # ---------------------------------------------------------------- 5 ---
     print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s; the card: {card_state()} "
           f"(SM clock, power, temperature)")
@@ -2179,8 +2491,10 @@ def main() -> int:
     time_k1_eval(k1_rows, "eval")
     # the legacy evaluation of garment A's skitG test sample (--eval_mode legacy)
     time_k1_eval(legacy_rows, "eval_legacy")
-    # a pix2pix test sample (K = 64 test patches)
+    # a pix2pix test sample (K = 64 test patches); a pix2pixHD one's rows are
+    # pix2pix's where its shapes are the same (phase 4h checks), else its own
     time_k1_eval(p2p["k1_rows"], "eval_pix2pix")
+    time_k1_eval(hd["k1_rows"], "eval_pix2pixhd")
 
     def time_k1_train(rows, path, peak, tag):
         """K1 and K1 dx at each training shape of ``rows``, in the rows'
@@ -2291,6 +2605,11 @@ def main() -> int:
                 dict(coords=coords[:1, :K_P2P].contiguous()),
                 k2.patch_offsets(coords[0, :K_P2P])[:2],
                 f"fake_T at pix2pix's {K_P2P} test patches")
+    if not hd["same_shapes"]:
+        time_gather("eval_pix2pixhd", PER_SAMPLE["gather_patches"], (img2[:1],),
+                    dict(coords=coords[:1, :hd["k2_k"]].contiguous()),
+                    k2.patch_offsets(coords[0, :hd["k2_k"]])[:2],
+                    f"fake_T at pix2pixHD's {hd['k2_k']} test patches")
     for row in k2_train:
         time_gather("train", 1, row["images"], row["kw"], row["offsets"],
                     f"group {row['group']}")
@@ -2684,6 +3003,8 @@ def main() -> int:
           f"{rec['device_busy_ms']:.1f} ms, idle share {rec['device_idle_share']:.3f}, peak "
           f"memory {rec['peak_memory_gib']:.2f} GiB; top kernels: "
           + "; ".join(f"{k['name'][:60]} {k['ms']:.2f} ms" for k in rec["kernels_ms"][:6]))
+    print(f"[phase] pix2pixhd walls from {time.time() - t_start:.1f} s")
+    pix2pixhd_times(hd, dirs, smi)
     # device-only times of every kernel, and of their library calls
     print(f"[phase] device-only times from {time.time() - t_start:.1f} s")
     print(f"[device-only] the card: {card_state()} (SM clock, power, temperature)")
@@ -2711,6 +3032,10 @@ def main() -> int:
         print(line.format(dev=fmt_dev(dev_t), lib_dev=fmt_dev(lib_t)))
     print(f"[device-only] {len(over)} calls whose kernels' device time exceeds their events' "
           f"in the same session: {over}")
+    if hd["same_shapes"]:
+        # a pix2pixHD test sample launches K1 and K2 at a pix2pix one's shapes
+        for kname in ("conv3x3_bias_relu", "gather_patches"):
+            rows[(kname, "eval_pix2pixhd")] = dict(rows[(kname, "eval_pix2pix")])
 
     sources = {"conv3x3_bias_relu": ("vts_torch/csrc/conv3x3.cu",
                                      "vts_tpu/ops/pallas_conv.py:42"),
@@ -2723,10 +3048,11 @@ def main() -> int:
     kernels = []
     per_path = {"eval": test_launches, "train": step_launches, "train_bf16": lane_step_launches,
                 "train_tmult2": x2_step_launches, "eval_legacy": skit_sample["legacy"],
-                "eval_pix2pix": p2p["sample_launches"]}
+                "eval_pix2pix": p2p["sample_launches"],
+                "eval_pix2pixhd": hd["sample_launches"]}
     in_run = {"eval": run_launches, "train": train_launches, "train_bf16": lane_run_launches,
               "train_tmult2": x2_run_launches, "eval_legacy": legacy_run_launches,
-              "eval_pix2pix": p2p["run_launches"]}
+              "eval_pix2pix": p2p["run_launches"], "eval_pix2pixhd": hd["run_launches"]}
     for (kname, path), acc in rows.items():
         launches = per_path[path][kname]
         check(launches == acc["per"], f"{kname} ({path}): {launches} launches, timed {acc['per']}")
@@ -2753,7 +3079,7 @@ def main() -> int:
                             launches_in_run=in_run[path][kname]))
     print(f"[shapes] {json.dumps(shape_rows)}")
     print(f"[done] chip_smoke took {time.time() - t_start:.1f} s (phase 4f: {workflow_s:.1f} s, "
-          f"phase 4g: {p2p_s:.1f} s)")
+          f"phase 4g: {p2p_s:.1f} s, phase 4h: {hd_s:.1f} s)")
     tmp_dir.cleanup()
 
     print(smi)

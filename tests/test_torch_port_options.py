@@ -142,6 +142,42 @@ def test_pix2pix_defaults_match_the_reference(phase, tmp_path):
         ("resnet_9blocks", 64, "patchskit", phase == "train", 32 if phase == "train" else 1)
 
 
+@pytest.mark.parametrize("phase", ["train", "test"])
+def test_every_reference_pix2pixhd_option_parses_or_is_refused_by_name(phase, tmp_path):
+    """``--model pix2pixHD``'s parsers: pix2pix's flags and pix2pixHD's (the
+    depths, the losses, the schedule, the VGG weights and the flags the
+    reference reads nowhere); a netG other than the patch baselines' is
+    refused."""
+    _walk(phase, tmp_path, ("--model", "pix2pixHD"), min_tried=130)
+
+
+@pytest.mark.parametrize("phase", ["train", "test"])
+def test_pix2pixhd_defaults_match_the_reference(phase, tmp_path):
+    """``--model pix2pixhd``: every flag of the reference's pix2pixHD parser
+    of each phase has the reference's default (pix2pix's, then pix2pixHD's
+    own); the port adds only ``--device`` and the sinskit flags, which the
+    step does not read."""
+    from vts_torch.config import options as o
+    jp = _jax_parser(phase, tmp_path, ("--model", "pix2pixhd"))
+    ref = {a.dest: jp.get_default(a.dest) for a in jp._actions
+           if a.option_strings and a.dest != "help"}
+    parser = (o._train_parser if phase == "train" else o._test_parser)()
+    o._pix2pixhd_model_flags(parser, phase == "train")
+    port = {a.dest: parser.get_default(a.dest) for a in parser._actions
+            if a.option_strings and a.dest != "help"}
+    assert {k: (v, port.get(k)) for k, v in ref.items() if port.get(k, "missing") != v} == {}
+    sinskit = {a.dest for a in _jax_parser(phase, tmp_path)._actions if a.option_strings}
+    assert set(port) - set(ref) <= sinskit | {"device", "use_style_code"}
+    opt = _port(phase).parse(["--model", "pix2pixHD", "--checkpoints_dir", str(tmp_path),
+                              "--device", "cpu"], quiet=True)
+    assert (opt.netG, opt.netD, opt.normG, opt.n_downsample_global, opt.n_blocks_global,
+            opt.num_D_D1, opt.num_D_D2, opt.getIntermFeat_D, opt.lambda_vgg, opt.gan_mode) \
+        == ("global", "multiscale", "instance", 4, 9, 2, 2, True, 10.0, "lsgan")
+    assert (opt.return_patch, opt.batch_size) == ((True, 32) if phase == "train" else (False, 1))
+    if phase == "train":
+        assert (opt.n_epochs, opt.n_epochs_decay, opt.pool_size) == (50, 150, 0)
+
+
 # Settings that parse and build their model, and the refusals that stand
 PORTED = [["--T_resolution_multiplier", "2"], ["--T_resolution_multiplier", "4"],
           ["--gan_mode", "wgan"], ["--gan_mode", "wgangp"], ["--gan_mode", "hinge"],
@@ -153,10 +189,10 @@ PORTED = [["--T_resolution_multiplier", "2"], ["--T_resolution_multiplier", "4"]
           ["--no_dropout", "false"], ["--preprocess", "zoom_and_crop"],
           ["--use_style_code", "true"], ["--model", "skit"], ["--eval_mode", "legacy"],
           ["--dataset_mode", "skit"], ["--display_id", "1", "--display_port", "0"],
-          ["--model", "pix2pix"]]
+          ["--model", "pix2pix"], ["--model", "pix2pixhd"]]
 STILL_REFUSED = [["--mesh", "data:2"], ["--netD", "stylegan2"],
                  ["--netD2", "tilestylegan2"], ["--diffaugment", "bsb"],
-                 ["--model", "pix2pixhd"], ["--model", "spade"]]
+                 ["--model", "spade"]]
 
 
 @pytest.mark.parametrize("argv", PORTED + STILL_REFUSED,
@@ -243,7 +279,7 @@ def test_model_and_dataset_names_are_case_insensitive(tmp_path):
     opt.model = "SINSKIT"
     assert isinstance(create_model(opt), SinSKITModel)
     with pytest.raises(NotImplementedError, match="--model"):
-        _port("test").parse(["--model", "pix2pixhd", "--checkpoints_dir", str(tmp_path)],
+        _port("test").parse(["--model", "spade", "--checkpoints_dir", str(tmp_path)],
                             quiet=True)
 
 

@@ -178,7 +178,7 @@ def test_launcher_commands_and_presets_match_jax(tmp_path):
 def test_process_mode_returns_the_first_failing_child(monkeypatch, tmp_path):
     """One child per garment; the launcher waits for all and returns the first
     non-zero code in the materials' order.  A baseline's child fails: the
-    port refuses ``--model pix2pixhd``; pix2pix's child gets past the options
+    port refuses ``--model spade``; pix2pix's child gets past the options
     (its garment root does not exist here, so it fails on the data)."""
     codes = {"a": 0, "b": 3, "c": 5}
     monkeypatch.setattr(port_launch, "garment_command", lambda method, m, args: [
@@ -187,11 +187,11 @@ def test_process_mode_returns_the_first_failing_child(monkeypatch, tmp_path):
                                       "--materials", "a,b,c"])
     assert rc == 3 and "[c] exited 5" in out
     monkeypatch.undo()
-    rc = subprocess.run([sys.executable, "-m", "vts_torch.launch", "pix2pixhd", "launch",
+    rc = subprocess.run([sys.executable, "-m", "vts_torch.launch", "spade", "launch",
                          "--mode", "process", "--materials", "a",
                          "--checkpoints_dir", str(tmp_path), "--", "--device", "cpu"],
                         cwd=ROOT, capture_output=True, text=True, timeout=300)
-    assert rc.returncode == 1 and "NotImplementedError: --model 'pix2pixhd'" in rc.stderr
+    assert rc.returncode == 1 and "NotImplementedError: --model 'spade'" in rc.stderr
     rc = subprocess.run([sys.executable, "-m", "vts_torch.launch", "pix2pix", "launch",
                          "--mode", "process", "--materials", "a",
                          "--checkpoints_dir", str(tmp_path), "--", "--device", "cpu"],

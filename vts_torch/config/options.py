@@ -18,7 +18,15 @@ Adam β 0.5/0.999, lr 2e-4, 200 + 200 epochs, ...), then pix2pix's own (the
 ``resnet_9blocks`` batch-norm G, the ``basic`` D, the patchskit dataset at
 crop 1536; in training batch 32 of patches, the 320-sample cadences, the
 vanilla GAN; in the test phase the full canvas at batch 1, 64 test patches).
-Each flag does one of three things:
+``--model pix2pixHD`` (any case) takes pix2pix's flags and defaults, then
+its own flags and defaults (the instance-norm ``global`` G with 4
+downsamplings and 9 blocks, two 2-scale ``multiscale`` instance-norm Ds
+with intermediate features, lsgan, GAN-feat and VGG19 at λ 10, 50 + 150
+epochs); its ``--feat_num``, ``--load_features``, ``--nef``,
+``--n_clusters`` and ``--n_downsample_E`` parse and are read by nothing,
+as in the reference.  ``--pool_size`` > 0 is read by pix2pixHD alone and
+is a ``ValueError`` at model creation for every other model, as the
+reference's.  Each flag does one of three things:
 
   * it is read, as in the reference (the data, model, loss, schedule,
     checkpoint and gallery flags, and the loggers' ``--display_id``,
@@ -34,22 +42,23 @@ Each flag does one of three things:
     ``--steps_per_dispatch``, ``--device_sample_cache``,
     ``--cache_data_device``, ``--lpips_tap_cache``, ``--d3_logit_cache``,
     ``--platform``), the loader's ``--num_threads`` and ``--cache_dir``,
-    ``--verbose``, the sinskit flags under ``--model pix2pix`` (its step
-    reads none of them), and flags the reference declares but never reads for this model
-    (``--easy_label``, ``--load_iter``, ``--direction``, ``--load_size``,
+    ``--verbose``, the sinskit flags under ``--model pix2pix`` and
+    ``pix2pixhd`` (their steps read none of them), and flags the reference
+    declares but never reads for this model (``--easy_label``, ``--load_iter``, ``--direction``, ``--load_size``,
     ``--no_flip``, ``--use_eval_mode``, ``--padded_size``, ...).  The test
     phase's ``--dtype`` and ``--lpips_crop`` are of this kind: the eval
     forward is fp32 whatever ``--dtype`` says, as in the reference; so are
     the training-only flags that the test parser declares too (the D, loss
     and schedule flags);
   * it raises ``NotImplementedError`` naming the flag when set to what the
-    port does not run: a ``--model`` other than sinskit, skit and pix2pix
-    (pix2pixhd and spade are not ported yet), a ``--dataset_mode`` other
-    than singleskit, skit and patchskit, a ``--netG`` other than
-    unet256_custom (sinskit, skit) or resnet_{9,6,4}blocks (pix2pix),
-    ``--normG``/``--normD`` other than instance, batch or none,
-    ``--multihost``; in training also the StyleGAN2 ``--netD``/``--netD2``, a DiffAugment policy that repeats a letter,
-    ``--pool_size`` > 0 and ``--mesh``.
+    port does not run: a ``--model`` other than sinskit, skit, pix2pix and
+    pix2pixhd (spade is not ported yet), a ``--dataset_mode`` other than
+    singleskit, skit and patchskit, a ``--netG`` other than unet256_custom
+    (sinskit, skit) or resnet_{9,6,4}blocks, global, local and encoder (the
+    two patch baselines), ``--normG``/``--normD`` other than instance, batch
+    or none, ``--multihost``; in training also the StyleGAN2
+    ``--netD``/``--netD2``, a DiffAugment policy that repeats a letter, and
+    ``--mesh``.
 
 ``--no_dropout false`` is accepted and builds no dropout: the reference's
 dropout layers never run (its sinskit never passes ``deterministic=False``).
@@ -257,7 +266,8 @@ def _train_parser() -> argparse.ArgumentParser:
     a("--n_epochs_decay", type=int, default=400)
     a("--continue_train", action="store_true")
     a("--val_for_each_epoch", type=str2bool, default=True)
-    a("--pool_size", type=int, default=0, help="> 0: an image pool (not ported)")
+    a("--pool_size", type=int, default=0,
+      help="> 0: pix2pixHD's image pool of past fakes for D's fake pass (other models: an error)")
     a("--anneal_epoch", type=int, default=0,
       help="epoch at which --anneal_set is applied once (0: off)")
     a("--anneal_set", type=str, default="",
@@ -323,6 +333,37 @@ def _pix2pix_model_flags(p: argparse.ArgumentParser, train: bool) -> None:
                        num_touch_patch_for_logging=10, batch_size_G2=64)
 
 
+def _pix2pixhd_model_flags(p: argparse.ArgumentParser, train: bool) -> None:
+    """``--model pix2pixhd`` (``vts_tpu/models/pix2pixhd.py``): pix2pix's
+    flags and defaults, then pix2pixHD's flags and its own defaults."""
+    _pix2pix_model_flags(p, train)
+    a = p.add_argument
+    for flag, default in (("--feat_num", 3), ("--n_downsample_E", 4), ("--nef", 16),
+                          ("--n_clusters", 10)):
+        a(flag, type=int, default=default, help="accepted; read by nothing (as in the reference)")
+    a("--load_features", action="store_true", help="accepted; read by nothing")
+    a("--n_downsample_global", type=int, default=4)
+    a("--n_blocks_global", type=int, default=9)
+    a("--n_blocks_local", type=int, default=3)
+    a("--n_local_enhancers", type=int, default=1)
+    a("--niter_fix_global", type=int, default=0,
+      help="epochs after which the global G's leaves train too (before: zero gradients)")
+    a("--getIntermFeat_D", type=str2bool, default=True)
+    a("--no_ganFeat_loss", action="store_true")
+    a("--no_vgg_loss", action="store_true")
+    a("--lambda_feat", type=float, default=10.0)
+    a("--lambda_vgg", type=float, default=10.0)
+    a("--correct_gan_feat", type=str2bool, default=False,
+      help="match the fake features against D's real-side ones (default: the reference's "
+           "term, identically 0)")
+    a("--vgg_weights", type=str, default="",
+      help="a torchvision vgg19 checkpoint for the VGG loss; empty: the seeded VGG19")
+    p.set_defaults(netG="global", netD="multiscale", normG="instance", normD="instance",
+                   num_D_D1=2, num_D_D2=2)
+    if train:
+        p.set_defaults(gan_mode="lsgan", n_epochs=50, n_epochs_decay=150)
+
+
 def _refuse(flag: str, what: str) -> None:
     raise NotImplementedError(f"{flag} {what} is not ported yet")
 
@@ -331,16 +372,17 @@ _NORMS = ("instance", "batch", "none")
 
 
 _SKIT_MODELS = ("skit", "skitg")
-_RESNET_G = ("resnet_9blocks", "resnet_6blocks", "resnet_4blocks")
+_PATCH_MODELS = ("pix2pix", "pix2pixhd")
+_PATCH_G = ("resnet_9blocks", "resnet_6blocks", "resnet_4blocks", "global", "local", "encoder")
 
 
 def _check_common(opt) -> None:
     model = opt.model.lower()
-    if model not in ("sinskit", "sinskitg", "pix2pix") + _SKIT_MODELS:
+    if model not in ("sinskit", "sinskitg") + _PATCH_MODELS + _SKIT_MODELS:
         _refuse("--model", repr(opt.model))
     if opt.dataset_mode.lower() not in ("singleskit", "skit", "patchskit"):
         _refuse("--dataset_mode", repr(opt.dataset_mode))
-    if opt.netG not in (_RESNET_G if model == "pix2pix" else ("unet256_custom",)):
+    if opt.netG not in (_PATCH_G if model in _PATCH_MODELS else ("unet256_custom",)):
         _refuse("--netG", f"{opt.netG!r} with --model {opt.model}")
     if opt.normG not in _NORMS:
         _refuse("--normG", repr(opt.normG))
@@ -375,6 +417,9 @@ class _Options:
             known, _ = parser.parse_known_args(args)
         elif known.model.lower() == "pix2pix":
             _pix2pix_model_flags(parser, self.isTrain)
+            known, _ = parser.parse_known_args(args)
+        elif known.model.lower() == "pix2pixhd":
+            _pix2pixhd_model_flags(parser, self.isTrain)
             known, _ = parser.parse_known_args(args)
         if known.dataset_mode.lower() == "skit":
             _skit_dataset_flags(parser)
@@ -424,7 +469,5 @@ class TrainOptions(_Options):
                 raise ValueError(f"--diffaugment {policy!r}: the letters are b, s, c, t, o, n")
             if len(set(policy)) != len(policy):
                 _refuse("--diffaugment", f"{policy!r} (a letter used twice)")
-        if opt.pool_size > 0:
-            _refuse("--pool_size", "> 0 (an image pool)")
         if opt.mesh:
             _refuse("--mesh", "(data parallelism over devices)")

@@ -1,18 +1,26 @@
 """Model factory (``vts_tpu/models/__init__.py``): sinskit (sinskitG), skit
-(skitG) and the pix2pix baseline.  Names are looked up lowercased, as the
-reference's registry does."""
+(skitG) and the pix2pix and pix2pixHD baselines.  Names are looked up
+lowercased, as the reference's registry does."""
 
 from __future__ import annotations
 
 from .pix2pix import Pix2PixModel
+from .pix2pixhd import Pix2PixHDModel
 from .sinskit import SinSKITModel
 from .skit import SKITModel
 
 MODELS = {"sinskit": SinSKITModel, "sinskitg": SinSKITModel, "skit": SKITModel,
-          "skitg": SKITModel, "pix2pix": Pix2PixModel}
+          "skitg": SKITModel, "pix2pix": Pix2PixModel, "pix2pixhd": Pix2PixHDModel}
 
 
 def create_model(opt):
     if opt.model.lower() not in MODELS:
         raise NotImplementedError(f"model {opt.model!r} is not ported yet")
-    return MODELS[opt.model.lower()](opt)
+    cls = MODELS[opt.model.lower()]
+    # pix2pixHD's D fake pass is the only query of the pool (reference
+    # pix2pixHD_model.py:582); the reference refuses it everywhere else
+    if int(getattr(opt, "pool_size", 0)) > 0 and cls is not Pix2PixHDModel:
+        raise ValueError(f"--pool_size > 0 is only wired into pix2pixHD (the reference's sole "
+                         f"ImagePool query site); model {opt.model!r} ignores it. Pass "
+                         f"--pool_size 0.")
+    return cls(opt)

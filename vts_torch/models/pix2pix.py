@@ -53,12 +53,13 @@ class Pix2PixModel(SinSKITModel):
 
     pred_fake_T_full_visual = False
     masked_stacks = ("",)               # the reference masks T_images, not val_T_images
+    d_kind = "basic"                    # the kind of D and D2
 
     def __init__(self, opt):
         if int(opt.T_resolution_multiplier) != 1:
-            raise ValueError("--T_resolution_multiplier > 1 with --model pix2pix: the ResNet G's "
-                             "touch output stays at the canvas size while the touch mask is "
-                             "resized (the reference's step fails on it too)")
+            raise ValueError(f"--T_resolution_multiplier > 1 with --model {opt.model}: G's "
+                             f"touch output stays at the canvas size while the touch mask is "
+                             f"resized (the reference's step fails on it too)")
         self.opt = opt
         self.isTrain = bool(opt.isTrain)
         self.device = resolve_device(opt.device)
@@ -68,10 +69,10 @@ class Pix2PixModel(SinSKITModel):
         self.netG = define_G(opt, opt.sketch_nc, opt.image_nc + opt.touch_nc, dtype=self.dtype)
         self.model_names = ["G"]
         if self.isTrain:
-            self.netD = define_D(opt, opt.sketch_nc + opt.image_nc, netD="basic",
-                                 dtype=self.dtype)
-            self.netD2 = define_D(opt, opt.sketch_nc + opt.touch_nc, netD="basic",
-                                  dtype=self.dtype)
+            self.netD = define_D(opt, opt.sketch_nc + opt.image_nc, netD=self.d_kind,
+                                 num_D=opt.num_D_D1, dtype=self.dtype)
+            self.netD2 = define_D(opt, opt.sketch_nc + opt.touch_nc, netD=self.d_kind,
+                                  num_D=opt.num_D_D2, dtype=self.dtype)
             self.model_names += ["D", "D2"]
         self.use_d3 = False
         self.clip = None

@@ -303,15 +303,18 @@ class SinSKITModel:
         self._losses, self._outputs = self._train_step(self._input, opt.lr * f,
                                                        opt.lr_G2 * f, draws, use_d3)
 
-    def _update(self, name: str, loss: torch.Tensor, lr: float) -> None:
-        """Gradient of ``loss`` w.r.t. network ``name``'s parameters, then Adam."""
+    def _update(self, name: str, loss: torch.Tensor, lr: float, frozen=()) -> None:
+        """Gradient of ``loss`` w.r.t. network ``name``'s parameters, then Adam;
+        the parameters named in ``frozen`` get a zero gradient (not computed)."""
         params = dict(getattr(self, f"net{name}").named_parameters())
-        if not (torch.is_tensor(loss) and loss.requires_grad):   # every term detached
-            grads = [None] * len(params)
+        live = [k for k in params if k not in frozen]
+        if not (torch.is_tensor(loss) and loss.requires_grad) or not live:   # every term detached
+            grads = [None] * len(live)
         else:
-            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(params.items(), grads)}
+            grads = torch.autograd.grad(loss, [params[k] for k in live], allow_unused=True)
+        got = dict(zip(live, grads))
+        grads = {k: torch.zeros_like(p) if got.get(k) is None else got[k]
+                 for k, p in params.items()}
         self.adam[name].step(params, grads, lr)
 
     def _train_step(self, batch: Dict[str, torch.Tensor], lr: float, lr_d2: float,

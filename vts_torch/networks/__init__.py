@@ -7,6 +7,7 @@ import torch
 
 from .discriminators import (MultiscaleDiscriminator, NLayerDiscriminator, PatchDiscriminator,
                              PixelDiscriminator)
+from .pix2pixhd_nets import Encoder, GlobalGenerator, LocalEnhancer
 from .resnet_gen import ResnetGenerator
 from .unet_custom import CustomUNet
 
@@ -14,11 +15,12 @@ _RESNET_BLOCKS = {"resnet_9blocks": 9, "resnet_6blocks": 6, "resnet_4blocks": 4}
 
 
 def define_G(opt, input_nc: int, output_nc: int, dtype: torch.dtype = torch.float32):
-    """Generator factory: ``unet256_custom`` (sinskitG, skitG) and
-    ``resnet_{9,6,4}blocks`` (pix2pix); every other name raises.  The
+    """Generator factory: ``unet256_custom`` (sinskitG, skitG),
+    ``resnet_{9,6,4}blocks`` (pix2pix) and pix2pixHD's ``global``, ``local``
+    and ``encoder``; every other name raises.  The pix2pixHD depths and the
     style-code options default as the reference's factory defaults them
-    when the model's parser did not declare them (a sinskit run with
-    ``--use_style_code``)."""
+    when the model's parser did not declare them (a pix2pix run with
+    ``--netG global``, a sinskit run with ``--use_style_code``)."""
     if opt.netG in _RESNET_BLOCKS:
         return ResnetGenerator(
             input_nc, ngf=opt.ngf, out_nc=output_nc, n_blocks=_RESNET_BLOCKS[opt.netG],
@@ -27,6 +29,19 @@ def define_G(opt, input_nc: int, output_nc: int, dtype: torch.dtype = torch.floa
             t_resolution_multiplier=int(opt.T_resolution_multiplier),
             generate_T_imgs=bool(getattr(opt, "generate_T_imgs", False)),
             init_type=opt.init_type, init_gain=opt.init_gain, dtype=dtype)
+    common = dict(norm_type=opt.normG, init_type=opt.init_type, init_gain=opt.init_gain,
+                  dtype=dtype)
+    n_down = int(getattr(opt, "n_downsample_global", 4))
+    if opt.netG == "global":
+        return GlobalGenerator(input_nc, ngf=opt.ngf, out_nc=output_nc, n_downsampling=n_down,
+                               n_blocks=int(getattr(opt, "n_blocks_global", 9)), **common)
+    if opt.netG == "local":
+        return LocalEnhancer(input_nc, ngf=opt.ngf, out_nc=output_nc, n_downsample_global=n_down,
+                             n_blocks_global=int(getattr(opt, "n_blocks_global", 9)),
+                             n_local_enhancers=int(getattr(opt, "n_local_enhancers", 1)),
+                             n_blocks_local=int(getattr(opt, "n_blocks_local", 3)), **common)
+    if opt.netG == "encoder":
+        return Encoder(input_nc, ngf=opt.ngf, out_nc=output_nc, n_downsampling=n_down, **common)
     if opt.netG != "unet256_custom":
         raise NotImplementedError(f"netG {opt.netG!r} is not ported yet")
     return CustomUNet(

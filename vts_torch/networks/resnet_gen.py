@@ -95,9 +95,15 @@ class _Named(nn.Module):
 
 
 class ResnetBlock(_Named):
+    """pad, 3×3 conv, norm, ReLU, [dropout], pad, 3×3 conv, norm, plus the
+    input; the convs have a bias unless a batch norm follows, or as
+    ``use_bias`` says (pix2pixHD's always have one)."""
+
     def __init__(self, c: int, norm_type: str, use_dropout: bool = False,
-                 padding_type: str = "reflect"):
+                 padding_type: str = "reflect", use_bias: bool = None):
         super().__init__(norm_type)
+        if use_bias is not None:
+            self.use_bias = use_bias
         if padding_type not in ("reflect", "replicate", "zero"):
             raise NotImplementedError(f"padding [{padding_type}] is not implemented")
         self.use_dropout = use_dropout

@@ -112,18 +112,21 @@ def torch_to_unet_stats(state_dict: Dict[str, torch.Tensor]) -> Dict:
     return stats
 
 
-# ------------------------------------------------------- ResNet generator ---
-# The port's ResnetGenerator names its submodules as flax does, so a key is
-# the flax tree path, dot-joined:
+# ------------------------------------------ ResNet and pix2pixHD generators ---
+# The port's ResnetGenerator, and pix2pixHD's GlobalGenerator, LocalEnhancer
+# and Encoder, name their submodules as flax does, so a key is the flax tree
+# path, dot-joined, under the scopes ``core`` and ``global`` where the tree
+# has them (core.ResnetBlock_3.Conv_1.weight ↔ params["core"]["ResnetBlock_3"]
+# ["Conv_1"]["kernel"]); the converters below take any such tree:
 #   Conv_i.weight|bias, ResnetBlock_b.Conv_{0,1}.weight  ↔ params[...][kernel|bias]
 #   ConvTranspose_i.weight|bias                          ↔ the flax ConvTranspose
 #   BatchNorm_i.scale|bias (ResnetBlock_b.BatchNorm_j.·) ↔ params[...][scale|bias]
 #   BatchNorm_i.mean|var                                 ↔ batch_stats[...][mean|var]
 
 def resnet_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
-    """flax ``ResnetGenerator`` params → :class:`vts_torch.networks.resnet_gen.ResnetGenerator`
-    state-dict entries (every leaf of the tree: params, or Adam moments in
-    the params' layout)."""
+    """flax ``ResnetGenerator`` (or ``GlobalGenerator``, ``LocalEnhancer``,
+    ``Encoder``) params → the port's generator's state-dict entries (every
+    leaf of the tree: params, or Adam moments in the params' layout)."""
     sd = OrderedDict()
     for path, v in _leaves(params):
         key = ".".join(path[:-1])

@@ -2,7 +2,7 @@
 msgpack checkpoints that both packages read (``vts_tpu/utils/convert_torch.py``).
 
 This is how a user of the reference brings the sinskitG and skitG
-generators it ships, and pix2pix's ResNet generators, into the port:
+generators it ships, and the baselines' generators, into the port:
 
   python -m vts_torch.utils.convert_torch --input best_net_G.pth \\
       --output checkpoints/<name>/best_net_G.msgpack --arch unet256_custom
@@ -15,18 +15,23 @@ level, else 1), ``up{i}[_T].model.1`` the ConvTranspose, the instance norms
 carry nothing, and skitG's ``style_code_mapping{i}.0`` is a bias-free Linear;
 or (``--arch resnet_{N}blocks``) of its ``ResnetGenerator``
 (models/networks.py:1051-1155, instance norm): one ``nn.Sequential``
-``model.{j}`` walked as :func:`convert_resnet` says, ``--set KEY=VALUE``
-giving the walk's arguments (``no_antialias``, ``no_antialias_up``,
-``use_dropout``, ``n_downsampling``, ``n_upsampling``).  The output is
-``{"params": <the flax tree>, "stats": {}}``, with the reference's layout
-rules:
+``model.{j}`` walked as :func:`convert_resnet` says; or (``--arch global``,
+``local``, ``encoder``) of pix2pixHD's ``GlobalGenerator``,
+``LocalEnhancer`` and ``Encoder`` (models/networks.py:1897-2019), walked as
+:func:`convert_global`, :func:`convert_local` and :func:`convert_encoder`
+say.  ``--set KEY=VALUE`` gives a walk's arguments (resnet:
+``no_antialias``, ``no_antialias_up``, ``use_dropout``, ``n_downsampling``,
+``n_upsampling``; global: ``n_downsampling``, ``n_blocks``; local:
+``n_local_enhancers``, ``n_downsample_global``, ``n_blocks_global``,
+``n_blocks_local``; encoder: ``n_downsampling``), with the reference
+converter's defaults.  The output is ``{"params": <the flax tree>, "stats":
+{}}``, with the reference's layout rules:
 
   torch Conv2d   (out, in, kh, kw) → flax HWIO = transpose(2, 3, 1, 0)
   torch ConvT2d  (in, out, kh, kw) → flax HWIO = transpose(2, 3, 0, 1), flipped
   torch Linear   (out, in)         → flax Dense kernel (in, out)
 
-The reference's other converters (``global``, ``local``, ``encoder``,
-``spade``) come with pix2pixHD and SPADE.
+The reference's ``spade`` converter comes with SPADE.
 """
 
 from __future__ import annotations
@@ -119,15 +124,79 @@ def convert_resnet(sd: Dict, n_blocks: int = 9, n_downsampling: int = 2,
     return params
 
 
+def _core(sd: Dict, n_downsampling: int, n_blocks: int) -> Dict:
+    """pix2pixHD's global trunk in ``model.{j}``: 0 a reflection pad, 1 the
+    7×7 stem conv, [conv s2, norm, ReLU] per down stage, the blocks
+    (``conv_block.1`` and ``.5``), [ConvTranspose, norm, ReLU] per up stage
+    → flax ``Conv_{0..nd}``, ``ResnetBlock_b``, ``ConvTranspose_i``."""
+    core: Dict = {"Conv_0": _conv_entry(sd, "model.1")}
+    for i in range(n_downsampling):
+        core[f"Conv_{1 + i}"] = _conv_entry(sd, f"model.{4 + 3 * i}")
+    s0 = 4 + 3 * n_downsampling
+    for b in range(n_blocks):
+        core[f"ResnetBlock_{b}"] = {
+            "Conv_0": _conv_entry(sd, f"model.{s0 + b}.conv_block.1"),
+            "Conv_1": _conv_entry(sd, f"model.{s0 + b}.conv_block.5")}
+    s1 = s0 + n_blocks
+    for i in range(n_downsampling):
+        core[f"ConvTranspose_{i}"] = _conv_entry(sd, f"model.{s1 + 3 * i}", True)
+    return core
+
+
+def convert_global(sd: Dict, n_downsampling: int = 3, n_blocks: int = 9) -> Dict:
+    """The reference ``GlobalGenerator`` (instance norm) → ``{"core": the
+    trunk, "Conv_0": the 7×7 head}``; the head follows the trunk and a pad."""
+    head = f"model.{4 + 3 * n_downsampling + n_blocks + 3 * n_downsampling + 1}"
+    return {"core": _core(sd, n_downsampling, n_blocks), "Conv_0": _conv_entry(sd, head)}
+
+
+def convert_encoder(sd: Dict, n_downsampling: int = 4) -> Dict:
+    """The reference ``Encoder`` → its flat flax tree: the trunk without
+    blocks and the head ``Conv_{nd+1}`` (the instance average is no layer)."""
+    params = _core(sd, n_downsampling, 0)
+    params[f"Conv_{n_downsampling + 1}"] = _conv_entry(
+        sd, f"model.{4 + 6 * n_downsampling + 1}")
+    return params
+
+
+def convert_local(sd: Dict, n_local_enhancers: int = 1, n_downsample_global: int = 3,
+                  n_blocks_global: int = 9, n_blocks_local: int = 3) -> Dict:
+    """The reference ``LocalEnhancer`` → ``{"global": the trunk, ...}``.  Its
+    ``model.*`` holds the global trunk (without the head); level n's
+    ``model{n}_1`` is [pad, conv7, norm, ReLU, conv s2, norm, ReLU] (convs at
+    1 and 4) and ``model{n}_2`` [the blocks, ConvTranspose at L, norm, ReLU,
+    and on the last level pad, conv7 at L + 4, tanh].  Flax counts the
+    convs across levels: level n has ``Conv_{2(n-1)}``, ``Conv_{2(n-1)+1}``,
+    ``ResnetBlock_{L(n-1)+b}``, ``ConvTranspose_{n-1}``; the head is
+    ``Conv_{2·n_local_enhancers}``."""
+    params: Dict = {"global": _core(sd, n_downsample_global, n_blocks_global)}
+    nb = n_blocks_local
+    for n in range(1, n_local_enhancers + 1):
+        params[f"Conv_{2 * (n - 1)}"] = _conv_entry(sd, f"model{n}_1.1")
+        params[f"Conv_{2 * (n - 1) + 1}"] = _conv_entry(sd, f"model{n}_1.4")
+        for b in range(nb):
+            params[f"ResnetBlock_{nb * (n - 1) + b}"] = {
+                "Conv_0": _conv_entry(sd, f"model{n}_2.{b}.conv_block.1"),
+                "Conv_1": _conv_entry(sd, f"model{n}_2.{b}.conv_block.5")}
+        params[f"ConvTranspose_{n - 1}"] = _conv_entry(sd, f"model{n}_2.{nb}", True)
+    params[f"Conv_{2 * n_local_enhancers}"] = _conv_entry(
+        sd, f"model{n_local_enhancers}_2.{nb + 4}")
+    return params
+
+
+_PIX2PIXHD = {"global": convert_global, "local": convert_local, "encoder": convert_encoder}
+
+
 def convert_checkpoint(input_path: str, arch: str = "unet256_custom", num_downs: int = 8,
                        num_layer_separate: int = 4, **kw) -> Dict:
     """A reference ``.pth`` generator → ``{"params": ..., "stats": {}}``;
-    ``kw`` are the resnet walk's arguments (``--set``; the U-Net takes none,
-    as in the reference, which ignores them there)."""
+    ``kw`` are the walk's arguments (``--set``; the U-Net takes none, as in
+    the reference, which ignores them there)."""
     resnet = arch.startswith("resnet_") and arch.endswith("blocks")
-    if arch != "unet256_custom" and not resnet:
+    if arch != "unet256_custom" and not resnet and arch not in _PIX2PIXHD:
         raise NotImplementedError(f"converter for arch {arch!r} is not ported yet "
-                                  f"(unet256_custom and resnet_<N>blocks only)")
+                                  f"(unet256_custom, resnet_<N>blocks, global, local and "
+                                  f"encoder only)")
     import torch
 
     sd = torch.load(input_path, map_location="cpu", weights_only=True)
@@ -135,6 +204,8 @@ def convert_checkpoint(input_path: str, arch: str = "unet256_custom", num_downs:
     if resnet:
         n_blocks = int(arch[len("resnet_"):-len("blocks")])
         return {"params": convert_resnet(sd, n_blocks=n_blocks, **kw), "stats": {}}
+    if arch in _PIX2PIXHD:
+        return {"params": _PIX2PIXHD[arch](sd, **kw), "stats": {}}
     return {"params": convert_custom_unet(sd, num_downs, num_layer_separate), "stats": {}}
 
 
@@ -159,8 +230,8 @@ def main(argv=None) -> str:
     ap.add_argument("--num_layer_separate", type=int, default=4)
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="per-arch converter arguments, repeatable (resnet: e.g. "
-                         "--set no_antialias=1 --set use_dropout=true); values parse as "
-                         "bool/int/float where they can")
+                         "--set no_antialias=1 --set use_dropout=true; global: --set "
+                         "n_downsampling=4); values parse as bool/int/float where they can")
     args = ap.parse_args(argv)
     kw = {}
     for item in args.set:

@@ -20,8 +20,11 @@ kernel intervals) and the idle share, the peak device memory of the
 profiled run, the host time spent in the Fréchet ``sqrtm`` calls (test
 phase), the epoch stepped, whether D3 was active, the batch, dtype and LPIPS
 crop (train phase), and the
-device time per kernel name (top 25).  ``--trace`` also writes the chrome
-trace.
+device time per kernel name (top 25).  For a model with a VGG19 loss
+(``--model pix2pixhd``) the train phase also profiles that loss alone on
+the profiled step's outputs, forward and backward to them (``vgg19``: its
+wall, device busy time and kernels), the measure of its share of the
+step.  ``--trace`` also writes the chrome trace.
 """
 
 from __future__ import annotations
@@ -119,8 +122,20 @@ def profile_train_step(argv, trace_path: str = None) -> dict:
 
     for _ in range(2):                             # warm-up
         one_step()
-    return dict(_profile(one_step, trace_path), epoch=epoch, d3_active=bool(d3),
-                batch=opt.batch_size, dtype=opt.dtype, lpips_crop=opt.lpips_crop)
+    out = dict(_profile(one_step, trace_path), epoch=epoch, d3_active=bool(d3),
+               batch=opt.batch_size, dtype=opt.dtype, lpips_crop=opt.lpips_crop)
+    if getattr(model, "vgg", None) is not None:
+        fake_I, fake_T = (model._outputs[k].detach().requires_grad_(True)
+                          for k in ("fake_I", "fake_T"))
+
+        def vgg_part():
+            loss = model.vgg_term(fake_I, fake_T, model._input["I"], model._input["T_images"])
+            torch.autograd.grad(loss, (fake_I, fake_T))
+            torch.cuda.synchronize()
+
+        vgg_part()                                 # warm-up
+        out["vgg19"] = _profile(vgg_part)
+    return out
 
 
 def _profile(fn, trace_path: str = None) -> dict:
