@@ -157,6 +157,31 @@ Phases, each of which must pass or the script exits non-zero:
      eval forward from the same weights within 1e-4 of its max; the launcher's ``pix2pixhd launch
      --mode process`` child on phase 4f's on-disk garment (1 epoch) on the
      card;
+  4i. the SPADE baseline (:func:`spade_baseline`): ``vts_torch.train --model
+     spade --dataset_mode patchskit`` on the 1800² garment at the shipped
+     training defaults (the spade G with ngf 64, 3 upsamplings, spectral
+     convs and the param-free sync batch norm; two 2-scale multiscale
+     spectral-instance Ds with intermediate features, ndf 64; hinge,
+     GAN-feat·10, VGG19·10, TTUR; batch 16 of 32² patches), cut in length
+     only: 2 epochs of 2 steps (``--max_dataset_size 32``), the full-image
+     validation after each; every loss finite, G_GAN_Feat and G_VGG > 0,
+     the G, D and D2 checkpoints with their Adam files and each with ``u``
+     in its stats, K1 and K2 launched by the validations and K1 dx and K2
+     bwd not at all; its best G through ``vts_torch.test --model spade`` on
+     the 1536² canvas (K = 64): 8 finite metrics, K1 and K2 launched as
+     ``PER_SAMPLE`` says, no patch_offsets call on the host, the gallery and
+     the raw gx/gy npz, the run's peak memory, and the kernels' shapes
+     against a pix2pix test sample's (as in 4h); 32² steps at batch 4
+     (ngf/ndf 8, a pool of 2 with fixed draws) on cuda and on cpu from the
+     same weights and ``u``: without the VGG loss held as in phase 4 (the
+     round-off leaves found from the cpu gradient), every ``u`` and running
+     statistic of G, D and D2 within 1e-5, the pool within 1e-5; with it,
+     the losses and D's and D2's gradients the same way and G's in the
+     2-norm within what a 1e-6 relative change of the sketch does to it on
+     the cpu (at least 1e-4: VGG19's near-ties on an untrained G's
+     near-constant outputs); G's 256² eval forward from the same weights
+     within 1e-4 of its max; the launcher's ``spade launch --mode process``
+     child on phase 4f's on-disk garment (1 epoch) on the card;
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
@@ -189,7 +214,10 @@ Phases, each of which must pass or the script exits non-zero:
      G forward and launches) and one traced pix2pix step in a process of its
      own (``vts_torch.utils.profiler --phase train``: the idle share); the
      same three for pix2pixHD, the traced step's process also profiling
-     the step's VGG19 loss alone (its device time).
+     the step's VGG19 loss alone (its device time); the same three for
+     SPADE, with the test sample's G forward and peak memory, the traced
+     step's launches, and its process also profiling the step's VGG19 loss
+     and its spectral norms alone (their device time and launches).
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel and
 path: an ``eval`` row covers one test sample (its launches are the test
@@ -202,7 +230,8 @@ launches counted in that sample), an ``eval_pix2pix`` row one pix2pix
 test sample (K = 64 test patches; the test run's launches less the
 gallery's) and an ``eval_pix2pixhd`` row one pix2pixHD test sample
 (likewise; its times are the ``eval_pix2pix`` row's when phase 4h found the
-same shapes); ``ms``, ``plain_ms``,
+same shapes) and an ``eval_spade`` row one SPADE test sample (the same
+with phase 4i); ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` sum the per-shape times over those launches,
 and ``max_abs_err`` is the worst of the checks at that path's shapes.  The
 last line is ``{"ok": true, "device": {...}}``.  Nothing is printed as a result unless
@@ -696,7 +725,7 @@ def serial_scatter(grad, ox, oy, shape, mode):
         torch.use_deterministic_algorithms(was)
 
 
-def compare_steps(label, cpu, cuda, g_scale=1.0, named=True):
+def compare_steps(label, cpu, cuda, g_scale=1.0, named=True, g_norm=None):
     """Losses within rtol 1e-4 (+1e-7) and each network's gradient (Adam's
     first moment after one step, β1 = 0) per leaf within :func:`grad_tol`
     of a CUDA step against the CPU step from the same weights and draws.
@@ -707,7 +736,10 @@ def compare_steps(label, cpu, cuda, g_scale=1.0, named=True):
     then also held to 1e-4 in the 2-norm over the network (the x2 touch
     LPIPS on 64² patches: fp32 max-pool near-ties and ReLU near-zeros flip
     differently in any two fp32 implementations; tests/test_torch_port_
-    tmult.py measures it against float64)."""
+    tmult.py measures it against float64).  ``g_norm``: G is held in the
+    2-norm over the network to that bound alone (its per-leaf ratios
+    printed): a step whose G gradient is ill-conditioned, its bound
+    measured beside it (SPADE's VGG-on step)."""
     lc, lg = cpu.get_current_losses(), cuda.get_current_losses()
     check(set(lc) == set(lg), f"{label}: unexpected losses {sorted(lc)} / {sorted(lg)}")
     worst = max((abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-7), k) for k in lc)
@@ -737,7 +769,11 @@ def compare_steps(label, cpu, cuda, g_scale=1.0, named=True):
         print(f"[train ref] {label}, {net} grads cuda vs cpu: worst per-leaf |d|/tolerance "
               f"{ratio[worst]:.2e} at {worst} (network max |g| {net_max:.3e}, "
               f"{len(at_roundoff)} leaves at round-off; limit x{scale:g}); |d|/|g| over the "
-              f"network {norm:.2e}")
+              f"network {norm:.2e}" + (f" (limit {g_norm:.2e}, the 2-norm alone)"
+                                       if net == "G" and g_norm else ""))
+        if net == "G" and g_norm:
+            check(norm <= g_norm, f"{label}: G gradient on cuda disagrees with cpu in norm")
+            continue
         check(ratio[worst] <= 1.0, f"{label}: {net} gradient {worst} on cuda disagrees with cpu")
         if scale != 1.0:
             check(norm <= 1e-4, f"{label}: {net} gradient on cuda disagrees with cpu in norm")
@@ -1512,6 +1548,292 @@ def pix2pixhd_times(hd, dirs, smi):
           f"({vgg['device_busy_ms'] / rec['device_busy_ms']:.3f} of the step's); top kernels: "
           + "; ".join(
               f"{k['name'][:60]} {k['ms']:.3f} ms" for k in vgg["kernels_ms"][:6]))
+
+
+# ------------------------------------------------------------------ 4i ---
+# SPADE at its shipped training defaults (the spade G with ngf 64, 3
+# upsamplings, spectral convs and the param-free sync batch norm; two 2-scale
+# multiscale spectral-instance Ds with intermediate features, ndf 64; hinge,
+# GAN-feat·10 and VGG19·10; TTUR; batch 16 of 32² patches from the 1536²
+# view), cut in length only: 2 epochs of 2 steps (--max_dataset_size 32),
+# the full-image validation after each
+SP_TRAIN = ["--model", "spade", "--dataset_mode", "patchskit", "--name", "spade",
+            "--dataroot", P2P_DATA, "--device", "cuda", "--n_epochs", "2",
+            "--n_epochs_decay", "0", "--val_for_each_epoch", "true", "--max_dataset_size", "32"]
+SP_TEST = ["--model", "spade", "--name", "spade", "--epoch", "best", "--dataroot", P2P_DATA,
+           "--device", "cuda"]
+SP_LOSSES = HD_LOSSES
+
+
+def spectral_state(model):
+    """Every ``u`` and running statistic of G, D and D2, on the host."""
+    return {f"{net}.{k}": v.detach().float().cpu()
+            for net in ("G", "D", "D2") for k, v in getattr(model, f"net{net}").state_dict().items()
+            if k.endswith((".u", ".mean", ".var"))}
+
+
+def spade_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
+    """Phase 4i: ``vts_torch.train --model spade`` at the full-width defaults
+    (:data:`SP_TRAIN`), its best G through ``vts_torch.test`` on the 1536²
+    canvas (the kernels' shapes there against pix2pix's test sample's,
+    ``p2p_shapes``; the sample's peak memory), 32² steps (batch 4, ngf/ndf
+    8, a pool of 2 with fixed draws; without and with the VGG loss) and a
+    256² eval forward on cuda against cpu, and the launcher's spade child on
+    the on-disk garment of phase 4f.  What phase 5 needs of it."""
+    import numpy as np
+
+    from vts_torch.config import TrainOptions
+    from vts_torch.models import create_model
+    from vts_torch.utils.msgpack import msgpack_restore
+
+    out = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    model = run_train(SP_TRAIN + dirs)
+    torch.cuda.synchronize()
+    run = read_counts()
+    losses = model.get_current_losses()
+    steps = model.adam["G"].count
+    print(f"[spade] {steps} steps of batch 16 over 2 epochs + 2 full-image validations in "
+          f"{time.time() - t0:.2f} s (first run, incl. data and model set-up); G "
+          f"{sum(p.numel() for p in model.netG.parameters()) / 1e6:.3f} M params, D "
+          f"{sum(p.numel() for p in model.netD.parameters()) / 1e6:.3f} M; last losses: "
+          + " ".join(f"{k}={v:.6g}" for k, v in losses.items()))
+    print(f"[spade] launches during the training run: {run}")
+    check(set(losses) == SP_LOSSES and all(math.isfinite(v) for v in losses.values()),
+          f"a SPADE training loss is missing or not finite: {losses}")
+    check(losses["G_GAN_Feat"] > 0 and losses["G_VGG"] > 0,
+          f"SPADE: G_GAN_Feat {losses['G_GAN_Feat']} and G_VGG {losses['G_VGG']} must be > 0")
+    check(steps == 4, f"the SPADE run took {steps} steps, not 4")
+    check(run["conv3x3_bias_relu"] > 0 and run["gather_patches"] > 0
+          and run["conv3x3_dx"] == 0 and run["scatter_patches"] == 0,
+          f"the SPADE run (hinge, GAN-feat and VGG19 on cuDNN; the metrics in its "
+          f"validations) launched {run}")
+    ck = os.path.join(tmp, "ckpt", "spade")
+    missing = [f"{tag}_{kind}_{net}.msgpack" for tag in ("best", "latest")
+               for net in ("G", "D", "D2") for kind in ("net", "opt")
+               if not os.path.exists(os.path.join(ck, f"{tag}_{kind}_{net}.msgpack"))]
+    check(not missing, f"SPADE checkpoints not written: {missing}")
+    def has_u(tree):
+        return any(k == "u" or (isinstance(v, dict) and has_u(v)) for k, v in tree.items())
+    for net in ("G", "D", "D2"):
+        with open(os.path.join(ck, f"latest_net_{net}.msgpack"), "rb") as f:
+            check(has_u(msgpack_restore(f.read())["stats"]),
+                  f"the SPADE {net} checkpoint holds no spectral u in its stats")
+    out["train_model"] = model
+
+    # its best G on the full canvas through the test driver
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    with CountPatchOffsets() as host_offsets, Gallery() as gallery, RecordShapes() as shapes:
+        metrics = run_test(SP_TEST + dirs)[0]
+    torch.cuda.synchronize()
+    out["test_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["run_launches"] = read_counts()
+    out["sample_launches"] = {k: v - gallery.launches[k] for k, v in out["run_launches"].items()}
+    print(f"[spade test] {CANVAS}² canvas, K {K_P2P}: " +
+          " ".join(f"{k}={v:.6g}" for k, v in sorted(metrics.items())))
+    print(f"[spade test] launches during the test run: {out['run_launches']}; the sample's, "
+          f"without the gallery: {out['sample_launches']}; peak memory of the run "
+          f"{out['test_peak_gib']:.2f} GiB ({held:.2f} GiB held before it)")
+    check(len(metrics) == 8 and all(math.isfinite(v) for v in metrics.values()),
+          f"SPADE test: expected 8 finite metrics, got {metrics}")
+    check(out["sample_launches"] == PER_SAMPLE,
+          f"a SPADE test sample launched {out['sample_launches']}, not {PER_SAMPLE}")
+    check(host_offsets.calls == 0, f"the SPADE test called patch_offsets "
+                                   f"{host_offsets.calls} times on the host")
+    web = os.path.join(tmp, "res", "spade", "test_best")
+    written = os.listdir(os.path.join(web, "images"))
+    check(os.path.exists(os.path.join(web, "index.html"))
+          and any(f.endswith("_fake_gxgy_raw.npz") for f in written),
+          f"the SPADE test gallery: {sorted(written)}")
+    k1_shapes, k2_shapes = shapes.shapes()
+    out["same_shapes"] = (k1_shapes, k2_shapes) == p2p_shapes
+    print(f"[spade test] K1 and K2 at the shapes of a pix2pix test sample: "
+          f"{out['same_shapes']} (K1 {sorted(set(k1_shapes))}, K2 {k2_shapes})")
+    out["k1_rows"] = [] if out["same_shapes"] else k1_eval_rows(
+        [r + (k1_shapes.count(r),) for r in sorted(set(k1_shapes))], "spade", seed=14)
+    out["k2_k"] = max(k for _, _, k, _ in k2_shapes)
+
+    # 32² steps (batch 4, ngf/ndf 8, a pool of 2) on cuda and on cpu from the
+    # same weights, u and draws: without the VGG loss under the plain rule,
+    # with it as below
+    small = ["--model", "spade", "--name", "spade_small", "--dataroot", SMALL_DATA,
+             "--crop_size", "256", "--center_w", "192", "--center_h", "128", "--ngf", "8",
+             "--ndf", "8", "--batch_size", "4", "--pool_size", "2", "--no_html"] + dirs
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def pair_step(extra, keys=("cpu", "cuda"), batch=None):
+        pair = {}
+        for key in keys:
+            pair[key] = create_model(TrainOptions().parse(small + extra + ["--device", key],
+                                                          quiet=True))
+            pair[key].setup()
+        draws = pair[keys[0]].draw(4)
+        for key in keys:
+            pair[key].set_input(batch or patch_batch(4))
+            pair[key].optimize_parameters(1, draws=draws)
+        return pair
+
+    pair = pair_step(["--no_vgg_loss"])
+    compare_steps("32² SPADE step (hinge, TTUR, pool; no VGG)", pair["cpu"], pair["cuda"],
+                  named=False)
+    st_c, st_g = spectral_state(pair["cpu"]), spectral_state(pair["cuda"])
+    fresh = create_model(TrainOptions().parse(small + ["--device", "cpu"], quiet=True))
+    fresh.setup()
+    init = spectral_state(fresh)
+    moved = sum(1 for k, v in st_c.items() if k.endswith(".u") and not torch.equal(v, init[k]))
+    worst = max(((st_g[k] - v).abs().max().item(), k) for k, v in st_c.items())
+    print(f"[spade ref] 32² step, every u and running statistic of G, D and D2 "
+          f"({len(st_c)} buffers, {moved} u moved by the step) cuda vs cpu: max|d| "
+          f"{worst[0]:.3e} at {worst[1]}")
+    check(worst[0] <= 1e-5 and moved > 0,
+          "SPADE u or running statistics on cuda disagree with cpu (or no u moved)")
+    (buf_c, n_c), (buf_g, n_g) = pair["cpu"]._pool, pair["cuda"]._pool
+    err = (buf_g.cpu() - buf_c).abs().max().item() / buf_c.abs().max().item()
+    print(f"[spade ref] 32² step, the pool (count {n_g} / {n_c}) cuda vs cpu: max|d|/max|ref| "
+          f"{err:.3e}")
+    check(n_c == n_g == 2 and err <= 1e-5, "the SPADE pool on cuda disagrees with cpu")
+    # with the VGG loss: an untrained SPADE G's outputs are near-constant (std
+    # ~0.02), so VGG19's fp32 max-pool and ReLU near-ties make G's gradient
+    # ill-conditioned; it is held in the 2-norm to what a 1e-6 relative
+    # change of the sketch does to it on the cpu (measured here), at least the
+    # x2 rule's 1e-4, and D's and D2's per leaf as above
+    pair = pair_step([])
+    b = patch_batch(4)
+    b["S"] = (b["S"] * (1 + 1e-6 * np.random.default_rng(3).standard_normal(b["S"].shape))
+              ).astype(np.float32)
+    moved = pair_step([], ("cpu",), b)["cpu"]
+    sens = rel_norm(moved.adam["G"].mu, pair["cpu"].adam["G"].mu, pair["cpu"].adam["G"].mu)
+    print(f"[spade ref] 32² VGG-on step on the cpu: a 1e-6 relative change of the sketch moves "
+          f"G's gradient by {sens:.2e} in the 2-norm")
+    compare_steps("32² SPADE step (hinge, TTUR, pool, VGG)", pair["cpu"], pair["cuda"],
+                  named=False, g_norm=max(1e-4, sens))
+    # the eval forward (running statistics, σ from the stored u) from the same weights
+    pair["cuda"].netG.load_state_dict(pair["cpu"].netG.state_dict())
+    x = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, (1, 256, 256, 1))
+                         .astype(np.float32))
+    with torch.no_grad():
+        ref, got = (pair[k]._forward_eval(x.to(pair[k].device), torch.ones_like(x[..., :1])
+                                          .to(pair[k].device)) for k in ("cpu", "cuda"))
+    err = max((g.cpu() - r).abs().max().item() / r.abs().max().item() for g, r in zip(got, ref))
+    print(f"[spade ref] 256² eval forward cuda vs cpu from the same weights: max|d|/max|ref| "
+          f"{err:.3e}")
+    check(err <= 1e-4, "the SPADE eval forward on cuda disagrees with cpu")
+    torch.backends.cudnn.deterministic = cudnn_det
+    del pair
+
+    # the launcher's spade child on the on-disk garment of phase 4f, 1 epoch
+    root = os.path.join(wf_data, f"singleskit_{{material}}_padded_{PADDED}_x1")
+    out["launch_s"] = launcher(
+        ["spade", "launch", "--mode", "process", "--materials", "synthA",
+         "--dataroot-template", root, "--checkpoints_dir", os.path.join(tmp, "sp_ckpt"),
+         "--results_dir", os.path.join(tmp, "sp_res"), "--", "--n_epochs", "1",
+         "--n_epochs_decay", "0", "--no_html"],
+        os.path.join(tmp, "wf_logs", "launch_spade.log"), "cuda", 1)
+    check(os.path.exists(os.path.join(tmp, "sp_ckpt", "synthA_spade_baseline",
+                                      "latest_net_G.msgpack")),
+          "the launcher's spade child wrote no checkpoint")
+    return out
+
+
+def spade_times(sp, dirs, smi):
+    """Phase 5's SPADE times: one untraced full-width training step (median
+    of 5 after 2 warm-ups, samples/s, peak memory), one full-canvas test
+    sample (median of 3 after 1, its G forward, launches and peak memory),
+    and one traced step in a process of its own (the idle share) with the
+    step's VGG19 loss and its spectral norms profiled alone (their device
+    time, and the norms' launches)."""
+    from vts_torch.config import TestOptions, TrainOptions
+    from vts_torch.data import create_dataset
+    from vts_torch.models import create_model
+
+    model = sp.pop("train_model")
+    batch = next(iter(create_dataset(TrainOptions().parse(SP_TRAIN + dirs, quiet=True))))
+    model.set_input(batch)
+    walls, peaks = [], []
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    for i in range(7):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model.optimize_parameters(1)
+        model.get_current_losses()
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    sp_wall = statistics.median(walls)
+    print(f"[time spade step] {smi}: one full-width SPADE training step (batch 16 of 32² "
+          f"patches, ngf/ndf 64, the spade G with 3 upsamplings, spectral convs and sync batch "
+          f"norm, two 2-scale spectral-instance Ds, hinge + GAN-feat + VGG19, TTUR): "
+          f"{sp_wall:.1f} ms wall, median of {len(walls)} ({', '.join(f'{w:.1f}' for w in walls)}"
+          f"); {16e3 / sp_wall:.1f} samples/s; peak memory {max(peaks):.2f} GiB, of which "
+          f"{held:.2f} GiB was held by this process before the step")
+    del model, batch
+    torch.cuda.empty_cache()
+    topt = TestOptions().parse(SP_TEST + dirs, quiet=True)
+    batch = next(iter(create_dataset(topt)))
+    model = create_model(topt)
+    model.setup()
+    model.load_networks("best")
+    model.set_input(batch)
+    walls, g_ms, peaks = [], [], []
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    for i in range(4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if i == 1:
+            reset_counts()
+        t0 = time.perf_counter()
+        model.test()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        model.compute_metrics()
+        torch.cuda.synchronize()
+        if i == 1:
+            sp_one = read_counts()
+        if i:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            g_ms.append((t1 - t0) * 1e3)
+            peaks.append((g_peak, torch.cuda.max_memory_allocated() / 2 ** 30))
+    print(f"[time spade sample] {smi}: one {CANVAS}² SPADE test sample (K {K_P2P}): "
+          f"{statistics.median(walls):.1f} ms wall (G forward {statistics.median(g_ms):.1f} "
+          f"ms), median of {len(walls)} ({', '.join(f'{w:.1f}' for w in walls)}); G forward "
+          f"alone {', '.join(f'{w:.1f}' for w in g_ms)} ms; peak memory of the G forward "
+          f"{max(p[0] for p in peaks):.2f} GiB, of the sample {max(p[1] for p in peaks):.2f} "
+          f"GiB ({held:.2f} GiB held before); launches {sp_one}")
+    check(sp_one == PER_SAMPLE, f"a SPADE test sample launched {sp_one}, not {PER_SAMPLE}")
+    del model, batch
+    torch.cuda.empty_cache()
+    prof = subprocess.run([sys.executable, "-m", "vts_torch.utils.profiler", "--phase", "train",
+                           *SP_TRAIN, *dirs], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    check(prof.returncode == 0, f"the traced SPADE step failed:\n{prof.stderr[-3000:]}")
+    rec = json.loads(prof.stdout.strip().splitlines()[-1])
+    vgg, sn = rec["vgg19"], rec["spectral_norm"]
+    print(f"[time spade traced] {smi}: one traced full-width SPADE step in a fresh process "
+          f"(vts_torch.utils.profiler --phase train): wall {rec['wall_ms']:.1f} ms, device busy "
+          f"{rec['device_busy_ms']:.1f} ms, idle share {rec['device_idle_share']:.3f}, "
+          f"{rec['kernel_launches']} kernel launches, peak memory {rec['peak_memory_gib']:.2f} "
+          f"GiB; top kernels: " + "; ".join(f"{k['name'][:60]} {k['ms']:.2f} ms"
+                                           for k in rec["kernels_ms"][:8]))
+    print(f"[time spade vgg19] {smi}: the step's VGG19 loss alone on its outputs (fake_I, gx "
+          f"and gy tiled to 3 channels, one pass of 48 32² images each for x and y, the "
+          f"backward to the inputs): wall {vgg['wall_ms']:.2f} ms, device busy "
+          f"{vgg['device_busy_ms']:.2f} ms ({vgg['device_busy_ms'] / rec['device_busy_ms']:.3f} "
+          f"of the step's)")
+    print(f"[time spade spectral] {smi}: the step's spectral norms alone ({sn['convs']} convs, "
+          f"{sn['passes']} power iterations and kernel / σ: G's once, D's and D2's three times): "
+          f"wall {sn['wall_ms']:.2f} ms, device busy {sn['device_busy_ms']:.3f} ms "
+          f"({sn['device_busy_ms'] / rec['device_busy_ms']:.3f} of the step's), "
+          f"{sn['kernel_launches']} kernel launches ({sn['kernel_launches'] / rec['kernel_launches']:.3f} "
+          f"of the step's); top kernels: " + "; ".join(
+              f"{k['name'][:50]} {k['ms']:.3f} ms" for k in sn["kernels_ms"][:5]))
 
 
 def main() -> int:
@@ -2415,6 +2737,14 @@ def main() -> int:
     hd_s = time.time() - t0
     print(f"[pix2pixhd] phase 4h took {hd_s:.1f} s")
 
+    # --------------------------------------------------------------- 4i ---
+    print(f"[phase] phase 4i (the SPADE baseline) from {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    sp = spade_baseline(tmp, dirs, workflow["data"], run_train, run_test, p2p["shapes"])
+    sp_s = time.time() - t0
+    print(f"[spade] phase 4i took {sp_s:.1f} s")
+
     # ---------------------------------------------------------------- 5 ---
     print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s; the card: {card_state()} "
           f"(SM clock, power, temperature)")
@@ -2495,6 +2825,7 @@ def main() -> int:
     # pix2pix's where its shapes are the same (phase 4h checks), else its own
     time_k1_eval(p2p["k1_rows"], "eval_pix2pix")
     time_k1_eval(hd["k1_rows"], "eval_pix2pixhd")
+    time_k1_eval(sp["k1_rows"], "eval_spade")
 
     def time_k1_train(rows, path, peak, tag):
         """K1 and K1 dx at each training shape of ``rows``, in the rows'
@@ -2610,6 +2941,11 @@ def main() -> int:
                     dict(coords=coords[:1, :hd["k2_k"]].contiguous()),
                     k2.patch_offsets(coords[0, :hd["k2_k"]])[:2],
                     f"fake_T at pix2pixHD's {hd['k2_k']} test patches")
+    if not sp["same_shapes"]:
+        time_gather("eval_spade", PER_SAMPLE["gather_patches"], (img2[:1],),
+                    dict(coords=coords[:1, :sp["k2_k"]].contiguous()),
+                    k2.patch_offsets(coords[0, :sp["k2_k"]])[:2],
+                    f"fake_T at SPADE's {sp['k2_k']} test patches")
     for row in k2_train:
         time_gather("train", 1, row["images"], row["kw"], row["offsets"],
                     f"group {row['group']}")
@@ -3005,6 +3341,8 @@ def main() -> int:
           + "; ".join(f"{k['name'][:60]} {k['ms']:.2f} ms" for k in rec["kernels_ms"][:6]))
     print(f"[phase] pix2pixhd walls from {time.time() - t_start:.1f} s")
     pix2pixhd_times(hd, dirs, smi)
+    print(f"[phase] spade walls from {time.time() - t_start:.1f} s")
+    spade_times(sp, dirs, smi)
     # device-only times of every kernel, and of their library calls
     print(f"[phase] device-only times from {time.time() - t_start:.1f} s")
     print(f"[device-only] the card: {card_state()} (SM clock, power, temperature)")
@@ -3036,6 +3374,10 @@ def main() -> int:
         # a pix2pixHD test sample launches K1 and K2 at a pix2pix one's shapes
         for kname in ("conv3x3_bias_relu", "gather_patches"):
             rows[(kname, "eval_pix2pixhd")] = dict(rows[(kname, "eval_pix2pix")])
+    if sp["same_shapes"]:
+        # a SPADE test sample launches K1 and K2 at a pix2pix one's shapes
+        for kname in ("conv3x3_bias_relu", "gather_patches"):
+            rows[(kname, "eval_spade")] = dict(rows[(kname, "eval_pix2pix")])
 
     sources = {"conv3x3_bias_relu": ("vts_torch/csrc/conv3x3.cu",
                                      "vts_tpu/ops/pallas_conv.py:42"),
@@ -3049,10 +3391,11 @@ def main() -> int:
     per_path = {"eval": test_launches, "train": step_launches, "train_bf16": lane_step_launches,
                 "train_tmult2": x2_step_launches, "eval_legacy": skit_sample["legacy"],
                 "eval_pix2pix": p2p["sample_launches"],
-                "eval_pix2pixhd": hd["sample_launches"]}
+                "eval_pix2pixhd": hd["sample_launches"], "eval_spade": sp["sample_launches"]}
     in_run = {"eval": run_launches, "train": train_launches, "train_bf16": lane_run_launches,
               "train_tmult2": x2_run_launches, "eval_legacy": legacy_run_launches,
-              "eval_pix2pix": p2p["run_launches"], "eval_pix2pixhd": hd["run_launches"]}
+              "eval_pix2pix": p2p["run_launches"], "eval_pix2pixhd": hd["run_launches"],
+              "eval_spade": sp["run_launches"]}
     for (kname, path), acc in rows.items():
         launches = per_path[path][kname]
         check(launches == acc["per"], f"{kname} ({path}): {launches} launches, timed {acc['per']}")
@@ -3079,7 +3422,7 @@ def main() -> int:
                             launches_in_run=in_run[path][kname]))
     print(f"[shapes] {json.dumps(shape_rows)}")
     print(f"[done] chip_smoke took {time.time() - t_start:.1f} s (phase 4f: {workflow_s:.1f} s, "
-          f"phase 4g: {p2p_s:.1f} s, phase 4h: {hd_s:.1f} s)")
+          f"phase 4g: {p2p_s:.1f} s, phase 4h: {hd_s:.1f} s, phase 4i: {sp_s:.1f} s)")
     tmp_dir.cleanup()
 
     print(smi)

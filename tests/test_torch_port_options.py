@@ -178,6 +178,47 @@ def test_pix2pixhd_defaults_match_the_reference(phase, tmp_path):
         assert (opt.n_epochs, opt.n_epochs_decay, opt.pool_size) == (50, 150, 0)
 
 
+@pytest.mark.parametrize("phase", ["train", "test"])
+def test_every_reference_spade_option_parses_or_is_refused_by_name(phase, tmp_path):
+    """``--model spade``'s parsers: pix2pixHD's flags and SPADE's (the VAE,
+    TTUR, the upsampling depth, the output width); a netG other than
+    ``spade`` is refused by name."""
+    _walk(phase, tmp_path, ("--model", "spade"), min_tried=130)
+
+
+@pytest.mark.parametrize("phase", ["train", "test"])
+def test_spade_defaults_match_the_reference(phase, tmp_path):
+    """``--model spade``: every flag of the reference's SPADE parser of each
+    phase has the reference's default (pix2pixHD's, then SPADE's own); the
+    port adds only ``--device`` and the sinskit flags, which the step does
+    not read."""
+    from vts_torch.config import options as o
+    jp = _jax_parser(phase, tmp_path, ("--model", "spade"))
+    ref = {a.dest: jp.get_default(a.dest) for a in jp._actions
+           if a.option_strings and a.dest != "help"}
+    parser = (o._train_parser if phase == "train" else o._test_parser)()
+    o._spade_model_flags(parser, phase == "train")
+    port = {a.dest: parser.get_default(a.dest) for a in parser._actions
+            if a.option_strings and a.dest != "help"}
+    assert {k: (v, port.get(k)) for k, v in ref.items() if port.get(k, "missing") != v} == {}
+    sinskit = {a.dest for a in _jax_parser(phase, tmp_path)._actions if a.option_strings}
+    assert set(port) - set(ref) <= sinskit | {"device", "use_style_code"}
+    opt = _port(phase).parse(["--model", "spade", "--checkpoints_dir", str(tmp_path),
+                              "--device", "cpu"], quiet=True)
+    assert (opt.netG, opt.netD, opt.normG, opt.normD, opt.num_upsampling_layers, opt.ngf,
+            opt.num_D_D1, opt.num_D_D2, opt.getIntermFeat_D, opt.lambda_vgg, opt.gan_mode,
+            opt.use_vae, opt.no_TTUR) \
+        == ("spade", "multiscale", "spectralspadesyncbatch3x3", "spectralinstance", 3, 64, 2,
+            2, True, 10.0, "hinge", False, False)
+    if phase == "train":
+        assert (opt.return_patch, opt.batch_size, opt.output_width, opt.lr, opt.beta1,
+                opt.beta2, opt.n_epochs, opt.n_epochs_decay) \
+            == (True, 16, 32, 0.0002, 0.0, 0.9, 50, 0)
+    else:
+        assert (opt.return_patch, opt.batch_size, opt.output_width, opt.load_size) \
+            == (False, 1, 1536, 1800)
+
+
 # Settings that parse and build their model, and the refusals that stand
 PORTED = [["--T_resolution_multiplier", "2"], ["--T_resolution_multiplier", "4"],
           ["--gan_mode", "wgan"], ["--gan_mode", "wgangp"], ["--gan_mode", "hinge"],
@@ -189,10 +230,9 @@ PORTED = [["--T_resolution_multiplier", "2"], ["--T_resolution_multiplier", "4"]
           ["--no_dropout", "false"], ["--preprocess", "zoom_and_crop"],
           ["--use_style_code", "true"], ["--model", "skit"], ["--eval_mode", "legacy"],
           ["--dataset_mode", "skit"], ["--display_id", "1", "--display_port", "0"],
-          ["--model", "pix2pix"], ["--model", "pix2pixhd"]]
+          ["--model", "pix2pix"], ["--model", "pix2pixhd"], ["--model", "spade"]]
 STILL_REFUSED = [["--mesh", "data:2"], ["--netD", "stylegan2"],
-                 ["--netD2", "tilestylegan2"], ["--diffaugment", "bsb"],
-                 ["--model", "spade"]]
+                 ["--netD2", "tilestylegan2"], ["--diffaugment", "bsb"]]
 
 
 @pytest.mark.parametrize("argv", PORTED + STILL_REFUSED,
@@ -278,8 +318,13 @@ def test_model_and_dataset_names_are_case_insensitive(tmp_path):
     assert len(create_dataset(opt)) == 1
     opt.model = "SINSKIT"
     assert isinstance(create_model(opt), SinSKITModel)
-    with pytest.raises(NotImplementedError, match="--model"):
-        _port("test").parse(["--model", "spade", "--checkpoints_dir", str(tmp_path)],
+    from vts_torch.models.spade import SPADEModel
+    opt = _port("test").parse(SMALL + ["--model", "SPADE", "--device", "cpu",
+                                       "--checkpoints_dir", str(tmp_path)], quiet=True)
+    assert (opt.netG, opt.normG) == ("spade", "spectralspadesyncbatch3x3")
+    assert isinstance(create_model(opt), SPADEModel)
+    with pytest.raises(NotImplementedError, match="--model 'gaugan'"):
+        _port("test").parse(["--model", "gaugan", "--checkpoints_dir", str(tmp_path)],
                             quiet=True)
 
 

@@ -177,9 +177,10 @@ def test_launcher_commands_and_presets_match_jax(tmp_path):
 
 def test_process_mode_returns_the_first_failing_child(monkeypatch, tmp_path):
     """One child per garment; the launcher waits for all and returns the first
-    non-zero code in the materials' order.  A baseline's child fails: the
-    port refuses ``--model spade``; pix2pix's child gets past the options
-    (its garment root does not exist here, so it fails on the data)."""
+    non-zero code in the materials' order.  A child given a refused flag
+    after ``--`` fails naming it (spade's, past its own options, on
+    ``--mesh``); pix2pix's child gets past the options (its garment root
+    does not exist here, so it fails on the data)."""
     codes = {"a": 0, "b": 3, "c": 5}
     monkeypatch.setattr(port_launch, "garment_command", lambda method, m, args: [
         sys.executable, "-c", f"import sys; sys.exit({codes[m]})"])
@@ -189,9 +190,11 @@ def test_process_mode_returns_the_first_failing_child(monkeypatch, tmp_path):
     monkeypatch.undo()
     rc = subprocess.run([sys.executable, "-m", "vts_torch.launch", "spade", "launch",
                          "--mode", "process", "--materials", "a",
-                         "--checkpoints_dir", str(tmp_path), "--", "--device", "cpu"],
+                         "--checkpoints_dir", str(tmp_path), "--", "--device", "cpu",
+                         "--mesh", "data:2"],
                         cwd=ROOT, capture_output=True, text=True, timeout=300)
-    assert rc.returncode == 1 and "NotImplementedError: --model 'spade'" in rc.stderr
+    assert rc.returncode == 1 and "NotImplementedError: --mesh" in rc.stderr
+    assert "--model 'spade'" not in rc.stderr
     rc = subprocess.run([sys.executable, "-m", "vts_torch.launch", "pix2pix", "launch",
                          "--mode", "process", "--materials", "a",
                          "--checkpoints_dir", str(tmp_path), "--", "--device", "cpu"],

@@ -192,9 +192,13 @@ def test_pth_generator_import_matches_jax(case, tmp_path):
 
 
 def test_pth_import_refuses_the_archs_not_ported(tmp_path):
+    """Every reference arch has a converter in both packages; an arch that
+    neither converts is a ``NotImplementedError`` naming it in both."""
     from vts_torch.utils.convert_torch import convert_checkpoint
+    from vts_tpu.utils.convert_torch import convert_checkpoint as jax_convert
     pth = str(tmp_path / "g.pth")
     torch.save({"model.1.weight": torch.zeros(4, 3, 7, 7)}, pth)
-    for arch in ("spade",):
-        with pytest.raises(NotImplementedError, match=arch):
-            convert_checkpoint(pth, arch)
+    for arch in ("stylegan2", "visgel"):
+        for convert in (jax_convert, convert_checkpoint):
+            with pytest.raises(NotImplementedError, match=arch):
+                convert(pth, arch)

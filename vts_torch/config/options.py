@@ -24,9 +24,19 @@ downsamplings and 9 blocks, two 2-scale ``multiscale`` instance-norm Ds
 with intermediate features, lsgan, GAN-feat and VGG19 at λ 10, 50 + 150
 epochs); its ``--feat_num``, ``--load_features``, ``--nef``,
 ``--n_clusters`` and ``--n_downsample_E`` parse and are read by nothing,
-as in the reference.  ``--pool_size`` > 0 is read by pix2pixHD alone and
-is a ``ValueError`` at model creation for every other model, as the
-reference's.  Each flag does one of three things:
+as in the reference.  ``--model spade`` takes pix2pixHD's flags and
+defaults, then its own flags (``--use_vae``, ``--z_dim``,
+``--semantic_nc``, ``--no_TTUR``, ``--lambda_kld``,
+``--num_upsampling_layers``, ``--output_width``, ``--aspect_ratio``) and
+defaults (the ``spade`` G with ``--normG spectralspadesyncbatch3x3`` and 3
+upsamplings, the Ds at ``--normD spectralinstance``, the hinge GAN, 50
+epochs without decay, in training batch 16 and Adam β (0, 0.9) at lr 2e-4,
+in the test phase ``--output_width 1536`` and ``--load_size 1800``);
+``--semantic_nc`` parses and is read by nothing, as in the reference, and
+``--use_vae true`` is a ``ValueError`` at model creation.  ``--pool_size``
+> 0 is read by pix2pixHD and SPADE alone and is a ``ValueError`` at model
+creation for every other model, as the reference's.  Each flag does one of
+three things:
 
   * it is read, as in the reference (the data, model, loss, schedule,
     checkpoint and gallery flags, and the loggers' ``--display_id``,
@@ -51,12 +61,16 @@ reference's.  Each flag does one of three things:
     the training-only flags that the test parser declares too (the D, loss
     and schedule flags);
   * it raises ``NotImplementedError`` naming the flag when set to what the
-    port does not run: a ``--model`` other than sinskit, skit, pix2pix and
-    pix2pixhd (spade is not ported yet), a ``--dataset_mode`` other than
-    singleskit, skit and patchskit, a ``--netG`` other than unet256_custom
-    (sinskit, skit) or resnet_{9,6,4}blocks, global, local and encoder (the
-    two patch baselines), ``--normG``/``--normD`` other than instance, batch
-    or none, ``--multihost``; in training also the StyleGAN2
+    port does not run: a ``--model`` other than sinskit, skit, pix2pix,
+    pix2pixhd and spade, a ``--dataset_mode`` other than singleskit, skit
+    and patchskit, a ``--netG`` other than unet256_custom (sinskit, skit),
+    resnet_{9,6,4}blocks, global, local and encoder (pix2pix, pix2pixHD) or
+    spade (SPADE), ``--normG`` other than instance, batch or none (with
+    ``--netG spade`` a SPADE config string as the reference's
+    ``parse_spade_config`` reads it: an unparsable one is its
+    ``ValueError``), ``--normD`` other than instance, batch or none (or,
+    with the three patch baselines, ``spectral`` followed by one of them or
+    by nothing), ``--multihost``; in training also the StyleGAN2
     ``--netD``/``--netD2``, a DiffAugment policy that repeats a letter, and
     ``--mesh``.
 
@@ -364,6 +378,31 @@ def _pix2pixhd_model_flags(p: argparse.ArgumentParser, train: bool) -> None:
         p.set_defaults(gan_mode="lsgan", n_epochs=50, n_epochs_decay=150)
 
 
+def _spade_model_flags(p: argparse.ArgumentParser, train: bool) -> None:
+    """``--model spade`` (``vts_tpu/models/spade.py``): pix2pixHD's flags and
+    defaults, then SPADE's flags and its own defaults."""
+    _pix2pixhd_model_flags(p, train)
+    a = p.add_argument
+    a("--use_vae", type=str2bool, default=False,
+      help="true is a ValueError at model creation (the reference cannot run it)")
+    a("--z_dim", type=int, default=256, help="the VAE's latent width")
+    a("--semantic_nc", type=int, default=1,
+      help="accepted; read by nothing (G takes the sketch's channels, as in the reference)")
+    a("--no_TTUR", action="store_true", help="every network at --lr (default: G lr/2, Ds 2·lr)")
+    a("--lambda_kld", type=float, default=0.05, help="the VAE's KLD weight")
+    a("--num_upsampling_layers", type=int, default=3,
+      help="G's 2× ups: its stem works at the input width / 2^this")
+    a("--output_width", type=int, default=32, help="the VAE stem's output width")
+    a("--aspect_ratio", type=float, default=1.0, help="the stem's width / height")
+    p.set_defaults(netG="spade", normG="spectralspadesyncbatch3x3", normD="spectralinstance",
+                   gan_mode="hinge")
+    if train:
+        p.set_defaults(batch_size=16, n_epochs=50, n_epochs_decay=0, beta1=0.0, beta2=0.9,
+                       lr=0.0002)
+    else:
+        p.set_defaults(load_size=1800, output_width=1536)
+
+
 def _refuse(flag: str, what: str) -> None:
     raise NotImplementedError(f"{flag} {what} is not ported yet")
 
@@ -372,8 +411,14 @@ _NORMS = ("instance", "batch", "none")
 
 
 _SKIT_MODELS = ("skit", "skitg")
-_PATCH_MODELS = ("pix2pix", "pix2pixhd")
+_PATCH_MODELS = ("pix2pix", "pix2pixhd", "spade")
 _PATCH_G = ("resnet_9blocks", "resnet_6blocks", "resnet_4blocks", "global", "local", "encoder")
+
+
+def _netgs(model: str):
+    if model == "spade":
+        return ("spade",)
+    return _PATCH_G if model in _PATCH_MODELS else ("unet256_custom",)
 
 
 def _check_common(opt) -> None:
@@ -382,9 +427,12 @@ def _check_common(opt) -> None:
         _refuse("--model", repr(opt.model))
     if opt.dataset_mode.lower() not in ("singleskit", "skit", "patchskit"):
         _refuse("--dataset_mode", repr(opt.dataset_mode))
-    if opt.netG not in (_PATCH_G if model in _PATCH_MODELS else ("unet256_custom",)):
+    if opt.netG not in _netgs(model):
         _refuse("--netG", f"{opt.netG!r} with --model {opt.model}")
-    if opt.normG not in _NORMS:
+    if opt.netG == "spade":
+        from ..networks.spade_nets import parse_spade_config
+        parse_spade_config(opt.normG)        # the reference's ValueError when unparsable
+    elif opt.normG not in _NORMS:
         _refuse("--normG", repr(opt.normG))
     m = int(opt.T_resolution_multiplier)
     if m < 1 or m & (m - 1):
@@ -420,6 +468,9 @@ class _Options:
             known, _ = parser.parse_known_args(args)
         elif known.model.lower() == "pix2pixhd":
             _pix2pixhd_model_flags(parser, self.isTrain)
+            known, _ = parser.parse_known_args(args)
+        elif known.model.lower() == "spade":
+            _spade_model_flags(parser, self.isTrain)
             known, _ = parser.parse_known_args(args)
         if known.dataset_mode.lower() == "skit":
             _skit_dataset_flags(parser)
@@ -461,7 +512,9 @@ class TrainOptions(_Options):
         for flag, v in (("--netD", opt.netD), ("--netD2", opt.netD2)):
             if "stylegan2" in v:
                 _refuse(flag, repr(v))
-        if opt.normD not in _NORMS:
+        from ..networks.discriminators import split_spectral
+        spectral, sub = split_spectral(opt.normD)
+        if sub not in _NORMS or (spectral and opt.model.lower() not in _PATCH_MODELS):
             _refuse("--normD", repr(opt.normD))
         if opt.use_diffaug:
             policy = opt.diffaugment

@@ -12,8 +12,7 @@ they get ``--device cpu`` there.  ``--mode fleet`` (the reference's default:
 all garments in one process, ``vts_tpu/parallel/fleet.py``) is not ported
 and is refused by name; the test phase always runs process mode, as in the
 reference.  The baselines' presets (pix2pix, pix2pixhd, spade) are printed
-by ``commands``; pix2pix's and pix2pixhd's children run, spade's fail: the
-port refuses ``--model spade``.
+by ``commands``, and their children run.
 
 Usage:
   python -m vts_torch.launch ours launch --mode process --materials mat1,mat2 \\

@@ -84,7 +84,7 @@ class Pix2PixModel(SinSKITModel):
         seed = int(self.opt.seed)
         self.netG.reset_parameters(torch.Generator().manual_seed(seed))
         self.netG.to(self.device)
-        print(f"[pix2pix] netG params: "
+        print(f"[{self.opt.model.lower()}] netG params: "
               f"{sum(p.numel() for p in self.netG.parameters()) / 1e6:.3f} M")
         if not self.isTrain:
             self.netG.eval()

@@ -54,6 +54,8 @@ def _tile3(t: torch.Tensor, c: int) -> torch.Tensor:
 
 class Pix2PixHDModel(Pix2PixModel):
     d_kind = "multiscale"
+    supports_image_pool = True          # D's fake pass queries the pool (--pool_size > 0)
+    always_matches_real = False         # G_GAN_Feat against the real side only when asked
 
     def __init__(self, opt):
         super().__init__(opt)
@@ -83,6 +85,10 @@ class Pix2PixHDModel(Pix2PixModel):
         self._losses, self._outputs = self._train_step(self._input, self.opt.lr * f,
                                                        self.opt.lr_G2 * f, draws)
 
+    def _rates(self, lr: float, lr_d2: float):
+        """The step's learning rates of G, D and D2."""
+        return lr, lr, lr_d2
+
     def vgg_term(self, fake_I, fake_T, I, real_T) -> torch.Tensor:
         """VGG(fake_I, I) + VGG(gx³) + VGG(gy³), the three in one pass."""
         x = torch.cat([fake_I, _tile3(fake_T, 0), _tile3(fake_T, 1)])
@@ -96,6 +102,8 @@ class Pix2PixHDModel(Pix2PixModel):
         S, I = batch["S"], batch["I"]
         M = batch.get("M", torch.ones_like(S))
         real_T = batch["T_images"]                    # (N, 32, 32, 2), pre-masked
+
+        lr_g, lr_d, lr_d2 = self._rates(lr, lr_d2)
 
         # ---- 1. G forward, graph kept ----
         fake_I, fake_T = self._split(self.netG(S), M)
@@ -112,7 +120,7 @@ class Pix2PixHDModel(Pix2PixModel):
             self._pool = (buf, n)
         losses: Dict[str, torch.Tensor] = {}
         pred_real = {}
-        for name, fake, real, rate in (("D", fake_SI, I, lr),
+        for name, fake, real, rate in (("D", fake_SI, I, lr_d),
                                        ("D2", torch.cat([S, fake_T_d], -1), real_T, lr_d2)):
             net = getattr(self, f"net{name}")
             l_fake = torch.mean(gan_loss(net(fake), False, mode))
@@ -129,7 +137,7 @@ class Pix2PixHDModel(Pix2PixModel):
                + torch.mean(gan_loss(p_T, True, mode))}
         total = aux["G_GAN"]
         if not opt.no_ganFeat_loss and opt.getIntermFeat_D:
-            if opt.correct_gan_feat:
+            if self.always_matches_real or opt.correct_gan_feat:
                 fm = feature_matching_loss(p_I, pred_real["D"], opt.n_layers_D, opt.num_D_D1) \
                     + feature_matching_loss(p_T, pred_real["D2"], opt.n_layers_D, opt.num_D_D2)
             else:                              # the reference's term: identically 0
@@ -139,7 +147,7 @@ class Pix2PixHDModel(Pix2PixModel):
         if self.vgg is not None:
             aux["G_VGG"] = self.vgg_term(fake_I, fake_T, I, real_T) * opt.lambda_vgg
             total = total + aux["G_VGG"]
-        self._update("G", total, lr, self.frozen)
+        self._update("G", total, lr_g, self.frozen)
         losses.update({k: v.detach() for k, v in aux.items()})
         losses["G_total"] = total.detach()
         return losses, {"fake_I": fake_I_d, "fake_T": fake_T_d}

@@ -9,6 +9,7 @@ from .discriminators import (MultiscaleDiscriminator, NLayerDiscriminator, Patch
                              PixelDiscriminator)
 from .pix2pixhd_nets import Encoder, GlobalGenerator, LocalEnhancer
 from .resnet_gen import ResnetGenerator
+from .spade_nets import ConvEncoder, SPADEGenerator
 from .unet_custom import CustomUNet
 
 _RESNET_BLOCKS = {"resnet_9blocks": 9, "resnet_6blocks": 6, "resnet_4blocks": 4}
@@ -16,8 +17,11 @@ _RESNET_BLOCKS = {"resnet_9blocks": 9, "resnet_6blocks": 6, "resnet_4blocks": 4}
 
 def define_G(opt, input_nc: int, output_nc: int, dtype: torch.dtype = torch.float32):
     """Generator factory: ``unet256_custom`` (sinskitG, skitG),
-    ``resnet_{9,6,4}blocks`` (pix2pix) and pix2pixHD's ``global``, ``local``
-    and ``encoder``; every other name raises.  The pix2pixHD depths and the
+    ``resnet_{9,6,4}blocks`` (pix2pix), pix2pixHD's ``global``, ``local``
+    and ``encoder``, and SPADE's ``spade`` (conditioned on the
+    ``input_nc``-channel sketch) and ``conv_encoder`` (the VAE's image
+    encoder, ``input_nc`` the image's channels, ndf ``--ngf``); every other
+    name raises.  The pix2pixHD and SPADE depths and the
     style-code options default as the reference's factory defaults them
     when the model's parser did not declare them (a pix2pix run with
     ``--netG global``, a sinskit run with ``--use_style_code``)."""
@@ -42,6 +46,17 @@ def define_G(opt, input_nc: int, output_nc: int, dtype: torch.dtype = torch.floa
                              n_blocks_local=int(getattr(opt, "n_blocks_local", 3)), **common)
     if opt.netG == "encoder":
         return Encoder(input_nc, ngf=opt.ngf, out_nc=output_nc, n_downsampling=n_down, **common)
+    if opt.netG == "spade":
+        return SPADEGenerator(
+            input_nc, ngf=opt.ngf, out_nc=output_nc,
+            num_upsampling_layers=int(getattr(opt, "num_upsampling_layers", 3)),
+            aspect_ratio=float(getattr(opt, "aspect_ratio", 1.0)), norm_g=opt.normG,
+            use_vae=bool(getattr(opt, "use_vae", False)), z_dim=int(getattr(opt, "z_dim", 256)),
+            crop_size=int(getattr(opt, "output_width", opt.crop_size)),
+            init_type=opt.init_type, init_gain=opt.init_gain, dtype=dtype)
+    if opt.netG == "conv_encoder":
+        return ConvEncoder(input_nc, ndf=opt.ngf, z_dim=int(getattr(opt, "z_dim", 256)),
+                           init_type=opt.init_type, init_gain=opt.init_gain)
     if opt.netG != "unet256_custom":
         raise NotImplementedError(f"netG {opt.netG!r} is not ported yet")
     return CustomUNet(

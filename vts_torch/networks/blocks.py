@@ -143,37 +143,47 @@ class BatchNorm(nn.Module):
     discriminators are always in training mode, as the reference builds
     them); in eval mode (a ``--normG batch`` G's eval forward, the
     reference's ``netG_eval``) the running ones normalize.  ``scale`` starts
-    at N(1, 0.02)."""
+    at N(1, 0.02).  ``affine=False`` is SPADE's param-free norm
+    (``BatchNorm(use_scale=False, use_bias=False)``): the buffers and no
+    parameters.  Without autograd the normalization runs in place on its
+    one temporary (SPADE's 1536² eval forward holds 4.8 GB tensors)."""
 
-    def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5):
+    def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5, affine: bool = True):
         super().__init__()
         self.momentum, self.eps = momentum, eps
-        self.scale = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
+        self.scale = nn.Parameter(torch.ones(c)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(c)) if affine else None
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
     def reset_parameters(self, init, gen):
         with torch.no_grad():
-            self.scale.normal_(0.0, 1.0, generator=gen).mul_(0.02).add_(1.0)
-            self.bias.zero_()
+            if self.scale is not None:
+                self.scale.normal_(0.0, 1.0, generator=gen).mul_(0.02).add_(1.0)
+                self.bias.zero_()
             self.mean.zero_()
             self.var.fill_(1.0)
 
     def forward(self, x, update_stats: bool = True):
         xf = x.float()
         if not self.training:
-            mul = torch.rsqrt(self.var + self.eps) * self.scale
-            return ((xf - self.mean) * mul + self.bias).to(x.dtype)
-        mean = torch.mean(xf, dim=(0, 1, 2))
-        var = torch.clamp_min(torch.mean(xf * xf, dim=(0, 1, 2)) - mean * mean, 0.0)
-        if update_stats:
-            m = self.momentum
-            with torch.no_grad():
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        return ((xf - mean) * mul + self.bias).to(x.dtype)
+            mean, var = self.mean, self.var
+        else:
+            mean = torch.mean(xf, dim=(0, 1, 2))
+            var = torch.clamp_min(torch.mean(xf * xf, dim=(0, 1, 2)) - mean * mean, 0.0)
+            if update_stats:
+                m = self.momentum
+                with torch.no_grad():
+                    self.mean.copy_(m * self.mean + (1 - m) * mean)
+                    self.var.copy_(m * self.var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps)
+        if self.scale is not None:
+            mul = mul * self.scale
+        y = xf - mean
+        y = y * mul if torch.is_grad_enabled() else y.mul_(mul)
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(x.dtype)
 
 
 def make_norm(norm_type: str, c: int) -> nn.Module:
@@ -232,10 +242,13 @@ class Conv(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x, dtype: torch.dtype = torch.float32):
+        return self._conv(x, self.weight, dtype)
+
+    def _conv(self, x, weight, dtype):
         if dtype == torch.float32:
-            return _to_nhwc(F.conv2d(_to_nchw(x.float()), self.weight, self.bias,
+            return _to_nhwc(F.conv2d(_to_nchw(x.float()), weight, self.bias,
                                      stride=self.stride, padding=self.padding))
-        y = _to_nhwc(F.conv2d(_to_nchw(x.to(dtype)), self.weight.to(dtype), None,
+        y = _to_nhwc(F.conv2d(_to_nchw(x.to(dtype)), weight.to(dtype), None,
                               stride=self.stride, padding=self.padding))
         return y if self.bias is None else y + self.bias.to(dtype)
 

@@ -4,6 +4,9 @@
 stride-1 conv and the 1-channel stride-1 logit head — with LeakyReLU(0.2)
 and a norm (``--normD``: batch, instance or none) after every conv but the
 first and the head; channels ndf, 2·ndf, … capped at 512.
+With ``--normD spectral{instance,batch,none}`` (SPADE's Ds) the five convs
+are ``SpectralConv_{0..4}`` (:class:`~vts_torch.networks.spade_nets.SpectralConv`,
+pad 2) and the norm after them is the rest of the name.
 ``MultiscaleDiscriminator``: num_D such heads on a ×2 average-pool pyramid;
 its output is a list over scales (finest first) of feature lists whose last
 entry is the logit map (the logit map alone unless ``get_interm_feat``).
@@ -15,10 +18,11 @@ The single Ds return the logit map (an NLayer's feature list with
 Submodules carry the reference's flax names (``scale2``, ``Conv4x4_0``,
 ``BatchNorm_0``, ``conv0``, ``head``, …) so a state-dict key is the flax tree
 path (:mod:`vts_torch.utils.convert_jax`); an instance or no norm has no
-entries.  ``forward(x, update_stats)`` passes ``update_stats`` to every
-batch norm: the G-loss pass and the gradient penalty's pass through D use
-batch statistics and keep the running ones as they were, as the reference
-does.  The convs run in the net's ``dtype`` (bf16 under ``--dtype
+entries; a spectral conv's ``u`` is ``<scale>.SpectralConv_j.u``.
+``forward(x, update_stats)`` passes ``update_stats`` to every batch norm and
+spectral conv: the G-loss pass and the gradient penalty's pass through D use
+batch statistics (and σ from the stored ``u``) and keep the running ones
+(and ``u``) as they were, as the reference does.  The convs run in the net's ``dtype`` (bf16 under ``--dtype
 bfloat16``, params fp32); the pyramid pools the input in the dtype it comes
 in.
 """
@@ -31,12 +35,21 @@ import torch
 import torch.nn as nn
 
 from .blocks import BatchNorm, Conv, Conv4x4, avg_pool_3x3_s2_nopad_count, leaky_relu, make_norm
+from .spade_nets import SpectralConv
 
 
 def _norm_name(norm_type: str, i: int) -> str:
     """The flax name of the i-th norm: only a batch norm has parameters (and a
     name in the tree)."""
     return f"BatchNorm_{i}" if norm_type == "batch" else f"norm_{i}"
+
+
+def split_spectral(norm_type: str):
+    """SPADE's D norms: ``spectralinstance`` → (True, "instance"); a bare
+    ``spectral`` is the spectral norm with no norm after it."""
+    if norm_type.startswith("spectral"):
+        return True, norm_type[len("spectral"):] or "none"
+    return False, norm_type
 
 
 class NLayerDiscriminator(nn.Module):
@@ -48,27 +61,40 @@ class NLayerDiscriminator(nn.Module):
         self.n_layers = n_layers
         self.use_sigmoid = use_sigmoid
         self.get_interm_feat = get_interm_feat
+        self.spectral, norm_type = split_spectral(norm_type)
+        kind = "SpectralConv" if self.spectral else "Conv4x4"
+        self.convs = [f"{kind}_{i}" for i in range(n_layers + 2)]
         self.norms = [_norm_name(norm_type, i) for i in range(n_layers)]
-        self.add_module("Conv4x4_0", Conv4x4(in_c, ndf, stride=2, padding=2))
+
+        def conv4(in_c, out_c, stride):
+            if self.spectral:
+                return SpectralConv(in_c, out_c, 4, stride=stride, padding=2)
+            return Conv4x4(in_c, out_c, stride=stride, padding=2)
+
+        self.add_module(self.convs[0], conv4(in_c, ndf, 2))
         nf = ndf
         for i in range(1, n_layers):
             prev, nf = nf, min(nf * 2, 512)
-            self.add_module(f"Conv4x4_{i}", Conv4x4(prev, nf, stride=2, padding=2))
+            self.add_module(self.convs[i], conv4(prev, nf, 2))
             self.add_module(self.norms[i - 1], make_norm(norm_type, nf))
         prev, nf = nf, min(nf * 2, 512)
-        self.add_module(f"Conv4x4_{n_layers}", Conv4x4(prev, nf, stride=1, padding=2))
+        self.add_module(self.convs[n_layers], conv4(prev, nf, 1))
         self.add_module(self.norms[n_layers - 1], make_norm(norm_type, nf))
-        self.add_module(f"Conv4x4_{n_layers + 1}", Conv4x4(nf, 1, stride=1, padding=2))
+        self.add_module(self.convs[n_layers + 1], conv4(nf, 1, 1))
+
+    def _conv(self, i: int, h, update_stats: bool):
+        conv = getattr(self, self.convs[i])
+        return conv(h, self.dtype, update_stats) if self.spectral else conv(h, self.dtype)
 
     def forward(self, x, update_stats: bool = True):
         feats: List[torch.Tensor] = []
-        h = leaky_relu(self.Conv4x4_0(x, self.dtype), 0.2)
+        h = leaky_relu(self._conv(0, x, update_stats), 0.2)
         feats.append(h)
         for i in range(1, self.n_layers + 1):
-            h = getattr(self, f"Conv4x4_{i}")(h, self.dtype)
+            h = self._conv(i, h, update_stats)
             h = leaky_relu(getattr(self, self.norms[i - 1])(h, update_stats), 0.2)
             feats.append(h)
-        h = getattr(self, f"Conv4x4_{self.n_layers + 1}")(h, self.dtype)
+        h = self._conv(self.n_layers + 1, h, update_stats)
         if self.use_sigmoid:
             h = torch.sigmoid(h)
         feats.append(h)

@@ -112,27 +112,32 @@ def torch_to_unet_stats(state_dict: Dict[str, torch.Tensor]) -> Dict:
     return stats
 
 
-# ------------------------------------------ ResNet and pix2pixHD generators ---
-# The port's ResnetGenerator, and pix2pixHD's GlobalGenerator, LocalEnhancer
-# and Encoder, name their submodules as flax does, so a key is the flax tree
-# path, dot-joined, under the scopes ``core`` and ``global`` where the tree
-# has them (core.ResnetBlock_3.Conv_1.weight ↔ params["core"]["ResnetBlock_3"]
-# ["Conv_1"]["kernel"]); the converters below take any such tree:
+# ----------------------------------- ResNet, pix2pixHD and SPADE generators ---
+# The port's ResnetGenerator, pix2pixHD's GlobalGenerator, LocalEnhancer and
+# Encoder, and SPADE's SPADEGenerator and ConvEncoder name their submodules as
+# flax does, so a key is the flax tree path, dot-joined, under the scopes
+# ``core`` and ``global`` where the tree has them (core.ResnetBlock_3.Conv_1.
+# weight ↔ params["core"]["ResnetBlock_3"]["Conv_1"]["kernel"]); the
+# converters below take any such tree:
 #   Conv_i.weight|bias, ResnetBlock_b.Conv_{0,1}.weight  ↔ params[...][kernel|bias]
 #   ConvTranspose_i.weight|bias                          ↔ the flax ConvTranspose
+#   a 2-D weight (SPADE's Dense fc, fc_mu, fc_var)       ↔ the Dense kernel, transposed
 #   BatchNorm_i.scale|bias (ResnetBlock_b.BatchNorm_j.·) ↔ params[...][scale|bias]
 #   BatchNorm_i.mean|var                                 ↔ batch_stats[...][mean|var]
+#   <conv>.u (a spectral conv's)                         ↔ batch_stats[...][<conv>][u]
 
 def resnet_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
     """flax ``ResnetGenerator`` (or ``GlobalGenerator``, ``LocalEnhancer``,
-    ``Encoder``) params → the port's generator's state-dict entries (every
-    leaf of the tree: params, or Adam moments in the params' layout)."""
+    ``Encoder``, ``SPADEGenerator``, ``ConvEncoder``) params → the port's
+    generator's state-dict entries (every leaf of the tree: params, or Adam
+    moments in the params' layout)."""
     sd = OrderedDict()
     for path, v in _leaves(params):
         key = ".".join(path[:-1])
         if path[-1] == "kernel":
-            sd[key + ".weight"] = (_convt_to_torch if path[-2].startswith("ConvTranspose")
-                                   else _conv_to_torch)(v)
+            sd[key + ".weight"] = (_t(np.asarray(v).T) if np.ndim(v) == 2
+                                   else _convt_to_torch(v) if path[-2].startswith("ConvTranspose")
+                                   else _conv_to_torch(v))
         elif path[-2].startswith("BatchNorm"):
             sd[".".join(path)] = _t(v)
         else:
@@ -141,8 +146,8 @@ def resnet_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
 
 
 def resnet_stats_to_torch(stats: Dict) -> "OrderedDict[str, torch.Tensor]":
-    """A batch-norm ResnetGenerator's flax ``batch_stats`` → its running
-    ``mean``/``var`` buffers."""
+    """A generator's flax ``batch_stats`` → its running ``mean``/``var`` and
+    spectral ``u`` buffers."""
     return OrderedDict((".".join(path), _t(v)) for path, v in _leaves(stats))
 
 
@@ -156,10 +161,13 @@ def torch_to_resnet_params(state_dict: Dict[str, torch.Tensor]):
         module, leaf = path[-2], path[-1]
         if module.startswith("BatchNorm"):
             _set(stats if leaf in ("mean", "var") else params, path, _np(t).copy())
+        elif leaf == "u":
+            _set(stats, path, _np(t).copy())
         elif leaf == "weight":
             _set(params, path[:-1] + ("kernel",),
-                 (_convt_from_torch if module.startswith("ConvTranspose")
-                  else _conv_from_torch)(t))
+                 _np(t).T.copy() if t.dim() == 2
+                 else _convt_from_torch(t) if module.startswith("ConvTranspose")
+                 else _conv_from_torch(t))
         else:
             _set(params, path, _np(t).copy())
     return params, stats
@@ -226,9 +234,11 @@ def d3_head_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
 
 # ------------------------------------------------------- discriminators ---
 # A D's torch state-dict key is its flax tree path, dot-joined:
-#   <scale>.Conv4x4_i.weight|bias   ↔ params[<scale>][Conv4x4_i][Conv_0][kernel|bias]
-#   <scale>.BatchNorm_i.scale|bias  ↔ params[<scale>][BatchNorm_i][scale|bias]
-#   <scale>.BatchNorm_i.mean|var    ↔ batch_stats[<scale>][BatchNorm_i][mean|var]
+#   <scale>.Conv4x4_i.weight|bias      ↔ params[<scale>][Conv4x4_i][Conv_0][kernel|bias]
+#   <scale>.SpectralConv_i.weight|bias ↔ params[<scale>][SpectralConv_i][kernel|bias]
+#   <scale>.SpectralConv_i.u           ↔ batch_stats[<scale>][SpectralConv_i][u]
+#   <scale>.BatchNorm_i.scale|bias     ↔ params[<scale>][BatchNorm_i][scale|bias]
+#   <scale>.BatchNorm_i.mean|var       ↔ batch_stats[<scale>][BatchNorm_i][mean|var]
 #   conv<i>.weight|bias             ↔ params[conv<i>][kernel|bias]  (the pixel D)
 # (no <scale> level for a single NLayerDiscriminator, ``head`` for the patch D).
 
@@ -261,7 +271,8 @@ def d_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
 
 
 def d_stats_to_torch(stats: Dict) -> "OrderedDict[str, torch.Tensor]":
-    """flax ``batch_stats`` → the port's running ``mean``/``var`` buffers."""
+    """flax ``batch_stats`` → the port's running ``mean``/``var`` (and
+    spectral ``u``) buffers."""
     return OrderedDict((".".join(path), _t(v)) for path, v in _leaves(stats))
 
 
@@ -273,12 +284,14 @@ def torch_to_d_params(state_dict: Dict[str, torch.Tensor]):
     for key, t in state_dict.items():
         path = tuple(key.split("."))
         module, leaf = path[-2], path[-1]
-        if module.startswith("Conv4x4") or module.startswith("conv"):
-            # the PatchGAN's Conv4x4 wraps an nn.Conv; the pixel D's 1×1 convs are bare
+        if leaf in ("weight", "bias") and module.startswith(("Conv4x4", "conv",
+                                                              "SpectralConv")):
+            # the PatchGAN's Conv4x4 wraps an nn.Conv; the pixel D's 1×1 convs
+            # and the spectral convs are bare
             inner = ("Conv_0",) if module.startswith("Conv4x4") else ()
             _set(params, path[:-1] + inner + ("kernel" if leaf == "weight" else "bias",),
                  _conv_from_torch(t) if leaf == "weight" else _np(t).copy())
-        elif leaf in ("mean", "var"):
+        elif leaf in ("mean", "var", "u"):
             _set(stats, path, _np(t).copy())
         else:
             _set(params, path, _np(t).copy())

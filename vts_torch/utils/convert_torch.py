@@ -23,15 +23,17 @@ say.  ``--set KEY=VALUE`` gives a walk's arguments (resnet:
 ``no_antialias``, ``no_antialias_up``, ``use_dropout``, ``n_downsampling``,
 ``n_upsampling``; global: ``n_downsampling``, ``n_blocks``; local:
 ``n_local_enhancers``, ``n_downsample_global``, ``n_blocks_global``,
-``n_blocks_local``; encoder: ``n_downsampling``), with the reference
-converter's defaults.  The output is ``{"params": <the flax tree>, "stats":
-{}}``, with the reference's layout rules:
+``n_blocks_local``; encoder: ``n_downsampling``; spade:
+``num_upsampling_layers``, ``use_vae``, ``ngf``, ``sh``, ``sw``), with the
+reference converter's defaults; or (``--arch spade``) of SPADE's
+``SPADEGenerator`` (models/networks.py:2075-2201), walked as
+:func:`convert_spade` says.  The output is ``{"params": <the flax tree>,
+"stats": <the flax batch_stats: SPADE's u and running statistics, else
+{}>}``, with the reference's layout rules:
 
   torch Conv2d   (out, in, kh, kw) → flax HWIO = transpose(2, 3, 1, 0)
   torch ConvT2d  (in, out, kh, kw) → flax HWIO = transpose(2, 3, 0, 1), flipped
   torch Linear   (out, in)         → flax Dense kernel (in, out)
-
-The reference's ``spade`` converter comes with SPADE.
 """
 
 from __future__ import annotations
@@ -184,19 +186,85 @@ def convert_local(sd: Dict, n_local_enhancers: int = 1, n_downsample_global: int
     return params
 
 
+def convert_spade(sd: Dict, num_upsampling_layers: int = 3, use_vae: bool = False,
+                  ngf: int = None, sh: int = None, sw: int = None):
+    """The reference ``SPADEGenerator`` (models/networks.py:2075-2201,
+    architecture.py:21-68, normalization.py:68-112) → (params, batch_stats).
+    A spectral conv's ``weight_orig`` is the kernel and its ``weight_u`` the
+    ``u`` in the stats (σ and ``u`` do not depend on the flattening, so the
+    forwards agree from the same ``u``); a norm's ``mlp_shared.0``,
+    ``mlp_gamma`` and ``mlp_beta`` are its convs, and its
+    ``param_free_norm.running_{mean,var}`` the stats' ``BatchNorm_0``.
+    The blocks: head_0, G_middle_{0,1}, up_0, up_1..3 by
+    ``num_upsampling_layers``, up_4 beyond 6.  With ``use_vae`` the ``fc``
+    Linear's output axis, (C, H, W) in torch's ``view``, is permuted to the
+    NHWC reshape's (H, W, C), which needs ``ngf``, ``sh`` and ``sw``;
+    without it a 2-D ``fc.weight`` is the reference's ``ValueError``."""
+    params: Dict = {}
+    stats: Dict = {}
+    if use_vae:
+        if None in (ngf, sh, sw):
+            raise ValueError("VAE fc conversion needs ngf/sh/sw")
+        w = _grab(sd, "fc.weight")                       # (C·H·W, z_dim)
+        w = w.reshape(16 * ngf, sh, sw, -1).transpose(1, 2, 0, 3)
+        params["fc"] = {"kernel": np.ascontiguousarray(w.reshape(16 * ngf * sh * sw, -1).T)}
+        if "fc.bias" in sd:
+            b = _grab(sd, "fc.bias").reshape(16 * ngf, sh, sw)
+            params["fc"]["bias"] = np.ascontiguousarray(b.transpose(1, 2, 0).reshape(-1))
+    else:
+        if "fc.weight" in sd and getattr(sd["fc.weight"], "ndim", 4) == 2:
+            raise ValueError("checkpoint's fc.weight is 2-D (a VAE Dense layer) — this is a "
+                             "use_vae SPADE checkpoint; pass use_vae=True plus ngf/sh/sw (CLI: "
+                             "--set use_vae=1 --set ngf=64 --set sh=.. --set sw=..)")
+        params["fc"] = _conv_entry(sd, "fc")
+    blocks = ["head_0", "G_middle_0", "G_middle_1", "up_0"]
+    blocks += [f"up_{i}" for i in range(1, min(num_upsampling_layers - 1, 4))]
+    if num_upsampling_layers > 6:
+        blocks.append("up_4")
+    for blk in blocks:
+        bp: Dict = {}
+        bs: Dict = {}
+        convs = ["conv_0", "conv_1"]
+        if f"{blk}.conv_s.weight_orig" in sd or f"{blk}.conv_s.weight" in sd:
+            convs.append("conv_s")
+        for cv in convs:
+            if f"{blk}.{cv}.weight_orig" in sd:
+                bp[cv] = {"kernel": _conv_w(_grab(sd, f"{blk}.{cv}.weight_orig"))}
+                bs[cv] = {"u": _grab(sd, f"{blk}.{cv}.weight_u")}
+            else:
+                bp[cv] = _conv_entry(sd, f"{blk}.{cv}")
+            if f"{blk}.{cv}.bias" in sd:
+                bp[cv]["bias"] = _grab(sd, f"{blk}.{cv}.bias")
+        for nm in ["norm_0", "norm_1"] + (["norm_s"] if "conv_s" in convs else []):
+            bp[nm] = {"mlp_shared": _conv_entry(sd, f"{blk}.{nm}.mlp_shared.0"),
+                      "mlp_gamma": _conv_entry(sd, f"{blk}.{nm}.mlp_gamma"),
+                      "mlp_beta": _conv_entry(sd, f"{blk}.{nm}.mlp_beta")}
+            rm = f"{blk}.{nm}.param_free_norm.running_mean"
+            if rm in sd:
+                bs.setdefault(nm, {})["BatchNorm_0"] = {
+                    "mean": _grab(sd, rm),
+                    "var": _grab(sd, f"{blk}.{nm}.param_free_norm.running_var")}
+        params[blk] = bp
+        if bs:
+            stats[blk] = bs
+    params["conv_img"] = _conv_entry(sd, "conv_img")
+    return params, stats
+
+
 _PIX2PIXHD = {"global": convert_global, "local": convert_local, "encoder": convert_encoder}
 
 
 def convert_checkpoint(input_path: str, arch: str = "unet256_custom", num_downs: int = 8,
                        num_layer_separate: int = 4, **kw) -> Dict:
-    """A reference ``.pth`` generator → ``{"params": ..., "stats": {}}``;
-    ``kw`` are the walk's arguments (``--set``; the U-Net takes none, as in
-    the reference, which ignores them there)."""
+    """A reference ``.pth`` generator → ``{"params": ..., "stats": ...}``
+    (the stats are empty but for ``spade``); ``kw`` are the walk's
+    arguments (``--set``; the U-Net takes none, as in the reference, which
+    ignores them there)."""
     resnet = arch.startswith("resnet_") and arch.endswith("blocks")
-    if arch != "unet256_custom" and not resnet and arch not in _PIX2PIXHD:
-        raise NotImplementedError(f"converter for arch {arch!r} is not ported yet "
-                                  f"(unet256_custom, resnet_<N>blocks, global, local and "
-                                  f"encoder only)")
+    if arch not in ("unet256_custom", "spade") and not resnet and arch not in _PIX2PIXHD:
+        raise NotImplementedError(f"converter for arch {arch!r} not implemented "
+                                  f"(unet256_custom, resnet_<N>blocks, global, local, encoder "
+                                  f"and spade)")
     import torch
 
     sd = torch.load(input_path, map_location="cpu", weights_only=True)
@@ -206,6 +274,9 @@ def convert_checkpoint(input_path: str, arch: str = "unet256_custom", num_downs:
         return {"params": convert_resnet(sd, n_blocks=n_blocks, **kw), "stats": {}}
     if arch in _PIX2PIXHD:
         return {"params": _PIX2PIXHD[arch](sd, **kw), "stats": {}}
+    if arch == "spade":
+        params, stats = convert_spade(sd, **kw)
+        return {"params": params, "stats": stats}
     return {"params": convert_custom_unet(sd, num_downs, num_layer_separate), "stats": {}}
 
 
@@ -231,7 +302,8 @@ def main(argv=None) -> str:
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="per-arch converter arguments, repeatable (resnet: e.g. "
                          "--set no_antialias=1 --set use_dropout=true; global: --set "
-                         "n_downsampling=4); values parse as bool/int/float where they can")
+                         "n_downsampling=4; spade: --set use_vae=1 --set ngf=64 --set sh=4 "
+                         "--set sw=4); values parse as bool/int/float where they can")
     args = ap.parse_args(argv)
     kw = {}
     for item in args.set:

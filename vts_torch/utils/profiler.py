@@ -20,11 +20,16 @@ kernel intervals) and the idle share, the peak device memory of the
 profiled run, the host time spent in the Fréchet ``sqrtm`` calls (test
 phase), the epoch stepped, whether D3 was active, the batch, dtype and LPIPS
 crop (train phase), and the
-device time per kernel name (top 25).  For a model with a VGG19 loss
-(``--model pix2pixhd``) the train phase also profiles that loss alone on
-the profiled step's outputs, forward and backward to them (``vgg19``: its
-wall, device busy time and kernels), the measure of its share of the
-step.  ``--trace`` also writes the chrome trace.
+device time per kernel name (top 25) and the count of kernel launches.
+For a model with a VGG19 loss (``--model pix2pixhd``, ``spade``) the train
+phase also profiles that loss alone on the profiled step's outputs,
+forward and backward to them (``vgg19``: its wall, device busy time and
+kernels), the measure of its share of the step; for a model with
+spectral-norm convs (``--model spade``) it profiles, alone, the spectral
+norms one step computes (``spectral_norm``): each conv's power iteration
+and kernel / σ, once for each of G's convs and three times for each of
+D's and D2's (the fake, the real and the G-loss pass), with their launches.
+``--trace`` also writes the chrome trace.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from ..data import create_dataset
 from ..device import resolve_device
 from ..metrics import evaluate_batch
 from ..models import create_model
+from ..networks.spade_nets import SpectralConv
 
 
 def _busy_ms(events) -> float:
@@ -135,6 +141,18 @@ def profile_train_step(argv, trace_path: str = None) -> dict:
 
         vgg_part()                                 # warm-up
         out["vgg19"] = _profile(vgg_part)
+    passes = [(m, 1 if name == "G" else 3) for name in model.model_names
+              for m in getattr(model, f"net{name}").modules() if isinstance(m, SpectralConv)]
+    if passes:
+        def spectral_part():
+            for m, n in passes:
+                for _ in range(n):
+                    _ = m.weight.detach() / m.power_iteration()[1]
+            torch.cuda.synchronize()
+
+        spectral_part()                            # warm-up
+        out["spectral_norm"] = dict(_profile(spectral_part), convs=len(passes),
+                                    passes=sum(n for _, n in passes))
     return out
 
 
@@ -149,8 +167,10 @@ def _profile(fn, trace_path: str = None) -> dict:
     events = prof.events()
     busy = _busy_ms(events)
     per_kernel = {}
+    launches = 0
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            launches += 1
             per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (e.time_range.end
                                                                  - e.time_range.start) / 1e3
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:25]
@@ -159,6 +179,7 @@ def _profile(fn, trace_path: str = None) -> dict:
     return {"device": torch.cuda.get_device_name(0), "wall_ms": wall,
             "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "kernel_launches": launches,
             "kernels_ms": [{"name": n[:120], "ms": ms} for n, ms in top]}
 
 
