@@ -132,14 +132,14 @@ Phases, each of which must pass or the script exits non-zero:
      weights and patches, held as in phase 4, the running statistics of G,
      D and D2 within 1e-5, and G's 256² eval forward within 1e-4 of its max;
      the launcher's ``pix2pix launch --mode process`` child on phase 4f's
-     on-disk garment (1 epoch) on the card;
+     on-disk garment (1 epoch of 32 patches, no validation) on the card;
   4h. the pix2pixHD baseline (:func:`pix2pixhd_baseline`): ``vts_torch.train
      --model pix2pixHD --dataset_mode patchskit`` on the 1800² garment at the
      shipped training defaults (the instance-norm global G with ngf 64, 4
      downsamplings and 9 blocks; two 2-scale multiscale Ds with intermediate
      features, ndf 64; lsgan, GAN-feat·10, VGG19·10; batch 32 of 32²
-     patches), cut in length only: 2 epochs of the view's 64 touch squares
-     (4 steps), the full-image validation after each; every loss finite,
+     patches), cut in length only: 1 epoch of the view's 64 touch squares
+     (2 steps), the full-image validation after it; every loss finite,
      G_GAN_Feat 0 (the reference's term), G_VGG finite and > 0, the G, D
      and D2 checkpoints with their Adam files, K1 and K2 launched by the
      validations and K1 dx and K2 bwd not at all; its best G through
@@ -155,7 +155,8 @@ Phases, each of which must pass or the script exits non-zero:
      VGG19 loss's fp32 max-pool near-ties) with the round-off leaves found
      from the CPU gradient, and the pool within 1e-5; G's 256²
      eval forward from the same weights within 1e-4 of its max; the launcher's ``pix2pixhd launch
-     --mode process`` child on phase 4f's on-disk garment (1 epoch) on the
+     --mode process`` child on phase 4f's on-disk garment (1 epoch of 32
+     patches, no validation) on the
      card;
   4i. the SPADE baseline (:func:`spade_baseline`): ``vts_torch.train --model
      spade --dataset_mode patchskit`` on the 1800² garment at the shipped
@@ -163,8 +164,8 @@ Phases, each of which must pass or the script exits non-zero:
      convs and the param-free sync batch norm; two 2-scale multiscale
      spectral-instance Ds with intermediate features, ndf 64; hinge,
      GAN-feat·10, VGG19·10, TTUR; batch 16 of 32² patches), cut in length
-     only: 2 epochs of 2 steps (``--max_dataset_size 32``), the full-image
-     validation after each; every loss finite, G_GAN_Feat and G_VGG > 0,
+     only: 1 epoch of 2 steps (``--max_dataset_size 32``), the full-image
+     validation after it; every loss finite, G_GAN_Feat and G_VGG > 0,
      the G, D and D2 checkpoints with their Adam files and each with ``u``
      in its stats, K1 and K2 launched by the validations and K1 dx and K2
      bwd not at all; its best G through ``vts_torch.test --model spade`` on
@@ -181,7 +182,27 @@ Phases, each of which must pass or the script exits non-zero:
      the cpu (at least 1e-4: VGG19's near-ties on an untrained G's
      near-constant outputs); G's 256² eval forward from the same weights
      within 1e-4 of its max; the launcher's ``spade launch --mode process``
-     child on phase 4f's on-disk garment (1 epoch) on the card;
+     child on phase 4f's on-disk garment (1 epoch of 32 patches, no
+     validation) on the card;
+ 4j. the garment fleet: ``vts_torch.launch ours launch`` in its default
+     mode (one process) on two synthetic 1800² garments at the full-width
+     training defaults, 2 epochs of 2 steps with D3 from epoch 2: finite
+     ``[fleet]`` losses, ``G_D3`` and ``D3_loss`` at epoch 2, each garment's
+     ``latest`` G, D and D2 with their Adam files, and each G through
+     ``vts_torch.test --epoch latest`` (8 finite metrics); one D3-active
+     fleet step of the two at full width against each garment's single
+     step (``--seed g``, same batch and draws) under cuDNN's deterministic
+     algorithms: losses, parameters, running statistics and Adam moments
+     bit for bit, garment 0's update the same bits with garment 1's batch
+     changed, each kernel launched 2 × ``PER_STEP`` times, the LPIPS and
+     CLIP weights at one address in both garments' steps; the 20
+     ``DEFAULT_MATERIALS`` at full width, one step each before D3: the
+     fleet's peak memory within 1 GiB of one garment's step's, both walls;
+     a 256² two-garment fleet step on cuda against cpu under phase 4's rule
+     (G in the 2-norm within the largest jump that weights moved by 1e-6 of
+     themselves make to it on the cpu, where that exceeds 1e-5: a max-pool
+     or ReLU near-tie flipping); a ``pack=2`` ngf-10 generator at 1536²
+     against each garment's ``pack=1`` forward within 1e-4·max|ref| + 1e-5;
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
@@ -1309,7 +1330,8 @@ def pix2pix_baseline(tmp, dirs, wf_data, run_train, run_test):
         ["pix2pix", "launch", "--mode", "process", "--materials", "synthA",
          "--dataroot-template", root, "--checkpoints_dir", os.path.join(tmp, "p2p_ckpt"),
          "--results_dir", os.path.join(tmp, "p2p_res"), "--", "--n_epochs", "1",
-         "--n_epochs_decay", "0", "--no_html"],
+         "--n_epochs_decay", "0", "--no_html", "--max_dataset_size", "32",
+         "--val_for_each_epoch", "false"],
         os.path.join(tmp, "wf_logs", "launch_pix2pix.log"), "cuda", 1)
     check(os.path.exists(os.path.join(tmp, "p2p_ckpt", "synthA_pix2pix_baseline",
                                       "latest_net_G.msgpack")),
@@ -1321,10 +1343,10 @@ def pix2pix_baseline(tmp, dirs, wf_data, run_train, run_test):
 # pix2pixHD at its shipped training defaults (the instance-norm global G:
 # ngf 64, 4 downsamplings, 9 blocks; two 2-scale multiscale Ds with
 # intermediate features, ndf 64; lsgan, GAN-feat·10 and VGG19·10; batch 32
-# of 32² patches from the 1536² view), cut in length only: 2 epochs of the
-# view's 64 touch squares (4 steps), the full-image validation after each
+# of 32² patches from the 1536² view), cut in length only: 1 epoch of the
+# view's 64 touch squares (2 steps), the full-image validation after it
 HD_TRAIN = ["--model", "pix2pixHD", "--dataset_mode", "patchskit", "--name", "p2phd",
-            "--dataroot", P2P_DATA, "--device", "cuda", "--n_epochs", "2",
+            "--dataroot", P2P_DATA, "--device", "cuda", "--n_epochs", "1",
             "--n_epochs_decay", "0", "--val_for_each_epoch", "true"]
 HD_TEST = ["--model", "pix2pixHD", "--name", "p2phd", "--epoch", "best", "--dataroot", P2P_DATA,
            "--device", "cuda"]
@@ -1355,7 +1377,7 @@ def pix2pixhd_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
     run = read_counts()
     losses = model.get_current_losses()
     steps = model.adam["G"].count
-    print(f"[pix2pixhd] {steps} steps of batch 32 over 2 epochs + 2 full-image validations in "
+    print(f"[pix2pixhd] {steps} steps of batch 32 in 1 epoch + 1 full-image validation in "
           f"{time.time() - t0:.2f} s (first run, incl. data and model set-up); G "
           f"{sum(p.numel() for p in model.netG.parameters()) / 1e6:.3f} M params, D "
           f"{sum(p.numel() for p in model.netD.parameters()) / 1e6:.3f} M; last losses: "
@@ -1366,7 +1388,7 @@ def pix2pixhd_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
     check(losses["G_GAN_Feat"] == 0.0 and losses["G_VGG"] > 0,
           f"pix2pixHD: G_GAN_Feat {losses['G_GAN_Feat']} (the reference's term is 0), G_VGG "
           f"{losses['G_VGG']} (> 0)")
-    check(steps == 4, f"the pix2pixHD run took {steps} steps, not 4")
+    check(steps == 2, f"the pix2pixHD run took {steps} steps, not 2")
     check(run["conv3x3_bias_relu"] > 0 and run["gather_patches"] > 0
           and run["conv3x3_dx"] == 0 and run["scatter_patches"] == 0,
           f"the pix2pixHD run (GAN, GAN-feat and VGG19 on cuDNN; the metrics in its "
@@ -1458,7 +1480,8 @@ def pix2pixhd_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
         ["pix2pixhd", "launch", "--mode", "process", "--materials", "synthA",
          "--dataroot-template", root, "--checkpoints_dir", os.path.join(tmp, "hd_ckpt"),
          "--results_dir", os.path.join(tmp, "hd_res"), "--", "--n_epochs", "1",
-         "--n_epochs_decay", "0", "--no_html"],
+         "--n_epochs_decay", "0", "--no_html", "--max_dataset_size", "32",
+         "--val_for_each_epoch", "false"],
         os.path.join(tmp, "wf_logs", "launch_pix2pixhd.log"), "cuda", 1)
     check(os.path.exists(os.path.join(tmp, "hd_ckpt", "synthA_pix2pixHD_baseline",
                                       "latest_net_G.msgpack")),
@@ -1555,10 +1578,10 @@ def pix2pixhd_times(hd, dirs, smi):
 # upsamplings, spectral convs and the param-free sync batch norm; two 2-scale
 # multiscale spectral-instance Ds with intermediate features, ndf 64; hinge,
 # GAN-feat·10 and VGG19·10; TTUR; batch 16 of 32² patches from the 1536²
-# view), cut in length only: 2 epochs of 2 steps (--max_dataset_size 32),
-# the full-image validation after each
+# view), cut in length only: 1 epoch of 2 steps (--max_dataset_size 32),
+# the full-image validation after it
 SP_TRAIN = ["--model", "spade", "--dataset_mode", "patchskit", "--name", "spade",
-            "--dataroot", P2P_DATA, "--device", "cuda", "--n_epochs", "2",
+            "--dataroot", P2P_DATA, "--device", "cuda", "--n_epochs", "1",
             "--n_epochs_decay", "0", "--val_for_each_epoch", "true", "--max_dataset_size", "32"]
 SP_TEST = ["--model", "spade", "--name", "spade", "--epoch", "best", "--dataroot", P2P_DATA,
            "--device", "cuda"]
@@ -1595,7 +1618,7 @@ def spade_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
     run = read_counts()
     losses = model.get_current_losses()
     steps = model.adam["G"].count
-    print(f"[spade] {steps} steps of batch 16 over 2 epochs + 2 full-image validations in "
+    print(f"[spade] {steps} steps of batch 16 in 1 epoch + 1 full-image validation in "
           f"{time.time() - t0:.2f} s (first run, incl. data and model set-up); G "
           f"{sum(p.numel() for p in model.netG.parameters()) / 1e6:.3f} M params, D "
           f"{sum(p.numel() for p in model.netD.parameters()) / 1e6:.3f} M; last losses: "
@@ -1605,7 +1628,7 @@ def spade_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
           f"a SPADE training loss is missing or not finite: {losses}")
     check(losses["G_GAN_Feat"] > 0 and losses["G_VGG"] > 0,
           f"SPADE: G_GAN_Feat {losses['G_GAN_Feat']} and G_VGG {losses['G_VGG']} must be > 0")
-    check(steps == 4, f"the SPADE run took {steps} steps, not 4")
+    check(steps == 2, f"the SPADE run took {steps} steps, not 2")
     check(run["conv3x3_bias_relu"] > 0 and run["gather_patches"] > 0
           and run["conv3x3_dx"] == 0 and run["scatter_patches"] == 0,
           f"the SPADE run (hinge, GAN-feat and VGG19 on cuDNN; the metrics in its "
@@ -1732,7 +1755,8 @@ def spade_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
         ["spade", "launch", "--mode", "process", "--materials", "synthA",
          "--dataroot-template", root, "--checkpoints_dir", os.path.join(tmp, "sp_ckpt"),
          "--results_dir", os.path.join(tmp, "sp_res"), "--", "--n_epochs", "1",
-         "--n_epochs_decay", "0", "--no_html"],
+         "--n_epochs_decay", "0", "--no_html", "--max_dataset_size", "32",
+         "--val_for_each_epoch", "false"],
         os.path.join(tmp, "wf_logs", "launch_spade.log"), "cuda", 1)
     check(os.path.exists(os.path.join(tmp, "sp_ckpt", "synthA_spade_baseline",
                                       "latest_net_G.msgpack")),
@@ -1834,6 +1858,322 @@ def spade_times(sp, dirs, smi):
           f"{sn['kernel_launches']} kernel launches ({sn['kernel_launches'] / rec['kernel_launches']:.3f} "
           f"of the step's); top kernels: " + "; ".join(
               f"{k['name'][:50]} {k['ms']:.3f} ms" for k in sn["kernels_ms"][:5]))
+
+
+# ------------------------------------------------------------------ 4j ---
+# the garment fleet: ``vts_torch.launch ours launch`` in its default mode at
+# the shipped training defaults, on two synthetic 1800² garments, cut in
+# length only: 2 epochs of 2 steps, D3 from epoch 2
+FLEET_MATERIALS = ("fleetA", "fleetB")
+FLEET_TEMPLATE = f"synthetic://{{material}}?size={PADDED}"
+FLEET_TRAIN = ["--data_len", "2", "--n_epochs", "2", "--n_epochs_decay", "0",
+               "--vision_aided_warmup_epoch", "2"]
+FLEET_LINE = re.compile(r"^\[fleet\] epoch (\d+)/(\d+) \(\d+s\)((?: \S+:\S+)+)$", re.M)
+FLEET_SMALL = "synthetic://{material}?size=320&center_w=192&center_h=128&patches=6&val_patches=3"
+
+
+def garment_states(model):
+    """Every tensor a garment's step moves, cloned: its networks' state dicts
+    (parameters and running statistics) and Adam moments."""
+    out = {}
+    for name, net in model.nets().items():
+        out.update({f"{name}.{k}": v.detach().clone() for k, v in net.state_dict().items()})
+        for m in ("mu", "nu"):
+            out.update({f"{name}.{m}.{k}": v.clone()
+                        for k, v in getattr(model.adam[name], m).items()})
+    return out
+
+
+def garment_fleet(tmp, dirs, run_test, smi):
+    """Phase 4j: (a) ``vts_torch.launch ours launch`` (the default mode, the
+    fleet) on two 1800² garments at the full-width training defaults, each
+    garment's ``latest`` G through ``vts_torch.test --epoch latest``; (b) one
+    D3-active fleet step of the two against each garment's single step from
+    the same weights, batch and draws, under cuDNN's deterministic
+    algorithms: bit for bit, garment 0 unmoved by garment 1's batch, the
+    kernels launched 2 × ``PER_STEP`` times, one copy of the frozen towers;
+    (c) the 20 ``DEFAULT_MATERIALS`` at full width, one step each (before
+    D3): peak memory and step walls against one garment's; (d) a 256²
+    two-garment fleet step on cuda against cpu (phase 4's rule); (e) a
+    ``pack=2`` ngf-10 generator at 1536² against each garment's ``pack=1``
+    forward.  What phase 5 and the records need of it."""
+    import concurrent.futures
+    import functools
+
+    import vts_torch.models.sinskit as sinskit
+    from vts_torch.config import TrainOptions
+    from vts_torch.data import create_dataset
+    from vts_torch.launch import DEFAULT_MATERIALS
+    from vts_torch.models import create_model
+    from vts_torch.networks.unet_custom import CustomUNet
+    from vts_torch.parallel.fleet import FleetTrainer, stack_states
+    from vts_torch.parallel.packing import pack_images, pack_tree, unpack_images
+
+    out = {}
+    ck, res = os.path.join(tmp, "fleet_ckpt"), os.path.join(tmp, "fleet_res")
+    # (a) the launcher's default mode, then the test driver on each garment
+    log = os.path.join(tmp, "fleet_launch.log")
+    out["launch_s"] = launcher(["ours", "launch", "--materials", ",".join(FLEET_MATERIALS),
+                                "--dataroot-template", FLEET_TEMPLATE, "--checkpoints_dir", ck,
+                                "--results_dir", res, "--", *FLEET_TRAIN], log, "cuda", 1)
+    with open(log) as f:
+        text = f.read()
+    for ln in text.splitlines():
+        if ln.startswith("[fleet]"):
+            print(ln)
+    lines = FLEET_LINE.findall(text)
+    losses = {int(ep): {k: float(v) for k, v in (kv.split(":") for kv in body.split())}
+              for ep, _, body in lines}
+    check(sorted(losses) == [1, 2] and "[fleet] 2 garments over 1 devices" in text
+          and "[fleet] trained 2 garments in " in text, f"the fleet's lines: {lines}")
+    check(all(math.isfinite(v) for ep in losses.values() for v in ep.values())
+          and {"G_D3", "D3_loss"} <= set(losses[2]) and "G_D3" not in losses[1]
+          and len(losses[2]) >= 15, f"the fleet's losses: {losses}")
+    for m in FLEET_MATERIALS:
+        gd = os.path.join(ck, f"{m}_sinskitG_baseline_ours")
+        missing = [f for f in (f"latest_{kind}_{net}.msgpack" for net in ("G", "D", "D2")
+                               for kind in ("net", "opt")) if not os.path.exists(
+                                   os.path.join(gd, f))]
+        check(not missing, f"the fleet wrote no {missing} for {m}")
+        tm = run_test(["--model", "sinskit", "--epoch", "latest",
+                       "--name", f"{m}_sinskitG_baseline_ours",
+                       "--dataroot", FLEET_TEMPLATE.format(material=m), "--device", "cuda",
+                       "--batch_size_G2", str(K_PATCH), "--checkpoints_dir", ck,
+                       "--results_dir", res])[0]
+        check(len(tm) == 8 and all(math.isfinite(v) for v in tm.values()),
+              f"the fleet's {m} G does not evaluate: {tm}")
+        print(f"[fleet] {m}'s latest G through vts_torch.test: "
+              + " ".join(f"{k}={v:.6g}" for k, v in sorted(tm.items())))
+
+    # (b) one D3-active fleet step against the single steps, at full width
+    full = ["--model", "sinskit", "--name", "fleet_full", "--device", "cuda", "--data_len", "1",
+            "--vision_aided_warmup_epoch", "1", "--no_html"] + dirs
+
+    def opt_for(m, *extra):
+        return TrainOptions().parse(full + ["--dataroot", FLEET_TEMPLATE.format(material=m),
+                                            *extra], quiet=True)
+
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    real_clip, real_d3 = sinskit.init_clip_params, sinskit.d3_logits
+    # the seeded CLIP tower's numpy draws once for the phase's several models
+    sinskit.init_clip_params = functools.lru_cache(real_clip)
+    towers = {"lpips": [], "clip": []}
+
+    def first_ptr(module):
+        return next(iter(module.state_dict().values())).data_ptr()
+
+    def d3_spy(clip, heads, images):
+        towers["clip"].append(first_ptr(clip))
+        return real_d3(clip, heads, images)
+    try:
+        batches = [next(iter(create_dataset(opt_for(m)))) for m in FLEET_MATERIALS]
+        trainer = FleetTrainer(create_model(opt_for(FLEET_MATERIALS[0])), 2)
+        trainer.init_states()
+        hook = trainer.model.lpips_net.register_forward_pre_hook(
+            lambda mod, args: towers["lpips"].append(first_ptr(mod)))
+        sinskit.d3_logits = d3_spy
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.step(batches, 1)
+        torch.cuda.synchronize()
+        out["pair_ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"] = read_counts()
+        sinskit.d3_logits = real_d3
+        hook.remove()
+        fleet = []
+        for g in range(2):
+            trainer.select(g)
+            fleet.append((dict(trainer.model._losses), garment_states(trainer.model)))
+        want = {k: 2 * v for k, v in PER_STEP.items()}
+        print(f"[fleet] a D3-active full-width fleet step of 2 garments: {out['pair_ms']:.1f} ms "
+              f"(the first); launches {out['launches']} (2 x PER_STEP = {want}); LPIPS weights "
+              f"at {sorted(set(towers['lpips']))} in {len(towers['lpips'])} calls, CLIP at "
+              f"{sorted(set(towers['clip']))} in {len(towers['clip'])} calls")
+        check(out["launches"] == want, f"a 2-garment fleet step launched {out['launches']}, "
+                                       f"not {want}")
+        check(len(set(towers["lpips"])) == 1 and len(set(towers["clip"])) == 1
+              and len(towers["lpips"]) >= 4 and len(towers["clip"]) >= 4,
+              f"the frozen towers are not one copy across the garments: {towers}")
+        del trainer
+        varied = []
+        for g in range(2):
+            single = create_model(opt_for(FLEET_MATERIALS[g], "--seed", str(g)))
+            single.setup()
+            single.set_input(batches[g])
+            single.optimize_parameters(1)
+            lf, sf = fleet[g]
+            same_l = all(torch.equal(torch.as_tensor(lf[k]), torch.as_tensor(v))
+                         for k, v in single._losses.items()) and lf.keys() == single._losses.keys()
+            ss = garment_states(single)
+            diff = [k for k in ss if not torch.equal(ss[k], sf[k])]
+            print(f"[fleet] garment {g}: the fleet step against its single step (--seed {g}, "
+                  f"same batch, same draws): losses bit-identical {same_l}; {len(ss) - len(diff)} "
+                  f"of {len(ss)} parameter, statistic and Adam tensors bit-identical"
+                  + (f"; differing: {diff[:8]}" if diff else ""))
+            if not (same_l and not diff):
+                varied.append(g)
+            del single
+        check(not varied, f"the fleet step differs from the single steps for garments {varied}")
+        b1x = {k: v + 0.25 if k in ("S", "I") else v for k, v in batches[1].items()}
+        trainer = FleetTrainer(create_model(opt_for(FLEET_MATERIALS[0])), 2)
+        trainer.init_states()
+        trainer.step([batches[0], b1x], 1)
+        trainer.select(0)
+        s0 = garment_states(trainer.model)
+        same = all(torch.equal(s0[k], fleet[0][1][k]) for k in s0) and all(
+            torch.equal(torch.as_tensor(trainer.losses[0][k]), torch.as_tensor(v))
+            for k, v in fleet[0][0].items())
+        moved = float(trainer.losses[1]["G_L1"]) != float(fleet[1][0]["G_L1"])
+        print(f"[fleet] garment 1's sketch and image shifted by 0.25: garment 0's update "
+              f"bit-identical {same} (garment 1's G_L1 moved: {moved})")
+        check(same and moved, "garment 0's update depends on garment 1's batch")
+        del trainer, fleet
+
+        # (c) the 20 garments, one step each before D3, timed with cuDNN's
+        # own choice of algorithms, as a training run makes it
+        torch.backends.cudnn.deterministic = cudnn_det
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()      # what the script held before the fleet
+        t0 = time.time()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:   # numpy and PIL release the GIL
+            b20 = list(pool.map(lambda m: next(iter(create_dataset(opt_for(m)))),
+                                DEFAULT_MATERIALS))
+        out["data20_s"] = time.time() - t0
+        trainer = FleetTrainer(create_model(opt_for(DEFAULT_MATERIALS[0],
+                                                    "--vision_aided_warmup_epoch", "100")),
+                               len(DEFAULT_MATERIALS))
+        t0 = time.time()
+        trainer.init_states()
+        out["init20_s"] = time.time() - t0
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        slot_bytes = sum(t.numel() * t.element_size() for net in trainer.slots[0].nets.values()
+                         for t in net.state_dict().values()) + sum(
+            t.numel() * t.element_size() for a in trainer.slots[0].adam.values()
+            for t in (*a.mu.values(), *a.nu.values()))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        l20 = trainer.step(b20, 1)
+        torch.cuda.synchronize()
+        out["fleet20_ms"] = (time.perf_counter() - t0) * 1e3
+        out["peak20"] = torch.cuda.max_memory_allocated()
+        finite = all(math.isfinite(float(v)) for ls in l20 for v in ls.values())
+        check(finite and all("G_D3" not in ls for ls in l20),
+              "a loss of the 20-garment fleet step is not finite (or D3 ran)")
+        torch.cuda.reset_peak_memory_stats()
+        model, walls = trainer.model, []
+        trainer.select(0)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.set_input(b20[0])
+            model.optimize_parameters(1)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out["peak1"] = torch.cuda.max_memory_allocated()
+        out["single_ms"] = statistics.median(walls)
+        out["resident"], out["slot_bytes"], out["held"] = resident, slot_bytes, held
+        gib = 2 ** 30
+        print(f"[time fleet] {smi}: 20 garments ({DEFAULT_MATERIALS[0]} .. "
+              f"{DEFAULT_MATERIALS[-1]}) at {CANVAS}², one step each before D3: "
+              f"{out['fleet20_ms']:.1f} ms, {out['fleet20_ms'] / 20:.1f} ms a garment; one "
+              f"garment's step alone on the same model: {out['single_ms']:.1f} ms (median of 3: "
+              f"{', '.join(f'{w:.1f}' for w in walls)}); over the {held / gib:.2f} GiB the "
+              f"script held before the fleet: peak memory of the fleet step "
+              f"{(out['peak20'] - held) / gib:.2f} GiB, of one garment's step "
+              f"{(out['peak1'] - held) / gib:.2f} GiB, resident before the step "
+              f"{(resident - held) / gib:.2f} GiB (the towers and 20 garments' states, "
+              f"{slot_bytes / 2 ** 20:.2f} MiB each); data for 20 garments "
+              f"{out['data20_s']:.1f} s, their set-up {out['init20_s']:.1f} s")
+        check(out["peak20"] <= out["peak1"] + gib,
+              f"the 20-garment fleet's peak {out['peak20']} is not one step's "
+              f"{out['peak1']}")
+        del trainer, model, b20, l20
+        torch.cuda.empty_cache()
+
+        # (d) a 256² two-garment fleet step, cuda against cpu
+        torch.backends.cudnn.deterministic = True
+        small = ["--model", "sinskit", "--name", "fleet_small", "--crop_size", "256",
+                 "--center_w", "192", "--center_h", "128", "--ngf", "4", "--ndf", "4",
+                 "--batch_size_G2", "6", "--batch_size_G2_val", "4",
+                 "--add_fake_T_sample_size", "4", "--data_len", "1", "--init_gain", "0.5",
+                 "--use_vision_aided_loss", "false", "--no_html"] + dirs
+        sb = [next(iter(create_dataset(TrainOptions().parse(
+            small + ["--dataroot", FLEET_SMALL.format(material=m), "--device", "cpu"],
+            quiet=True)))) for m in FLEET_MATERIALS]
+        pair = {}
+        for key in ("cpu", "cuda"):
+            pair[key] = FleetTrainer(create_model(TrainOptions().parse(
+                small + ["--dataroot", FLEET_SMALL.format(material="fleetA"), "--device", key],
+                quiet=True)), 2)
+            pair[key].init_states()
+            pair[key].step(sb, 1)
+        for g in range(2):
+            for tr in pair.values():
+                tr.select(g)
+            # how far G's gradient moves on the cpu when every weight moves by
+            # ~1e-6 of itself (three random directions): a step whose G
+            # gradient jumps there (a max-pool or ReLU near-tie flipping) is
+            # held in the 2-norm to that jump, as SPADE's VGG-on step is
+            ref = {k: v.clone() for k, v in pair["cpu"].model.adam["G"].mu.items()}
+            jumps = []
+            for d in range(3):
+                m = create_model(TrainOptions().parse(
+                    small + ["--dataroot", FLEET_SMALL.format(material="fleetA"),
+                             "--device", "cpu", "--seed", str(g)], quiet=True))
+                m.setup()
+                gen = torch.Generator().manual_seed(100 + d)
+                with torch.no_grad():
+                    for net in m.nets().values():
+                        for prm in net.parameters():
+                            prm.mul_(1 + 1e-6 * torch.randn(prm.shape, generator=gen))
+                m.set_input(sb[g])
+                m.optimize_parameters(1)
+                jumps.append(rel_norm(m.adam["G"].mu, ref, ref))
+                del m
+            jump = max(jumps)
+            print(f"[fleet] 256² garment {g}: on the cpu, weights moved by 1e-6 of themselves "
+                  f"move G's gradient by {', '.join(f'{j:.2e}' for j in jumps)} in the 2-norm"
+                  + ("; G held to the largest, in the 2-norm" if jump > 1e-5 else
+                     "; phase 4's rule"))
+            compare_steps(f"256² fleet step, garment {g}", pair["cpu"].model, pair["cuda"].model,
+                          g_norm=jump if jump > 1e-5 else None)
+        del pair
+    finally:
+        sinskit.init_clip_params, sinskit.d3_logits = real_clip, real_d3
+        torch.backends.cudnn.deterministic = cudnn_det
+
+    # (e) the packed generator: two garments' seeded ngf-10 G on grouped convs
+    in_nc = 1 + 2 * 4                      # the sketch and its positional encoding
+    nets = []
+    for g in range(2):
+        net = CustomUNet(in_nc, ngf=NGF)
+        net.reset_parameters(torch.Generator().manual_seed(g))
+        nets.append(net.cuda().eval())
+    packed = CustomUNet(in_nc, ngf=NGF, pack=2).cuda().eval()
+    packed.load_state_dict(pack_tree(stack_states([n.state_dict() for n in nets])))
+    gdev = torch.Generator(device="cuda").manual_seed(4)
+    xs = [torch.rand(1, CANVAS, CANVAS, in_nc, generator=gdev, device="cuda") * 2 - 1
+          for _ in range(2)]
+    with torch.no_grad():
+        got = unpack_images(packed(pack_images(xs)), 2)
+        refs = [torch.cat(n(x), -1) for n, x in zip(nets, xs)]
+        out["packed_ms"] = cuda_ms(lambda: packed(pack_images(xs)), reps=5, warmup=1)
+        out["unpacked_ms"] = cuda_ms(lambda: [n(x) for n, x in zip(nets, xs)], reps=5, warmup=1)
+    errs = []
+    for g in range(2):
+        tol = 1e-4 * refs[g].abs().max().item() + 1e-5
+        errs.append(((got[g] - refs[g]).abs().max().item(), tol))
+    print(f"[fleet] pack=2 ngf-{NGF} generator at {CANVAS}² on cuda against each garment's "
+          f"pack=1 forward: max|d| {', '.join(f'{e:.3e} (tol {t:.3e})' for e, t in errs)}; "
+          f"forward {out['packed_ms']:.2f} ms packed, {out['unpacked_ms']:.2f} ms for the two "
+          f"pack=1 nets ({smi})")
+    check(all(e <= t for e, t in errs), "the packed generator disagrees with the per-garment ones")
+    del nets, packed, xs, got, refs
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2745,6 +3085,14 @@ def main() -> int:
     sp_s = time.time() - t0
     print(f"[spade] phase 4i took {sp_s:.1f} s")
 
+    # --------------------------------------------------------------- 4j ---
+    print(f"[phase] phase 4j (the garment fleet) from {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    fl = garment_fleet(tmp, dirs, run_test, smi)
+    fl_s = time.time() - t0
+    print(f"[fleet] phase 4j took {fl_s:.1f} s (the launcher's fleet {fl['launch_s']:.1f} s)")
+
     # ---------------------------------------------------------------- 5 ---
     print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s; the card: {card_state()} "
           f"(SM clock, power, temperature)")
@@ -3348,9 +3696,9 @@ def main() -> int:
     print(f"[device-only] the card: {card_state()} (SM clock, power, temperature)")
     # our kernels here; the library calls and the D3 part in a process of
     # their own (see library_device_times)
-    times = device_times([(call, kname_, 20 if kname_ == "conv3x3" else 50)
+    times = device_times([(call, kname_, 10 if kname_ == "conv3x3" else 25)
                           for _, _, _, call, kname_, _, _ in deferred])
-    lib_times = library_device_times([(spec, 10) for *_, spec, _ in deferred] + d3_specs)
+    lib_times = library_device_times([(spec, 5) for *_, spec, _ in deferred] + d3_specs)
     d3_dev, resize_dev = lib_times[-2:]
     print(f"[time D3] the D3 part of a {CANVAS}² step (CLIP ViT-B/32 of real I, no grad; of "
           f"fake_I with grad; backward to fake_I): {d3_ms:.2f} ms (host only {d3_host:.2f} ms, "
@@ -3422,7 +3770,8 @@ def main() -> int:
                             launches_in_run=in_run[path][kname]))
     print(f"[shapes] {json.dumps(shape_rows)}")
     print(f"[done] chip_smoke took {time.time() - t_start:.1f} s (phase 4f: {workflow_s:.1f} s, "
-          f"phase 4g: {p2p_s:.1f} s, phase 4h: {hd_s:.1f} s, phase 4i: {sp_s:.1f} s)")
+          f"phase 4g: {p2p_s:.1f} s, phase 4h: {hd_s:.1f} s, phase 4i: {sp_s:.1f} s, "
+          f"phase 4j: {fl_s:.1f} s)")
     tmp_dir.cleanup()
 
     print(smi)

@@ -31,6 +31,8 @@ import sys
 import numpy as np
 import pytest
 
+from tests.torch_port_step import seeded_towers_drawn_once  # noqa: F401  (autouse fixture)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = "synthetic://opts?size=320&center_w=192&center_h=128&patches=6&val_patches=3"
 SMALL = ["--dataroot", DATA, "--crop_size", "256", "--center_w", "192", "--center_h", "128",

@@ -62,6 +62,7 @@ import torch
 from tests.test_torch_port_pix2pix import _adam_spread, _copy, _patch_batch, _port_model
 from tests.test_torch_port_train import ZERO_GRAD, _grad_tol
 from tests.torch_port_step import env  # noqa: F401  (module-scoped fixture)
+from tests.torch_port_step import seeded_towers_drawn_once  # noqa: F401  (autouse fixture)
 from tests.torch_port_step import flat
 
 DATA = "synthetic://p2phd?size=320&center_w=192&center_h=128&patches=6&val_patches=3"

@@ -99,6 +99,7 @@ def test_port_imports_without_jax_or_vts_tpu():
             "import vts_torch.models.pix2pixhd, vts_torch.networks.pix2pixhd_nets; "
             "import vts_torch.losses.vgg, vts_torch.utils.image_pool; "
             "import vts_torch.models.spade, vts_torch.networks.spade_nets; "
+            "import vts_torch.parallel, vts_torch.parallel.fleet, vts_torch.parallel.packing; "
             "bad = [m for m in sys.modules if m.startswith('vts_tpu') "
             "or m.split('.')[0] in ('jax', 'flax', 'optax') and sys.modules[m] is not None]; "
             "assert not bad, bad; print('ok')")

@@ -41,6 +41,7 @@ import torch
 
 from tests.test_torch_port_train import _grad_tol
 from tests.torch_port_step import K, env  # noqa: F401  (module-scoped fixture)
+from tests.torch_port_step import seeded_towers_drawn_once  # noqa: F401  (autouse fixture)
 from tests.torch_port_step import flat, jax_aug_draws, jax_batch, np_tree, run_step
 
 GAN_MODES = ["lsgan", "vanilla", "wgan", "wgangp", "nonsaturating", "hinge"]

@@ -10,7 +10,8 @@ inputs (numpy, from a seed; results trees written here):
     missing and one with only an older epoch;
   * the launcher: the reference's presets and materials, its commands with
     ``vts_tpu.`` → ``vts_torch.`` (``commands``, ``--dry_run``), the same
-    comparison pages, ``--mode fleet`` refused by name, the first non-zero
+    comparison pages, the fleet as the default (on cuda; a baseline refused by
+    name), the first non-zero
     child exit code, a baseline's child failing; and on the CPU the whole
     edit → render workflow through it (train two garments in two processes,
     test them, test their edited sketches, roll up, compare, postprocess);
@@ -169,8 +170,12 @@ def test_launcher_commands_and_presets_match_jax(tmp_path):
         got = _run(port_launch.main, argv)
         assert got[0] == want[0] == 0
         assert got[1] == want[1].replace("vts_tpu.", "vts_torch."), argv
-    with pytest.raises(NotImplementedError, match="--mode fleet"):
-        port_launch.main(["ours", "launch", "--materials", "a"])
+    # the default mode is now the fleet, which runs on cuda unless told otherwise
+    # (there is none here) and refuses a baseline's preset by name
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        port_launch.main(["ours", "launch", "--materials", "a", *dirs])
+    with pytest.raises(ValueError, match="--mode fleet cannot train 'pix2pix'"):
+        port_launch.main(["pix2pix", "launch", "--materials", "a"])
     with pytest.raises(SystemExit):
         port_launch.main(["ours", "compare", "--against", "nope"])
 

@@ -54,6 +54,19 @@ def env(tmp_path_factory):
             os.environ["VTS_SYNTH_DIR"] = old
 
 
+@pytest.fixture(scope="module", autouse=True)
+def seeded_towers_drawn_once():
+    """The seeded LPIPS, Inception and CLIP towers' numpy draws (deterministic,
+    ~3 s a model with CLIP, most of a small model's set-up) made once for a
+    module's many models; each model still builds its towers from them and
+    runs its own ``setup``.  Autouse in the modules that import it."""
+    import vts_torch.models.sinskit as sinskit
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("init_clip_params", "init_lpips_params", "init_inception_params"):
+            mp.setattr(sinskit, name, functools.lru_cache(getattr(sinskit, name)))
+        yield
+
+
 def flat(tree):
     return {jax.tree_util.keystr(p): np.asarray(v)
             for p, v in jax.tree_util.tree_leaves_with_path(tree)}

@@ -2,22 +2,40 @@
 tmux/GPUtil layer, experiments/tmux_launcher.py:70-163, __main__.py:26-88).
 
 The reference fans the 20 TouchClothing garments out as 20 OS processes.
-Here ``--mode process`` starts one ``vts_torch.train`` (phase ``launch``) or
-``vts_torch.test`` (phase ``test``) subprocess per garment, all at once on
-the same card, and returns the first non-zero exit code.  ``commands``
+Here a ``launch`` is either:
+
+  * ``--mode fleet`` (the default): every garment trained in ONE process on
+    the one card (:mod:`vts_torch.parallel.fleet`): the frozen LPIPS,
+    Inception, CLIP and D3 towers on the card once, the garments' steps one
+    after another, each garment's G, D and D2 initialized from its index as
+    ``--seed`` (the reference's ``seeds=range(G)``).  Each epoch runs over
+    the zip of the garments' loaders (as long as the shortest), a ``[fleet]``
+    line with each loss averaged over the garments every ``max(1,
+    print_freq // 100)`` epochs, each garment's ``latest_{net,opt}_{G,D,D2}
+    .msgpack`` under ``<checkpoints_dir>/<material>_<suffix>`` every
+    ``--save_epoch_freq`` epochs and at the end; no validation, no ``best``
+    and no gallery, as in the reference.  ``ours`` and ``skit`` run in the
+    fleet; the baselines' presets (pix2pix, pix2pixhd, spade) are refused by
+    name, before any data is built (the reference's fleet calls
+    ``_train_step(..., frozen, use_d3=...)``, which their steps do not take);
+  * ``--mode process``: one ``vts_torch.train`` (phase ``launch``) or
+    ``vts_torch.test`` (phase ``test``) subprocess per garment, all at once
+    on the same card; the first non-zero exit code is returned.
+
+The ``test`` phase always runs process mode, as in the reference: test a
+fleet's garments with ``--epoch latest`` (the default ``best`` finds no
+checkpoint after a fleet launch, and the test driver then keeps the
+initialized weights with a message, as the reference's does).  ``commands``
 prints the per-garment commands, ``compare`` writes one side-by-side gallery
 per garment over the methods (:mod:`vts_torch.utils.compare`).  Flags after
-``--`` go to every child unchanged; the children run on ``cuda`` unless
-they get ``--device cpu`` there.  ``--mode fleet`` (the reference's default:
-all garments in one process, ``vts_tpu/parallel/fleet.py``) is not ported
-and is refused by name; the test phase always runs process mode, as in the
-reference.  The baselines' presets (pix2pix, pix2pixhd, spade) are printed
-by ``commands``, and their children run.
+``--`` go to every child unchanged, or to the fleet's options; both run on
+``cuda`` unless given ``--device cpu`` there.
 
 Usage:
-  python -m vts_torch.launch ours launch --mode process --materials mat1,mat2 \\
+  python -m vts_torch.launch ours launch --materials mat1,mat2 \\
       --dataroot-template ./datasets/singleskit_{material}_padded_1800_x1/ -- --n_epochs 5
-  python -m vts_torch.launch ours test --materials ... --epoch best
+  python -m vts_torch.launch ours launch --mode process --materials ...
+  python -m vts_torch.launch ours test --materials ... --epoch latest
   python -m vts_torch.launch ours commands
   python -m vts_torch.launch ours compare --against skit --filter fake_I
 """
@@ -25,10 +43,12 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 import shlex
 import subprocess
 import sys
+import time
 from typing import Dict, List
 
 # per-method flag presets (reference experiments/SingleG_AllMaterials_baseline_*_launcher.py
@@ -87,6 +107,69 @@ def run_process_mode(method: str, materials: List[str], args) -> int:
     return rc
 
 
+# the models whose step the fleet can run: sinskit's, and skit's, which
+# inherits it; the baselines' steps have another signature in the reference
+FLEET_MODELS = ("sinskit", "skit")
+
+
+def run_fleet_mode(method: str, materials: List[str], args) -> int:
+    """Every garment in one process on one device (see the module docstring)."""
+    import torch
+
+    from .config import TrainOptions
+    from .data import create_dataset
+    from .device import describe, resolve_device
+    from .models import create_model
+    from .parallel.fleet import FleetTrainer
+
+    preset = METHOD_PRESETS[method]
+    if preset["model"] not in FLEET_MODELS:
+        raise ValueError(
+            f"--mode fleet cannot train {method!r} (--model {preset['model']}): the reference's "
+            f"fleet calls _train_step(..., frozen, use_d3=...) (vts_tpu/parallel/fleet.py:62, "
+            f":71), which the {preset['model']} step does not take; use --mode process")
+    base_argv = ["--model", preset["model"], "--dataset_mode", preset["dataset_mode"],
+                 "--dataroot", args.dataroot_template.format(material=materials[0]),
+                 "--checkpoints_dir", args.checkpoints_dir,
+                 "--results_dir", args.results_dir] + args.extra
+    opt = TrainOptions().parse(base_argv, quiet=True)
+    device = resolve_device(opt.device)
+    print(f"[device] fleet trains on {describe(device)}", flush=True)
+    print(f"[fleet] {len(materials)} garments over 1 devices")
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        loaders = []
+        for m in materials:
+            sub = copy.copy(opt)
+            sub.dataroot = args.dataroot_template.format(material=m)
+            sub.name = f"{m}_{preset['name_suffix']}"
+            loaders.append(create_dataset(sub))
+        model = create_model(opt)
+        trainer = FleetTrainer(model, len(materials))
+        trainer.init_states()
+        total_epochs = opt.n_epochs + opt.n_epochs_decay
+        t0 = time.time()
+        for epoch in range(opt.epoch_count, total_epochs + 1):
+            for ld in loaders:
+                ld.set_epoch(epoch)
+            for batches in zip(*[iter(ld) for ld in loaders]):
+                trainer.step(list(batches), epoch)
+            if epoch % max(1, opt.print_freq // 100) == 0 and trainer.losses:
+                print(f"[fleet] epoch {epoch}/{total_epochs} ({time.time() - t0:.0f}s) "
+                      + " ".join(f"{k}:{v:.3f}" for k, v in trainer.mean_losses().items()),
+                      flush=True)
+            if epoch % opt.save_epoch_freq == 0 or epoch == total_epochs:
+                for gi, m in enumerate(materials):
+                    trainer.save(gi, os.path.join(args.checkpoints_dir,
+                                                  f"{m}_{preset['name_suffix']}"), "latest")
+        print(f"[fleet] trained {len(materials)} garments in {time.time() - t0:.0f}s")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return 0
+
+
 def run_compare(methods: List[str], materials: List[str], args) -> int:
     """One comparison page per garment, ``<results_dir>/comparison_<material>``,
     one column per method's ``test_<epoch>/images``."""
@@ -142,9 +225,7 @@ def main(argv=None) -> int:
         return 0
     if args.phase == "test" or args.mode == "process":
         return run_process_mode(args.method, materials, args)
-    raise NotImplementedError("--mode fleet (every garment in one process, "
-                              "vts_tpu/parallel/fleet.py) is not ported yet; "
-                              "use --mode process")
+    return run_fleet_mode(args.method, materials, args)
 
 
 if __name__ == "__main__":

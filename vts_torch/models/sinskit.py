@@ -191,9 +191,7 @@ class SinSKITModel:
         the device with Adam moments for each network that trains; the
         frozen CLIP tower (``--clip_weights`` or the seeded one) for the style
         code and for D3, with D3's heads, when either is on."""
-        seed = int(self.opt.seed)
-        self.netG.reset_parameters(torch.Generator().manual_seed(seed))
-        self.netG.to(self.device)
+        self.init_nets(int(self.opt.seed))
         n_params = sum(p.numel() for p in self.netG.parameters())
         print(f"[sinskit] netG params: {n_params / 1e6:.3f} M")
         if self.opt.use_style_code or (self.isTrain and self.use_d3):
@@ -208,20 +206,33 @@ class SinSKITModel:
                       (f"D3 from epoch {self.opt.vision_aided_warmup_epoch}",
                        self.isTrain and self.use_d3)) if on))
         if not self.isTrain:
+            return
+        print(f"[sinskit] netD params: "
+              f"{sum(p.numel() for p in self.netD.parameters()) / 1e6:.3f} M, netD2: "
+              f"{sum(p.numel() for p in self.netD2.parameters()) / 1e6:.3f} M")
+        if self.use_d3:
+            self.d3_heads = D3Heads(init_d3_head_params(0)).to(self.device)
+
+    def init_nets(self, seed: int) -> None:
+        """Seeded init of the networks in place, on the device: G from ``seed``
+        (in eval mode outside training), D and D2 from ``seed`` + 1 and + 2,
+        with fresh Adam moments for each network that trains.  What
+        :meth:`setup` does with ``--seed`` and the fleet with each garment's
+        seed (:class:`vts_torch.parallel.fleet.FleetTrainer`).  The draws run
+        on the CPU, wherever the networks are, so every device gets the same
+        weights."""
+        self.netG.cpu().reset_parameters(torch.Generator().manual_seed(seed))
+        self.netG.to(self.device)
+        if not self.isTrain:
             self.netG.eval()
             return
         init = make_initializer(self.opt.init_type, self.opt.init_gain)
         for i, net in enumerate((self.netD, self.netD2)):
-            reset_d(net, init, torch.Generator().manual_seed(seed + 1 + i))
+            reset_d(net.cpu(), init, torch.Generator().manual_seed(seed + 1 + i))
             net.to(self.device).train()
         self.netG.train()
-        print(f"[sinskit] netD params: "
-              f"{sum(p.numel() for p in self.netD.parameters()) / 1e6:.3f} M, netD2: "
-              f"{sum(p.numel() for p in self.netD2.parameters()) / 1e6:.3f} M")
-        for name, net in self.nets().items():
-            self.adam[name] = Adam(net.named_parameters(), self.opt.beta1, self.opt.beta2)
-        if self.use_d3:
-            self.d3_heads = D3Heads(init_d3_head_params(0)).to(self.device)
+        self.adam = {name: Adam(net.named_parameters(), self.opt.beta1, self.opt.beta2)
+                     for name, net in self.nets().items()}
 
     def _pe(self, n: int, h: int, w: int):
         """The positional encoding, built on the host once per (n, h, w) and
@@ -697,9 +708,10 @@ class SinSKITModel:
                     unet_params_to_torch, unet_stats_to_torch)
         return torch_to_d_params, d_params_to_torch, d_stats_to_torch
 
-    def save_networks(self, tag: str) -> None:
+    def save_networks(self, tag: str, ckpt_dir: Optional[str] = None) -> None:
         """``<tag>_net_<Name>.msgpack`` per network, and ``<tag>_opt_<Name>
-        .msgpack`` with its Adam state in training."""
+        .msgpack`` with its Adam state in training, under ``ckpt_dir``
+        (default ``<checkpoints_dir>/<name>``)."""
         for name, net in self.nets().items():
             to_flax = self._converters(name)[0]
             params, stats = to_flax(net.state_dict())
@@ -708,7 +720,7 @@ class SinSKITModel:
                 a = self.adam[name]
                 opt_state = adam_state_to_flax(a.count, a.mu, a.nu,
                                                lambda sd: to_flax(sd)[0])
-            save_net(self._ckpt_dir(False), tag, name, params, stats, opt_state)
+            save_net(ckpt_dir or self._ckpt_dir(False), tag, name, params, stats, opt_state)
 
     def load_networks(self, tag: str) -> None:
         for name, net in self.nets().items():

@@ -12,7 +12,11 @@ to x's dtype, as flax's ``BatchNorm(dtype=…)``.
 Layouts: ``Conv4x4`` holds a torch OIHW weight; ``ConvT4x4`` holds the
 (in, out, kh, kw) weight of ``ConvTranspose2d(k=4, s=2, p=1)`` — the
 reference's flax ``ConvTranspose(padding=2)`` kernel spatially flipped and
-io-transposed (:mod:`vts_torch.utils.convert_jax`).
+io-transposed (:mod:`vts_torch.utils.convert_jax`).  ``groups`` G > 1 (the
+garment-packing layout, :mod:`vts_torch.parallel.packing`) keeps the keys:
+a grouped ``Conv4x4`` weight is (G·out, in, kh, kw) and a grouped
+``ConvT4x4`` weight (G·in, out, kh, kw), per-garment sizes inside, so in
+both the garment blocks run along the first axis.
 
 The antialiased resamplers of the ResNet generator (:func:`blur_downsample`,
 :func:`blur_upsample`) are depthwise convs with a fixed binomial filter.
@@ -226,13 +230,16 @@ def avg_pool_3x3_s2_nopad_count(x):
 
 class Conv(nn.Module):
     """k×k conv over NHWC (a torch OIHW weight), with the reference's stride
-    and symmetric padding."""
+    and symmetric padding; ``groups`` G > 1 is the garment-packing path:
+    ``in_c`` and ``out_c`` count all G garments' channels, the weight is
+    (out_c, in_c / G, k, k), and each garment's block of outputs reads its
+    block of inputs."""
 
     def __init__(self, in_c: int, out_c: int, k: int, use_bias: bool = True, stride: int = 1,
-                 padding: int = 0):
+                 padding: int = 0, groups: int = 1):
         super().__init__()
-        self.stride, self.padding = stride, padding
-        self.weight = nn.Parameter(torch.zeros(out_c, in_c, k, k))
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight = nn.Parameter(torch.zeros(out_c, in_c // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(out_c)) if use_bias else None
 
     def reset_parameters(self, init, gen):
@@ -247,9 +254,10 @@ class Conv(nn.Module):
     def _conv(self, x, weight, dtype):
         if dtype == torch.float32:
             return _to_nhwc(F.conv2d(_to_nchw(x.float()), weight, self.bias,
-                                     stride=self.stride, padding=self.padding))
+                                     stride=self.stride, padding=self.padding,
+                                     groups=self.groups))
         y = _to_nhwc(F.conv2d(_to_nchw(x.to(dtype)), weight.to(dtype), None,
-                              stride=self.stride, padding=self.padding))
+                              stride=self.stride, padding=self.padding, groups=self.groups))
         return y if self.bias is None else y + self.bias.to(dtype)
 
 
@@ -258,42 +266,62 @@ class Conv4x4(Conv):
     heads use pad 2 at stride 2 and 1."""
 
     def __init__(self, in_c: int, out_c: int, use_bias: bool = True, stride: int = 2,
-                 padding: int = 1):
-        super().__init__(in_c, out_c, 4, use_bias, stride, padding)
+                 padding: int = 1, groups: int = 1):
+        super().__init__(in_c, out_c, 4, use_bias, stride, padding, groups)
 
 
 class ConvT4x4(nn.Module):
-    """4×4 transposed conv, stride 2 → exact 2× upsample."""
+    """4×4 transposed conv, stride 2 → exact 2× upsample.  With ``groups`` G
+    (channels counted over all garments) the weight is ``ConvTranspose2d``'s
+    grouped one, (in_c, out_c / G, 4, 4): the garment blocks run along its
+    INPUT axis (along the output axis in a grouped ``Conv4x4``), under the
+    same state-dict key as the ungrouped weight, as the reference's grouped
+    conv keeps flax's ``ConvTranspose_0``."""
 
-    def __init__(self, in_c: int, out_c: int, use_bias: bool = True):
+    def __init__(self, in_c: int, out_c: int, use_bias: bool = True, groups: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(in_c, out_c, 4, 4))
+        self.groups = groups
+        self.weight = nn.Parameter(torch.zeros(in_c, out_c // groups, 4, 4))
         self.bias = nn.Parameter(torch.zeros(out_c)) if use_bias else None
 
     def reset_parameters(self, init, gen):
         i, o, kh, kw = self.weight.shape
-        init(self.weight, i * kh * kw, o * kh * kw, gen, 1)
+        init(self.weight, i // self.groups * kh * kw, o * self.groups * kh * kw, gen, 1)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
     def forward(self, x, dtype: torch.dtype = torch.float32):
         if dtype == torch.float32:
             return _to_nhwc(F.conv_transpose2d(_to_nchw(x.float()), self.weight, self.bias,
-                                               stride=2, padding=1))
+                                               stride=2, padding=1, groups=self.groups))
         y = _to_nhwc(F.conv_transpose2d(_to_nchw(x.to(dtype)), self.weight.to(dtype), None,
-                                        stride=2, padding=1))
+                                        stride=2, padding=1, groups=self.groups))
         return y if self.bias is None else y + self.bias.to(dtype)
+
+
+def packed_concat(a: torch.Tensor, b: torch.Tensor, groups: int) -> torch.Tensor:
+    """Channel concat per garment block: (…, G·Ca) ⊕ (…, G·Cb) → (…, G·(Ca + Cb))
+    with garment g's channels contiguous, ``[a_g, b_g]``, as a grouped conv
+    reads them (a plain concat for G = 1)."""
+    if groups == 1:
+        return torch.cat([a, b], dim=-1)
+    lead = a.shape[:-1]
+    out = torch.cat([a.reshape(*lead, groups, a.shape[-1] // groups),
+                     b.reshape(*lead, groups, b.shape[-1] // groups)], dim=-1)
+    return out.reshape(*lead, a.shape[-1] + b.shape[-1])
 
 
 class Down(nn.Module):
     """[LeakyReLU(0.2)] + Conv4x4(s2) + [norm]; outermost: conv only;
-    innermost: no norm."""
+    innermost: no norm.  ``groups``: the packed layout (channels in G garment
+    blocks; the norms are per channel, so per garment)."""
 
     def __init__(self, in_c: int, out_c: int, innermost: bool = False,
-                 outermost: bool = False, use_bias: bool = True, norm: str = "instance"):
+                 outermost: bool = False, use_bias: bool = True, norm: str = "instance",
+                 groups: int = 1):
         super().__init__()
         self.outermost = outermost
-        self.conv = Conv4x4(in_c, out_c, use_bias)
+        self.conv = Conv4x4(in_c, out_c, use_bias, groups=groups)
         self.norm = None if (outermost or innermost) else make_norm(norm, out_c)
 
     def forward(self, x, dtype: torch.dtype = torch.float32):
@@ -305,19 +333,22 @@ class Down(nn.Module):
 
 class Up(nn.Module):
     """[cat(x, skip)] + ReLU + ConvT4x4(s2) + norm, or + Tanh at the
-    outermost level (which takes no skip, like the innermost)."""
+    outermost level (which takes no skip, like the innermost); with
+    ``groups`` the concat keeps each garment's block contiguous."""
 
     def __init__(self, in_c: int, out_c: int, innermost: bool = False,
-                 outermost: bool = False, use_bias: bool = True, norm: str = "instance"):
+                 outermost: bool = False, use_bias: bool = True, norm: str = "instance",
+                 groups: int = 1):
         super().__init__()
         self.outermost = outermost
+        self.groups = groups
         self.takes_skip = not (outermost or innermost)
-        self.convt = ConvT4x4(in_c, out_c, True if outermost else use_bias)
+        self.convt = ConvT4x4(in_c, out_c, True if outermost else use_bias, groups=groups)
         self.norm = None if outermost else make_norm(norm, out_c)
 
     def forward(self, x, skip=None, dtype: torch.dtype = torch.float32):
         if self.takes_skip and skip is not None:
-            x = torch.cat([x, skip], dim=-1)
+            x = packed_concat(x, skip, self.groups)
         x = self.convt(torch.relu(x), dtype)
         return torch.tanh(x) if self.outermost else self.norm(x)
 

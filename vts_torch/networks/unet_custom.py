@@ -31,8 +31,16 @@ and ngf // 2 for concat; H_i from ``input_size``).  The fork into the
 tactile branch comes after the level's injection, so the first ``up{i}_T``
 takes the style channels too.
 
-The reference's garment-packing branch (independent garments' weights on
-grouped convs, a TPU layout for the fleet) is not ported.
+Garment packing (``pack`` G > 1): G independent garments' nets in one, on
+grouped convs (``groups=G``) over channel-stacked inputs (N, H, W, G·in_nc);
+every level has G·its channels, in G garment blocks, the skip concats and
+the tactile head's extra up stages included; the norms are per channel, so
+per garment.  At ``t_mult`` 1 the net then returns one (N, H, W, G·5)
+tensor, each garment's [visual 3, tactile 2] contiguous
+(:func:`~vts_torch.networks.blocks.packed_concat`); at ``t_mult`` > 1 the
+pair (N, H, W, G·3), (N, H·t, W·t, G·2).  A packed state dict has the keys
+of a single garment's (:mod:`vts_torch.parallel.packing` maps one onto the
+other).  Packing takes no style code.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .blocks import Down, Up, make_initializer, norm_uses_bias
+from .blocks import Down, Up, make_initializer, norm_uses_bias, packed_concat
 
 
 def adaptive_instance_norm(content: torch.Tensor, style: torch.Tensor, eps: float = 1e-5):
@@ -85,9 +93,12 @@ class CustomUNet(nn.Module):
                  style_code_dim: int = 512, style_code_mode: str = "concat",
                  style_code_mapping_mode: str = "tile", num_layer_style_code: int = -1,
                  input_size: int = 1536, t_mult: int = 1, init_type: str = "xavier",
-                 init_gain: float = 0.02, dtype: torch.dtype = torch.float32):
+                 init_gain: float = 0.02, dtype: torch.dtype = torch.float32, pack: int = 1):
         super().__init__()
         self.dtype = dtype
+        if pack > 1 and use_style_code:
+            raise NotImplementedError("style codes are per-model; packing is "
+                                      "for independent per-garment models")
         if out_nc != 5:
             raise ValueError("architecture emits 3 RGB + 2 touch channels")
         if style_code_mode not in ("concat", "adain"):
@@ -105,14 +116,16 @@ class CustomUNet(nn.Module):
         self.num_layer_separate = num_layer_separate
         self.init_type, self.init_gain = init_type, init_gain
         self.t_mult = t_mult
+        self.pack = pack
         self.use_style_code = use_style_code
         self.style_code_mode = style_code_mode
         self.style_code_mapping_mode = style_code_mapping_mode
         n_style = nd if num_layer_style_code == -1 else num_layer_style_code
         # the decoder levels that take the style code
         self.style_levels = set(range(nd - n_style, nd)) if use_style_code else set()
-        nb = dict(norm=norm_type, use_bias=norm_uses_bias(norm_type))
-        c_down = [g * min(2 ** min(i, 3), 8) if i < nd // 2 else g * 8 for i in range(nd)]
+        nb = dict(norm=norm_type, use_bias=norm_uses_bias(norm_type), groups=pack)
+        c_down = [pack * g * min(2 ** min(i, 3), 8) if i < nd // 2 else pack * g * 8
+                  for i in range(nd)]
         self.style = nn.ModuleDict()
         if style_code_mapping_mode == "project":
             st_nc = g * 8 if style_code_mode == "adain" else g // 2
@@ -124,7 +137,7 @@ class CustomUNet(nn.Module):
         # the channels a concat adds at a style level
         st_cat = st_nc if style_code_mode == "concat" else 0
         self.down = nn.ModuleDict()
-        c_prev = in_nc
+        c_prev = pack * in_nc
         for i in range(nd):
             self.down[f"down{i}"] = Down(c_prev, c_down[i], innermost=(i == nd - 1),
                                          outermost=(i == 0), **nb)
@@ -134,22 +147,22 @@ class CustomUNet(nn.Module):
             if i == nd - 1:
                 c_in = c_down[i]
             elif i == 0:
-                c_in = g
+                c_in = pack * g
             else:
-                c_in = g * min(2 ** i, 8) + c_down[i]   # up_{i+1} output ⊕ skip_i
+                c_in = pack * g * min(2 ** i, 8) + c_down[i]   # up_{i+1} output ⊕ skip_i
             if i in self.style_levels:
                 c_in += st_cat
-            c_out = g * min(2 ** (i - 1), 8) if i > 0 else 3
+            c_out = pack * (g * min(2 ** (i - 1), 8) if i > 0 else 3)
             kw = dict(innermost=(i == nd - 1), outermost=(i == 0), **nb)
             self.up[f"up{i}"] = Up(c_in, c_out, **kw)
             if i <= num_layer_separate - 1:
                 if i == 0 and t_mult > 1:
                     # the extra stages run first, so the first takes the style
                     for j in range(t_mult.bit_length() - 1):
-                        self.up[f"up0_T_extra{j}"] = Up(c_in if j == 0 else g, g,
+                        self.up[f"up0_T_extra{j}"] = Up(c_in if j == 0 else pack * g, pack * g,
                                                         innermost=True, **nb)
-                    c_in = g
-                self.up[f"up{i}_T"] = Up(c_in, c_out if i > 0 else 2, **kw)
+                    c_in = pack * g
+                self.up[f"up{i}_T"] = Up(c_in, c_out if i > 0 else pack * 2, **kw)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init (xavier-normal with the reference's gain by default);
@@ -174,7 +187,9 @@ class CustomUNet(nn.Module):
                 dtype: torch.dtype = None):
         """x (N, H, W, in_nc) → (visual (N, H, W, 3), tactile (N, H·t, W·t, 2));
         ``style_code`` (N, style_code_dim) is merged in when the net was built
-        with ``use_style_code`` (and ignored, as by the reference, when None)."""
+        with ``use_style_code`` (and ignored, as by the reference, when None).
+        Packed (``pack`` G > 1): x (N, H, W, G·in_nc) → (N, H, W, G·5) at
+        ``t_mult`` 1, else the pair with G·3 and G·2 channels."""
         dt = dtype or self.dtype
         nd = self.num_downs
         if x.shape[1] % (2 ** nd) or x.shape[2] % (2 ** nd):
@@ -202,4 +217,6 @@ class CustomUNet(nn.Module):
                     for j in range(self.t_mult.bit_length() - 1):
                         h_tac = self.up[f"up0_T_extra{j}"](h_tac, None, dt)
                 h_tac = self.up[f"up{i}_T"](h_tac, skip, dt)
+        if self.pack > 1 and self.t_mult == 1:
+            return packed_concat(h_vis, h_tac, self.pack)
         return h_vis, h_tac

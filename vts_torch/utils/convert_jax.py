@@ -12,7 +12,7 @@ Layout rules (the inverse of ``vts_tpu/utils/convert_torch.py:9-11``):
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -34,8 +34,15 @@ def _conv_from_torch(w):
     return np.ascontiguousarray(_np(w).transpose(2, 3, 1, 0))
 
 
-def _convt_to_torch(k):
-    return _t(np.asarray(k)[::-1, ::-1].transpose(2, 3, 0, 1))
+def _convt_to_torch(k, groups: int = 1):
+    """A flax ConvTranspose kernel → the ``ConvTranspose2d`` weight; a grouped
+    one, (kh, kw, in_g, G·out_g) with the garment blocks on the output axis
+    → the grouped ``ConvTranspose2d`` weight (G·in_g, out_g, kh, kw): each
+    block flipped and io-transposed, the blocks moved onto the input axis."""
+    k = np.asarray(k)[::-1, ::-1]
+    kh, kw, cin, gout = k.shape
+    return _t(k.reshape(kh, kw, cin, groups, gout // groups).transpose(3, 2, 4, 0, 1)
+              .reshape(groups * cin, gout // groups, kh, kw))
 
 
 def _convt_from_torch(w):
@@ -44,11 +51,12 @@ def _convt_from_torch(w):
 
 # ---------------------------------------------------------------- U-Net ---
 
-def unet_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
+def unet_params_to_torch(params: Dict, groups: int = 1) -> "OrderedDict[str, torch.Tensor]":
     """flax ``CustomUNet`` params tree → :class:`vts_torch.networks.unet_custom.CustomUNet`
     state dict (``up0_T_extra{j}`` stages, ``--normG batch`` norms and the
     skitG ``style_code_mapping{k}`` projections included: a flax Dense
-    kernel (in, out) ↔ ``style.style_code_mapping{k}.weight`` (out, in))."""
+    kernel (in, out) ↔ ``style.style_code_mapping{k}.weight`` (out, in)).
+    ``groups``: the tree of a ``pack=G`` net (:func:`packed_unet_to_torch`)."""
     sd = OrderedDict()
     for name, sub in params.items():
         if name.startswith("style_code_mapping"):
@@ -59,8 +67,8 @@ def unet_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
             raise KeyError(f"unexpected CustomUNet param group {name!r}")
         conv, leaf = (("conv", sub["Conv4x4_0"]["Conv_0"]) if group == "down"
                       else ("convt", sub["ConvT4x4_0"]["ConvTranspose_0"]))
-        sd[f"{group}.{name}.{conv}.weight"] = (_conv_to_torch if group == "down"
-                                               else _convt_to_torch)(leaf["kernel"])
+        sd[f"{group}.{name}.{conv}.weight"] = (_conv_to_torch(leaf["kernel"]) if group == "down"
+                                               else _convt_to_torch(leaf["kernel"], groups))
         if "bias" in leaf:
             sd[f"{group}.{name}.{conv}.bias"] = _t(leaf["bias"])
         for k, v in sub.get("BatchNorm_0", {}).items():
@@ -74,6 +82,20 @@ def unet_stats_to_torch(stats: Dict) -> "OrderedDict[str, torch.Tensor]":
     return OrderedDict(
         (f"{'down' if name.startswith('down') else 'up'}.{name}.norm.{k}", _t(v))
         for name, sub in stats.items() for k, v in sub["BatchNorm_0"].items())
+
+
+def packed_unet_to_torch(params: Dict, stats: Dict, groups: int
+                         ) -> "OrderedDict[str, torch.Tensor]":
+    """The reference's ``CustomUNet(pack=G)`` params and batch stats (e.g. its
+    ``pack_tree`` of G garments' trees) → the state dict of the port's
+    ``pack=G`` net.  A packed conv kernel (kh, kw, in_g, G·out_g) maps as an
+    ungrouped one, to (G·out_g, in_g, kh, kw); a packed transposed-conv
+    kernel, blocked on its output axis too, maps to ``ConvTranspose2d``'s
+    grouped weight, blocked on its input axis (:func:`_convt_to_torch`);
+    biases, norm params and running stats (G·C,) as they are."""
+    sd = unet_params_to_torch(params, groups)
+    sd.update(unet_stats_to_torch(stats))
+    return sd
 
 
 def torch_to_unet_params(state_dict: Dict[str, torch.Tensor]) -> Dict:
@@ -296,6 +318,43 @@ def torch_to_d_params(state_dict: Dict[str, torch.Tensor]):
         else:
             _set(params, path, _np(t).copy())
     return params, stats
+
+
+# ---------------------------------------------------------------- fleet ---
+
+def _field(state, name: str):
+    return state[name] if isinstance(state, dict) else getattr(state, name)
+
+
+def _garment(tree, g: int):
+    """Garment g's slice of every leaf of a garment-stacked (nested) dict."""
+    return {k: _garment(v, g) if isinstance(v, dict) else np.asarray(v)[g]
+            for k, v in tree.items()}
+
+
+def fleet_states_to_torch(states: Dict, groups: int) -> List[Dict]:
+    """The reference's garment-stacked states (``{"G", "D", "D2"}`` →
+    ``NetState``, every leaf with a leading G axis, as ``stack_states``
+    gives them; a ``NetState`` is read by its fields ``params``, ``stats``,
+    ``opt_state``, and the Adam state by ``count``, ``mu``, ``nu``) → per
+    garment ``{name: (state dict, (count, mu, nu) or None)}``, what
+    :meth:`vts_torch.parallel.fleet.FleetTrainer.load_states` takes."""
+    out = []
+    for g in range(groups):
+        per = {}
+        for name, state in states.items():
+            to_torch, stats_to_torch = ((unet_params_to_torch, unet_stats_to_torch)
+                                        if name == "G" else (d_params_to_torch, d_stats_to_torch))
+            sd = to_torch(_garment(_field(state, "params"), g))
+            sd.update(stats_to_torch(_garment(_field(state, "stats"), g)))
+            adam = _field(state, "opt_state")
+            if adam is not None:
+                adam = (int(np.asarray(_field(adam, "count"))[g]),
+                        to_torch(_garment(_field(adam, "mu"), g)),
+                        to_torch(_garment(_field(adam, "nu"), g)))
+            per[name] = (sd, adam)
+        out.append(per)
+    return out
 
 
 # ------------------------------------------------------------ Adam state ---
