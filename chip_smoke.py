@@ -93,8 +93,8 @@ Phases, each of which must pass or the script exits non-zero:
      from epoch 2, the gallery once, every loss finite, every kernel
      launched, one D3-active step launching as ``PER_STEP`` says; its best G
      through ``vts_torch.test`` on both garments under --eval_mode batched
-     and legacy, 8 finite metrics a sample and both garments in
-     eval_metrics_per_material.pkl (printed); garment A's fake_I with B's
+     and on garment A under legacy, 8 finite metrics a sample and the
+     garments in eval_metrics_per_material.pkl (printed); garment A's fake_I with B's
      style image differs from it with A's (beyond A's twice); K1 at the
      legacy evaluation's shapes for garment A's valid patches (T_LPIPS in
      chunks of 16 pairs: (32, 224², ·) and the remainder) within the fp32
@@ -105,7 +105,7 @@ Phases, each of which must pass or the script exits non-zero:
      twins (sketch and mask mirrored, no visual image, no touch records);
      ``vts_torch.launch ours launch --mode process`` trains both at once on
      the card at the full-width defaults, cut in length only (1 epoch of 2
-     samples, D3 off), then each alone; ``launch ours test`` (8 finite
+     samples, D3 off); ``launch ours test`` (8 finite
      metrics each), ``launch ours_edit test`` on the edited sketches (the
      gallery and the raw touch map at the canvas size, ``{}`` metrics, no
      per-material roll-up; fake_I moved by the edit beyond run-to-run
@@ -156,7 +156,7 @@ Phases, each of which must pass or the script exits non-zero:
      from the CPU gradient, and the pool within 1e-5; G's 256²
      eval forward from the same weights within 1e-4 of its max; the launcher's ``pix2pixhd launch
      --mode process`` child on phase 4f's on-disk garment (1 epoch of 32
-     patches, no validation) on the
+     patches, no validation, ngf/ndf 8) on the
      card;
   4i. the SPADE baseline (:func:`spade_baseline`): ``vts_torch.train --model
      spade --dataset_mode patchskit`` on the 1800² garment at the shipped
@@ -183,7 +183,7 @@ Phases, each of which must pass or the script exits non-zero:
      near-constant outputs); G's 256² eval forward from the same weights
      within 1e-4 of its max; the launcher's ``spade launch --mode process``
      child on phase 4f's on-disk garment (1 epoch of 32 patches, no
-     validation) on the card;
+     validation, ngf/ndf 8) on the card;
  4j. the garment fleet: ``vts_torch.launch ours launch`` in its default
      mode (one process) on two synthetic 1800² garments at the full-width
      training defaults, 2 epochs of 2 steps with D3 from epoch 2: finite
@@ -203,12 +203,33 @@ Phases, each of which must pass or the script exits non-zero:
      themselves make to it on the cpu, where that exceeds 1e-5: a max-pool
      or ReLU near-tie flipping); a ``pack=2`` ngf-10 generator at 1536²
      against each garment's ``pack=1`` forward within 1e-4·max|ref| + 1e-5;
+ 4k. the rest of the network zoo (:func:`zoo_phase`): ``vts_torch.train
+     --model sinskit --netG unet_256 --netD stylegan2 --netD2 stylegan2`` at
+     the shipped defaults (1536², ngf 10 / ndf 8, batch 1, full-canvas
+     LPIPS), 3 steps of one epoch before D3, finite losses, then
+     ``vts_torch.test --epoch latest`` on it (8 finite metrics); one more
+     step launching as ``PER_STEP`` says, K1 and K2 at the ``train`` row's
+     shapes (recorded in phase 4's D3-active step), so that row stands for
+     it; ``vts_torch.train --model pix2pix`` at its defaults (32² patches,
+     ngf 64, batch 32, no validation, 2 steps) with ``--netG visgel``,
+     ``resnet_cat`` and ``stylegan2 --crop_size 1024`` (the largest crop
+     its width table takes), no kernel launched in training, each latest G
+     on one test sample through ``vts_torch.test`` (8 finite metrics,
+     ``PER_SAMPLE`` launches; at 1536² K1 and K2 at the ``eval_pix2pix``
+     row's shapes, at 1024² an ``eval_stylegan2`` row, K1 checked against
+     its plain version there); each new network (the plain U-Nets, VisGel
+     ×1 and ×2, GResnet with and without z, both StyleGAN2 Gs with the
+     noise injected, both Ds) on cuda against cpu at a small size: forward,
+     input and parameter gradients, running statistics; each step's wall
+     (median of 5 after 2), peak memory and launches, each test sample's
+     wall and G forward (median of 3 after 1);
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
      their fp32 CUDA-core bound beside it; a row's bound is the sum over its
      shapes of launches × that shape's bound), and the device-only time of
-     every kernel from one torch.profiler session, beside CUDA events in that
+     every kernel from one torch.profiler session (not repeated when it
+     loses a marker), beside CUDA events in that
      session (medians over the runs); the D3 part of a step (both CLIP
      passes, the backward, resize_mm) by events; the device-only times of
      the library calls and the D3 part from a second session, in a process
@@ -228,7 +249,7 @@ Phases, each of which must pass or the script exits non-zero:
      evaluation, with its launches, the style encode, and the untraced
      skitG D3-active step (median of 5 after 2 warm-ups, samples/s, peak
      memory, launches); phase 4f's edit test sample (median of 3 after 1),
-     its launcher walls (two processes at once, and one after the other)
+     its launcher wall (two processes at once)
      and the postprocess's host time per map in each mode; the untraced
      full-width pix2pix step (median of 5 after 2 warm-ups, samples/s, peak
      memory), one full-canvas pix2pix test sample (median of 3 after 1, its
@@ -252,7 +273,8 @@ test sample (K = 64 test patches; the test run's launches less the
 gallery's) and an ``eval_pix2pixhd`` row one pix2pixHD test sample
 (likewise; its times are the ``eval_pix2pix`` row's when phase 4h found the
 same shapes) and an ``eval_spade`` row one SPADE test sample (the same
-with phase 4i); ``ms``, ``plain_ms``,
+with phase 4i), and an ``eval_stylegan2`` row one 1024² pix2pix test
+sample with the StyleGAN2 G (phase 4k); ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` sum the per-shape times over those launches,
 and ``max_abs_err`` is the worst of the checks at that path's shapes.  The
 last line is ``{"ok": true, "device": {...}}``.  Nothing is printed as a result unless
@@ -413,20 +435,18 @@ def device_times(calls):
     both times are the median over the runs.  Nones where the span shows no
     such kernel, or one a number of times that is not a multiple of reps
     (the trace lost launches); all Nones if the spans cannot be told apart
-    (a marker lost in each of three sessions: a session that loses one, as
-    one of 68 calls' did on an H100 after the lead run of spins, is run
-    again).  One session: a session per call lost launches after some dozens
+    (the session lost a marker, as one of 68 calls' did on an H100 after the
+    lead run of spins).  One session: a session per call lost launches after some dozens
     of sessions on the H100, and a second session in a process recorded only
     part of its spans (:func:`library_device_times` runs one in a process of
     its own)."""
     for fn, _, _ in calls:
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        out = _device_times_session(calls)
-        if out is not None:
-            return out
-    return [(None, None, None)] * len(calls)
+    # one session, no retry (cut for time: in the last runs on an H100 every
+    # session, retries included, lost markers, at ~25 s each)
+    out = _device_times_session(calls)
+    return out if out is not None else [(None, None, None)] * len(calls)
 
 
 def _device_times_session(calls):
@@ -911,11 +931,11 @@ DEVICE_LINE = re.compile(r"\[device\] (\S+) (trains|tests) on (cpu|cuda:\d+ \([^
 # only: 1 epoch of 2 samples, D3 off, no gallery
 WORKFLOW_TRAIN = ["--data_len", "2", "--n_epochs", "1", "--n_epochs_decay", "0",
                   "--use_vision_aided_loss", "false", "--no_html"]
-# the dashboard's short 256² run: 6 epochs of 4 steps, a loss line each step
+# the dashboard's short 256² run: 3 epochs of 4 steps, a loss line each step
 DASH_TRAIN = ["--dataroot", SMALL_DATA, "--crop_size", "256", "--center_w", "192",
               "--center_h", "128", "--ngf", "4", "--ndf", "4", "--batch_size_G2", "4",
               "--batch_size_G2_val", "3", "--add_fake_T_sample_size", "3", "--data_len", "4",
-              "--n_epochs", "6", "--n_epochs_decay", "0", "--use_vision_aided_loss", "false",
+              "--n_epochs", "3", "--n_epochs_decay", "0", "--use_vision_aided_loss", "false",
               "--no_html", "--val_for_each_epoch", "false", "--print_freq", "1",
               "--display_id", "1", "--display_port", "0"]
 
@@ -1053,11 +1073,10 @@ def edit_render_workflow(tmp, device, size=PADDED, query="", flags=(), train_fla
                          "--checkpoints_dir", ckpt, "--results_dir", res, "--", *flags, *extra],
                         os.path.join(logs, log), device, materials.count(",") + 1)
 
+    # both garments at once only: the one-after-the-other runs once timed
+    # beside it (17.5 s at once against 36.1 s on an H100) were cut for time
     out = {"data": data,
-           "two_s": launch("launch", "ours", mats, "launch.log", extra=train_flags),
-           "one_by_one_s": [launch("launch", "ours", m, f"launch_{m}.log", extra=train_flags,
-                                   ckpt=ckpt + "_seq", res=res + "_seq")
-                            for m in EDIT_MATERIALS]}
+           "two_s": launch("launch", "ours", mats, "launch.log", extra=train_flags)}
     names = [f"{m}_sinskitG_baseline_ours" for m in EDIT_MATERIALS]
     for name in names:
         check(os.path.exists(os.path.join(ckpt, name, "best_net_G.msgpack")),
@@ -1474,14 +1493,16 @@ def pix2pixhd_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
     torch.backends.cudnn.deterministic = cudnn_det
     del pair
 
-    # the launcher's pix2pixhd child on the on-disk garment of phase 4f, 1 epoch
+    # the launcher's pix2pixhd child on the on-disk garment of phase 4f, 1 epoch,
+    # ngf/ndf 8 (cut for time: the full-width G's seeded init on the host
+    # took most of the child's 31-43 s; the full width trains above)
     root = os.path.join(wf_data, f"singleskit_{{material}}_padded_{PADDED}_x1")
     out["launch_s"] = launcher(
         ["pix2pixhd", "launch", "--mode", "process", "--materials", "synthA",
          "--dataroot-template", root, "--checkpoints_dir", os.path.join(tmp, "hd_ckpt"),
          "--results_dir", os.path.join(tmp, "hd_res"), "--", "--n_epochs", "1",
          "--n_epochs_decay", "0", "--no_html", "--max_dataset_size", "32",
-         "--val_for_each_epoch", "false"],
+         "--val_for_each_epoch", "false", "--ngf", "8", "--ndf", "8"],
         os.path.join(tmp, "wf_logs", "launch_pix2pixhd.log"), "cuda", 1)
     check(os.path.exists(os.path.join(tmp, "hd_ckpt", "synthA_pix2pixHD_baseline",
                                       "latest_net_G.msgpack")),
@@ -1749,14 +1770,16 @@ def spade_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
     torch.backends.cudnn.deterministic = cudnn_det
     del pair
 
-    # the launcher's spade child on the on-disk garment of phase 4f, 1 epoch
+    # the launcher's spade child on the on-disk garment of phase 4f, 1 epoch,
+    # ngf/ndf 8 (cut for time: the full-width G's seeded init on the host
+    # took most of the child's 31-43 s; the full width trains above)
     root = os.path.join(wf_data, f"singleskit_{{material}}_padded_{PADDED}_x1")
     out["launch_s"] = launcher(
         ["spade", "launch", "--mode", "process", "--materials", "synthA",
          "--dataroot-template", root, "--checkpoints_dir", os.path.join(tmp, "sp_ckpt"),
          "--results_dir", os.path.join(tmp, "sp_res"), "--", "--n_epochs", "1",
          "--n_epochs_decay", "0", "--no_html", "--max_dataset_size", "32",
-         "--val_for_each_epoch", "false"],
+         "--val_for_each_epoch", "false", "--ngf", "8", "--ndf", "8"],
         os.path.join(tmp, "wf_logs", "launch_spade.log"), "cuda", 1)
     check(os.path.exists(os.path.join(tmp, "sp_ckpt", "synthA_spade_baseline",
                                       "latest_net_G.msgpack")),
@@ -2173,6 +2196,343 @@ def garment_fleet(tmp, dirs, run_test, smi):
     check(all(e <= t for e, t in errs), "the packed generator disagrees with the per-garment ones")
     del nets, packed, xs, got, refs
     torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------ 4k ---
+# the rest of the network zoo: (a) sinskit with the plain U-Net and the
+# StyleGAN2 D and D2 at the shipped defaults (1536², ngf 10 / ndf 8, batch 1,
+# the full-canvas LPIPS), 3 steps of one epoch before D3, then its latest G
+# through the test driver; (b) pix2pix at its defaults (32² patches, ngf 64,
+# batch 32) with the VisGel G, MUNIT's resnet_cat, and the StyleGAN2 G at
+# --crop_size 1024 (the largest crop its width table takes), one epoch (two
+# steps) and its latest G on one test sample (the StyleGAN2 G on a garment
+# whose center fits its crop); (c) each new network on cuda
+# against cpu at a small size from the same weights
+ZOO_DATA = f"synthetic://smoke?size={PADDED}"
+ZOO_TRAIN = ["--model", "sinskit", "--name", "zoo", "--netG", "unet_256", "--netD", "stylegan2",
+             "--netD2", "stylegan2", "--dataroot", ZOO_DATA, "--device", "cuda", "--data_len", "3",
+             "--n_epochs", "1", "--n_epochs_decay", "0", "--no_html"]
+ZOO_TEST = ["--model", "sinskit", "--name", "zoo", "--netG", "unet_256", "--epoch", "latest",
+            "--dataroot", ZOO_DATA, "--device", "cuda", "--batch_size_G2", str(K_PATCH)]
+# the StyleGAN2 G's garment fits its 1024² crop: a 1024 × 768 center (the
+# crop must cover the center region, and the patches lie inside it)
+SG2_DATA = f"synthetic://zoo1024?size={PADDED}&center_w=1024&center_h=768"
+ZOO_P2P = {"visgel": ["--dataroot", P2P_DATA], "resnet_cat": ["--dataroot", P2P_DATA],
+           "stylegan2": ["--dataroot", SG2_DATA, "--crop_size", "1024", "--center_w", "1024",
+                         "--center_h", "768"]}
+# K1 at a 1024² pix2pix test sample: the canvas LPIPS at 1024², the patch
+# LPIPS as at 1536² (K = 64 224² patches, gx and gy)
+SG2_CANVAS = 1024
+K1_SG2 = [(2, SG2_CANVAS, SG2_CANVAS, 64, 64, 1), (2, SG2_CANVAS // 2, SG2_CANVAS // 2, 64, 128, 1),
+          (2, SG2_CANVAS // 2, SG2_CANVAS // 2, 128, 128, 1)] + K1_P2P[3:]
+
+
+def zoo_step_walls(model, label, want=None):
+    """Seven steps on the model's current input: the launches of the third
+    and K1's and K2's shapes there, the median wall of the last five and
+    their peak memory over what the script held before each.  ``want``: the
+    launches a step must make."""
+    walls, peaks = [], []
+    for i in range(7):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        if i == 2:
+            reset_counts()
+            rec = RecordShapes().__enter__()
+        t0 = time.perf_counter()
+        model.optimize_parameters(1)
+        model.get_current_losses()
+        torch.cuda.synchronize()
+        if i == 2:
+            rec.__exit__()
+            launches, shapes = read_counts(), rec.shapes()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            peaks.append((torch.cuda.max_memory_allocated() - held) / 2 ** 30)
+    wall = statistics.median(walls)
+    print(f"[time zoo step] {label}: {wall:.1f} ms wall, median of {len(walls)} "
+          f"({', '.join(f'{w:.1f}' for w in walls)}); peak memory {max(peaks):.2f} GiB over "
+          f"the {held / 2 ** 30:.2f} GiB held before the step; launches per step {launches}")
+    if want is not None:
+        check(launches == want, f"{label}: a step launched {launches}, not {want}")
+    return dict(wall_ms=wall, peak_gib=max(peaks), launches=launches, shapes=shapes)
+
+
+def zoo_sample_walls(argv, label):
+    """One test sample of the latest G (set_input, G forward, the 8 metrics):
+    its launches (the second pass), the median wall of three after one, the
+    G forward's; the model and its input."""
+    from vts_torch.config import TestOptions
+    from vts_torch.data import create_dataset
+    from vts_torch.models import create_model
+    topt = TestOptions().parse(argv, quiet=True)
+    batch = next(iter(create_dataset(topt)))
+    model = create_model(topt)
+    model.setup()
+    model.load_networks("latest")
+    walls, g_ms = [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        if i == 1:
+            reset_counts()
+        t0 = time.perf_counter()
+        model.set_input(batch)
+        model.test()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.compute_metrics()
+        torch.cuda.synchronize()
+        if i == 1:
+            launches = read_counts()
+        if i:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            g_ms.append((t1 - t0) * 1e3)
+    print(f"[time zoo sample] {label}: {statistics.median(walls):.1f} ms wall (set_input and G "
+          f"forward {statistics.median(g_ms):.1f} ms), median of {len(walls)}; launches "
+          f"{launches}")
+    check(launches == PER_SAMPLE, f"{label}: a test sample launched {launches}, not {PER_SAMPLE}")
+    return model, dict(wall_ms=statistics.median(walls), g_ms=statistics.median(g_ms),
+                       launches=launches)
+
+
+def zoo_nets():
+    """(label, build function, input shapes) of each new network at a small
+    size."""
+    from vts_torch.networks.munit import GResnet
+    from vts_torch.networks.stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
+    from vts_torch.networks.unet_plain import UnetGenerator
+    from vts_torch.networks.visgel import VisGelGenerator
+    return [
+        # ngf 4: at ngf 8 this seeded unet_256's fp32 gradient is
+        # ill-conditioned on any device (on the cpu alone, weights moved by
+        # 1e-6 of themselves move its input gradient by 1.5%)
+        ("unet_256 (batch norm)", lambda: UnetGenerator(3, ngf=4, out_nc=5, num_downs=8,
+                                                        init_gain=0.5), [(2, 256, 256, 3)]),
+        ("unet_128 (batch norm)", lambda: UnetGenerator(3, ngf=8, out_nc=5, num_downs=7,
+                                                        init_gain=0.5), [(2, 128, 128, 3)]),
+        ("visgel x1", lambda: VisGelGenerator(1, out_nc=5, t_resolution_multiplier=1),
+         [(4, 32, 32, 1)]),
+        ("visgel x2", lambda: VisGelGenerator(1, out_nc=5, t_resolution_multiplier=2),
+         [(4, 32, 32, 1)]),
+        ("resnet_cat", lambda: GResnet(3, ngf=8, out_nc=5, init_gain=0.5), [(2, 64, 64, 3)]),
+        ("resnet_cat with a width-0 z", lambda: GResnet(3, ngf=8, out_nc=5, init_gain=0.5),
+         [(2, 64, 64, 3), (2, 0)]),
+        ("stylegan2 G (noise injected)", lambda: StyleGAN2Generator(3, ngf=8, out_nc=5,
+                                                                    crop_size=64),
+         [(2, 64, 64, 3)]),
+        ("smallstylegan2 G", lambda: StyleGAN2Generator(3, ngf=8, out_nc=5, n_blocks=2,
+                                                        crop_size=64), [(2, 64, 64, 3)]),
+        ("stylegan2 D", lambda: StyleGAN2Discriminator(7, ndf=8, input_size=(32, 32)),
+         [(8, 32, 32, 7)]),
+        ("tilestylegan2 D", lambda: StyleGAN2Discriminator(4, ndf=8, tile=True, crop_size=64,
+                                                           input_size=(64, 64)),
+         [(2, 64, 64, 4)]),
+    ]
+
+
+def zoo_grads(net, ins, device):
+    """Forward, input gradient and parameter gradients of ``net`` on
+    ``ins`` (a random cotangent, seed 3) and its running statistics, on the
+    host."""
+    xs = [t.to(device).requires_grad_(i == 0) for i, t in enumerate(ins)]
+    out = net(*xs)
+    ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)).to(device)
+    names = [k for k, _ in net.named_parameters()]
+    grads = torch.autograd.grad(out, [xs[0]] + list(net.parameters()), ct)
+    return (out.detach().cpu(), grads[0].cpu(), {k: g.cpu() for k, g in zip(names, grads[1:])},
+            {k: v.cpu() for k, v in net.state_dict().items() if k.endswith((".mean", ".var"))})
+
+
+def zoo_cuda_vs_cpu():
+    """Each new network's forward, input gradient and parameter gradients (a
+    random cotangent) and running statistics on cuda against cpu, from the
+    same seeded weights and inputs, under phase 4's rule: the forward and the
+    input gradient within 1e-4 of their max, each parameter leaf within 1e-4
+    of its max (a round-off leaf, a conv bias that an instance norm follows,
+    within 1e-5 of the network's max), or else, as phase 4's x2 and skitG
+    steps are held, the parameters within 1e-4 in the 2-norm over the
+    network; the running statistics within 1e-5.  Where the net's fp32
+    gradient is ill-conditioned (a ReLU or leaky ReLU input near 0 flips its
+    slope; VisGel's 15 instance norms over shrinking maps), each of the
+    three limits is raised to twice the largest jump that moving the weights
+    by 1e-6 of themselves makes on the cpu (five draws; phase 4j holds the
+    fleet's G to one such jump: twice, because five draws sample the flips
+    that the card's other rounding makes, and its StyleGAN2 G read 1.08×
+    the largest of them in the 2-norm)."""
+    import copy
+    worst = {}
+    for label, build, shapes in zoo_nets():
+        net = build()
+        net.reset_parameters(torch.Generator().manual_seed(len(label)))
+        gen = torch.Generator().manual_seed(7)
+        ins = [torch.rand(s, generator=gen) * 2 - 1 for s in shapes]
+        if hasattr(net, "styled_convs"):
+            with torch.no_grad():
+                for m in net.styled_convs():
+                    if m.noise_strength is not None:
+                        m.noise_strength.fill_(0.3)
+                        m.noise[(2, 64, 64)] = torch.randn((2, 64, 64, 1), generator=gen)
+        on_card = copy.deepcopy(net).cuda().train()
+        o_c, x_c, g_c, s_c = zoo_grads(net.train(), ins, "cpu")
+        o_g, x_g, g_g, s_g = zoo_grads(on_card, ins, "cuda")
+        jumps = []
+        for _ in range(5):
+            moved = copy.deepcopy(net)
+            with torch.no_grad():
+                for p in moved.parameters():
+                    p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=gen))
+            o_m, x_m, g_m, _ = zoo_grads(moved, ins, "cpu")
+            jumps.append(((o_m - o_c).abs().max().item() / o_c.abs().max().item(),
+                          (x_m - x_c).abs().max().item() / x_c.abs().max().item(),
+                          rel_norm(g_m, g_c, g_c)))
+        jump = [max(j[i] for j in jumps) for i in range(3)]
+        f_err = (o_g - o_c).abs().max().item() / o_c.abs().max().item()
+        x_err = (x_g - x_c).abs().max().item() / x_c.abs().max().item()
+        net_max = max(v.abs().max().item() for v in g_c.values())
+
+        def tol(v):
+            leaf = v.abs().max().item()
+            return 1e-5 * net_max if leaf <= 1e-5 * net_max else 1e-4 * leaf
+        ratio = {k: (g_g[k] - v).abs().max().item() / tol(v) for k, v in g_c.items()}
+        k_worst = max(ratio, key=ratio.get)
+        norm = rel_norm(g_g, g_c, g_c)
+        s_err = max([(s_g[k] - v).abs().max().item() for k, v in s_c.items()] or [0.0])
+        per_leaf = ratio[k_worst] <= 1.0
+        print(f"[zoo ref] {label}, cuda vs cpu: forward max|d|/max|ref| {f_err:.2e}, input "
+              f"gradient {x_err:.2e}, worst parameter leaf |d|/tolerance {ratio[k_worst]:.2e} "
+              f"at {k_worst}, |d|/|g| over the network {norm:.2e}, running statistics max|d| "
+              f"{s_err:.2e} ({len(s_c)} buffers); a 1e-6 move of the weights on the cpu: "
+              f"forward {jump[0]:.2e}, input gradient {jump[1]:.2e}, parameters {jump[2]:.2e}; "
+              + ("the per-leaf rule holds" if per_leaf else
+                 f"held in the 2-norm to {max(1e-4, 2 * jump[2]):.2e}"))
+        ok = (f_err <= max(1e-4, 2 * jump[0]) and x_err <= max(1e-4, 2 * jump[1])
+              and (per_leaf or norm <= max(1e-4, 2 * jump[2])))
+        check(ok and s_err <= 1e-5, f"{label} on cuda disagrees with cpu")
+        worst[label] = dict(forward=f_err, input_grad=x_err, param_norm=norm, jump=jump)
+    return worst
+
+
+def zoo_phase(tmp, dirs, run_train, run_test, train_shapes, p2p_shapes):
+    """Phase 4k (see above); what phase 5 needs of it."""
+    from vts_torch.networks.stylegan2 import StyleGAN2Discriminator
+    from vts_torch.networks.unet_plain import UnetGenerator
+
+    out = {}
+    # (a) sinskit at full width with the zoo's U-Net and StyleGAN2 Ds
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    model = run_train(ZOO_TRAIN + dirs)
+    torch.cuda.synchronize()
+    run = read_counts()
+    losses = model.get_current_losses()
+    steps = model.adam["G"].count
+    print(f"[zoo sinskit] {steps} steps of unet_256 + StyleGAN2 D and D2 at {CANVAS}² (ngf "
+          f"{NGF}, ndf 8, batch 1, D3 off before its warmup) + a validation in "
+          f"{time.time() - t0:.2f} s (first run, incl. data and model set-up); G "
+          f"{sum(p.numel() for p in model.netG.parameters()) / 1e6:.3f} M, D "
+          f"{sum(p.numel() for p in model.netD.parameters()) / 1e6:.3f} M, D2 "
+          f"{sum(p.numel() for p in model.netD2.parameters()) / 1e6:.3f} M params; last "
+          f"losses: " + " ".join(f"{k}={v:.6g}" for k, v in losses.items()))
+    print(f"[zoo sinskit] launches during the training run: {run}")
+    check(isinstance(model.netG, UnetGenerator)
+          and isinstance(model.netD, StyleGAN2Discriminator)
+          and isinstance(model.netD2, StyleGAN2Discriminator), "phase 4k built other networks")
+    check(steps == 3 and {"D_fake_I", "D_real_T_concat", "G_GAN", "G2_GAN", "G_lpips"}
+          <= set(losses) and all(math.isfinite(v) for v in losses.values()),
+          f"a zoo sinskit loss is missing or not finite ({steps} steps): {losses}")
+    out["sinskit_step"] = zoo_step_walls(model, f"{CANVAS}² sinskit step, unet_256 + StyleGAN2 "
+                                                f"D and D2 (D3 off)", PER_STEP)
+    check(out["sinskit_step"]["shapes"] == train_shapes,
+          f"the zoo sinskit step launched K1/K2 at {out['sinskit_step']['shapes']}, not at the "
+          f"train row's {train_shapes}")
+    print("[zoo sinskit] one step launches K1, K1 dx, K2 and K2 bwd as the train row counts "
+          "them, K1 and K2 at its shapes: the train row stands for it")
+    del model
+    torch.cuda.empty_cache()
+    reset_counts()
+    metrics = run_test(ZOO_TEST + dirs)[0]
+    print("[zoo sinskit test] latest G: " + " ".join(f"{k}={v:.6g}"
+                                                    for k, v in sorted(metrics.items())))
+    check(len(metrics) == 8 and all(math.isfinite(v) for v in metrics.values()),
+          f"the zoo sinskit test: expected 8 finite metrics, got {metrics}")
+    model, out["sinskit_sample"] = zoo_sample_walls(ZOO_TEST + dirs,
+                                                    f"one {CANVAS}² sinskit test sample, unet_256")
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) pix2pix with the VisGel, resnet_cat and StyleGAN2 Gs
+    out["p2p"] = {}
+    for g, extra in ZOO_P2P.items():
+        name = f"zoo_{g}"
+        train = ["--model", "pix2pix", "--name", name, "--netG", g, "--device", "cuda",
+                 "--n_epochs", "1", "--n_epochs_decay", "0", "--val_for_each_epoch", "false",
+                 "--no_html"] + extra + dirs
+        test = ["--model", "pix2pix", "--name", name, "--netG", g, "--epoch", "latest",
+                "--device", "cuda"] + extra + dirs
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        model = run_train(train)
+        torch.cuda.synchronize()
+        run = read_counts()
+        losses = model.get_current_losses()
+        steps = model.adam["G"].count
+        print(f"[zoo pix2pix {g}] {steps} steps of batch 32 in {time.time() - t0:.2f} s (first "
+              f"run, incl. data and model set-up); G "
+              f"{sum(p.numel() for p in model.netG.parameters()) / 1e6:.3f} M params; last "
+              f"losses: " + " ".join(f"{k}={v:.6g}" for k, v in losses.items()))
+        check(steps >= 1 and set(losses) == P2P_LOSSES
+              and all(math.isfinite(v) for v in losses.values()),
+              f"pix2pix {g}: a loss is missing or not finite ({steps} steps): {losses}")
+        check(run == dict.fromkeys(KERNELS, 0),
+              f"pix2pix {g}: its GAN + L1 training run launched {run}")
+        res = {"step": zoo_step_walls(model, f"32² pix2pix step, {g} G (batch 32, ngf 64)",
+                                      dict.fromkeys(KERNELS, 0))}
+        del model
+        torch.cuda.empty_cache()
+        reset_counts()
+        with Gallery() as gallery, RecordShapes() as shapes:
+            metrics = run_test(test)[0]
+        torch.cuda.synchronize()
+        res["run_launches"] = read_counts()
+        res["sample_launches"] = {k: v - gallery.launches[k]
+                                  for k, v in res["run_launches"].items()}
+        print(f"[zoo pix2pix {g} test] " + " ".join(f"{k}={v:.6g}"
+                                                    for k, v in sorted(metrics.items())))
+        check(len(metrics) == 8 and all(math.isfinite(v) for v in metrics.values()),
+              f"pix2pix {g} test: expected 8 finite metrics, got {metrics}")
+        check(res["sample_launches"] == PER_SAMPLE,
+              f"a pix2pix {g} test sample launched {res['sample_launches']}, not {PER_SAMPLE}")
+        side = SG2_CANVAS if g == "stylegan2" else CANVAS
+        model, res["sample"] = zoo_sample_walls(test, f"one {side}² pix2pix test sample, {g} G")
+        if side == CANVAS:
+            check(shapes.shapes() == p2p_shapes,
+                  f"a pix2pix {g} test sample launched K1/K2 at {shapes.shapes()}, not at the "
+                  f"eval_pix2pix row's")
+            print(f"[zoo pix2pix {g} test] K1 and K2 at the eval_pix2pix row's shapes")
+        else:
+            want = sorted(tuple(r[:5]) for r in K1_SG2 for _ in range(r[5]))
+            check(shapes.shapes()[0] == want,
+                  f"a {side}² pix2pix test sample launched K1 at {shapes.shapes()[0]}")
+            out["sg2_k1_rows"] = k1_eval_rows(K1_SG2, "stylegan2", seed=16)
+            out["sg2_k2"] = (model._outputs["fake_T"][:1].contiguous(),
+                             model._input["T_coords"].reshape(1, -1, 8).contiguous())
+            check(tuple(out["sg2_k2"][0].shape) == (1, side, side, 2),
+                  f"the {side}² sample's fake_T is {tuple(out['sg2_k2'][0].shape)}")
+            out["sg2_sample_launches"] = res["sample_launches"]
+            out["sg2_run_launches"] = res["run_launches"]
+        out["p2p"][g] = res
+        del model
+        torch.cuda.empty_cache()
+
+    # (c) each new network on cuda against cpu
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out["nets"] = zoo_cuda_vs_cpu()
+    torch.backends.cudnn.deterministic = cudnn_det
     return out
 
 
@@ -2665,8 +3025,10 @@ def main() -> int:
           f"the training gallery is incomplete: {gallery.passes} passes, {sorted(pngs)}")
     torch.cuda.synchronize()
     reset_counts()
-    tmodel.optimize_parameters(2)
-    torch.cuda.synchronize()
+    with RecordShapes() as rec:
+        tmodel.optimize_parameters(2)
+        torch.cuda.synchronize()
+    train_shapes = rec.shapes()
     d3_launches = read_counts()
     print(f"[train] launches of one more D3-active step: {d3_launches}")
     check(d3_launches == PER_STEP, f"a D3-active step launched {d3_launches}, not {PER_STEP}")
@@ -2966,24 +3328,27 @@ def main() -> int:
     import pickle
     skit_tests = {}
     for mode in ("batched", "legacy"):
+        # the legacy evaluation on garment A alone (cut for time: ~5 s a sample)
+        n_test = 2 if mode == "batched" else 1
         reset_counts()
         with Gallery() as gallery:
-            got = run_test(stest + ["--eval_mode", mode, "--results_dir",
-                                    os.path.join(tmp, f"res_{mode}")])
+            got = run_test(stest + ["--eval_mode", mode, "--num_test", str(n_test),
+                                    "--results_dir", os.path.join(tmp, f"res_{mode}")])
         torch.cuda.synchronize()
         skit_tests[mode] = read_counts()
         with open(os.path.join(tmp, f"res_{mode}", "skit", "test_best",
                                "eval_metrics_per_material.pkl"), "rb") as f:
             per_mat = pickle.load(f)
-        check(len(got) == 2 and all(len(m) == 8 and all(math.isfinite(v) for v in m.values())
-                                    for m in got), f"skitG test ({mode}): {got}")
-        check(sorted(per_mat) == ["synthA", "synthB"]
+        check(len(got) == n_test and all(len(m) == 8 and all(math.isfinite(v)
+                                                             for v in m.values())
+                                         for m in got), f"skitG test ({mode}): {got}")
+        check(sorted(per_mat) == ["synthA", "synthB"][:n_test]
               and all(math.isfinite(v) for m in per_mat.values() for v in m.values()),
               f"skitG test ({mode}): per-material metrics {per_mat}")
         for mat, m in sorted(per_mat.items()):
             print(f"[skit test {mode}] material {mat}: "
                   + " ".join(f"{k}={v:.6g}" for k, v in sorted(m.items())))
-        print(f"[skit test {mode}] launches during the 2-sample run: {skit_tests[mode]} "
+        print(f"[skit test {mode}] launches during the {n_test}-sample run: {skit_tests[mode]} "
               f"(the gallery's: {gallery.launches})")
     legacy_run_launches = skit_tests["legacy"]
     # two style images give two images: garment A's sketch with A's style
@@ -3093,18 +3458,25 @@ def main() -> int:
     fl_s = time.time() - t0
     print(f"[fleet] phase 4j took {fl_s:.1f} s (the launcher's fleet {fl['launch_s']:.1f} s)")
 
+    # --------------------------------------------------------------- 4k ---
+    print(f"[phase] phase 4k (the zoo) from {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    zoo = zoo_phase(tmp, dirs, run_train, run_test, train_shapes, p2p["shapes"])
+    zoo_s = time.time() - t0
+    print(f"[zoo] phase 4k took {zoo_s:.1f} s")
+
     # ---------------------------------------------------------------- 5 ---
     print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s; the card: {card_state()} "
           f"(SM clock, power, temperature)")
-    edit_ms, seq_s = workflow["edit_sample_ms"], workflow["one_by_one_s"]
+    edit_ms = workflow["edit_sample_ms"]
     print(f"[time workflow] {smi}: one {CANVAS}² edit test sample (set_input, G forward, no "
           f"metrics): {statistics.median(edit_ms):.1f} ms wall, median of {len(edit_ms)} "
           f"({', '.join(f'{w:.1f}' for w in edit_ms)})")
     print(f"[time workflow] {smi}: two garments trained through the launcher (1 epoch of 2 "
           f"samples each at {CANVAS}², D3 off; process start, data, set-up, validation and "
           f"checkpoints included) in two processes on the card at once: "
-          f"{workflow['two_s']:.1f} s wall; one after the other: {seq_s[0]:.1f} + {seq_s[1]:.1f} "
-          f"= {sum(seq_s):.1f} s")
+          f"{workflow['two_s']:.1f} s wall")
     print(f"[time workflow] {smi}: postprocess_gz {CANVAS}² -> 1280x800 on the host, ms per map "
           f"(median of 3): " + ", ".join(f"{m} {v:.1f}" for m, v in workflow["pp_ms"].items())
           + f" (equalize through {workflow['clahe']})")
@@ -3174,6 +3546,8 @@ def main() -> int:
     time_k1_eval(p2p["k1_rows"], "eval_pix2pix")
     time_k1_eval(hd["k1_rows"], "eval_pix2pixhd")
     time_k1_eval(sp["k1_rows"], "eval_spade")
+    # a 1024² pix2pix test sample with the StyleGAN2 G
+    time_k1_eval(zoo["sg2_k1_rows"], "eval_stylegan2")
 
     def time_k1_train(rows, path, peak, tag):
         """K1 and K1 dx at each training shape of ``rows``, in the rows'
@@ -3294,6 +3668,12 @@ def main() -> int:
                     dict(coords=coords[:1, :sp["k2_k"]].contiguous()),
                     k2.patch_offsets(coords[0, :sp["k2_k"]])[:2],
                     f"fake_T at SPADE's {sp['k2_k']} test patches")
+    sg2_T, sg2_coords = zoo.pop("sg2_k2")
+    time_gather("eval_stylegan2", PER_SAMPLE["gather_patches"], (sg2_T,),
+                dict(coords=sg2_coords), k2.patch_offsets(sg2_coords[0])[:2],
+                f"fake_T at the StyleGAN2 G's {sg2_coords.shape[1]} test patches on its "
+                f"{SG2_CANVAS}² canvas")
+    del sg2_T
     for row in k2_train:
         time_gather("train", 1, row["images"], row["kw"], row["offsets"],
                     f"group {row['group']}")
@@ -3565,7 +3945,9 @@ def main() -> int:
         model.setup()
         model.load_networks("best")
         walls = []
-        for i in range(4):
+        # the legacy sample once after its warm-up (cut for time), the batched
+        # one three times
+        for i in range(4 if mode == "batched" else 2):
             torch.cuda.synchronize()
             if i == 1:
                 reset_counts()
@@ -3739,11 +4121,12 @@ def main() -> int:
     per_path = {"eval": test_launches, "train": step_launches, "train_bf16": lane_step_launches,
                 "train_tmult2": x2_step_launches, "eval_legacy": skit_sample["legacy"],
                 "eval_pix2pix": p2p["sample_launches"],
-                "eval_pix2pixhd": hd["sample_launches"], "eval_spade": sp["sample_launches"]}
+                "eval_pix2pixhd": hd["sample_launches"], "eval_spade": sp["sample_launches"],
+                "eval_stylegan2": zoo["sg2_sample_launches"]}
     in_run = {"eval": run_launches, "train": train_launches, "train_bf16": lane_run_launches,
               "train_tmult2": x2_run_launches, "eval_legacy": legacy_run_launches,
               "eval_pix2pix": p2p["run_launches"], "eval_pix2pixhd": hd["run_launches"],
-              "eval_spade": sp["run_launches"]}
+              "eval_spade": sp["run_launches"], "eval_stylegan2": zoo["sg2_run_launches"]}
     for (kname, path), acc in rows.items():
         launches = per_path[path][kname]
         check(launches == acc["per"], f"{kname} ({path}): {launches} launches, timed {acc['per']}")
@@ -3771,7 +4154,7 @@ def main() -> int:
     print(f"[shapes] {json.dumps(shape_rows)}")
     print(f"[done] chip_smoke took {time.time() - t_start:.1f} s (phase 4f: {workflow_s:.1f} s, "
           f"phase 4g: {p2p_s:.1f} s, phase 4h: {hd_s:.1f} s, phase 4i: {sp_s:.1f} s, "
-          f"phase 4j: {fl_s:.1f} s)")
+          f"phase 4j: {fl_s:.1f} s, phase 4k: {zoo_s:.1f} s)")
     tmp_dir.cleanup()
 
     print(smi)

@@ -348,6 +348,117 @@ def test_step_params_and_stats(step, net):
         assert np.abs(s_got[k] - s_want[k]).max() <= 1e-5, k
 
 
+# ------------------------------------------------------- the VisGel step ---
+
+@pytest.fixture(scope="module")
+def visgel_step(env):  # noqa: F811
+    """One JAX pix2pix step with ``--netG visgel`` (the zoo's cheapest model
+    path) and one port step, from the same weights and patch batch: the JAX
+    states built from the port's seeded weights (no flax init), as
+    ``tests/test_torch_port_pix2pixhd.py`` builds them."""
+    from vts_torch.utils.convert_jax import torch_to_d_params, torch_to_resnet_params
+    from vts_tpu.config import TrainOptions as JaxTrainOptions
+    from vts_tpu.models import create_model as jax_create_model
+    from vts_tpu.models.base import NetState
+    argv = _argv(env, "--netG", "visgel")
+    jopt = JaxTrainOptions().parse(argv, quiet=True)
+    jmodel = jax_create_model(jopt)
+    batch = _patch_batch()
+    model = _port_model(argv)
+    states0 = {}
+    for name in ("G", "D", "D2"):
+        to_flax = torch_to_resnet_params if name == "G" else torch_to_d_params
+        states0[name] = _copy(to_flax(getattr(model, f"net{name}").state_dict()))
+    tx = {"G": jmodel.tx_g, "D": jmodel.tx_d, "D2": jmodel.tx_d2}
+    jmodel.states = {k: NetState(params=jax.tree_util.tree_map(jnp.asarray, p),
+                                 stats=jax.tree_util.tree_map(jnp.asarray, st),
+                                 opt_state=tx[k].init(p))
+                     for k, (p, st) in states0.items()}
+    jmodel._jit_step = jax.jit(jmodel._train_step)
+    jmodel.set_input(batch)
+    jmodel.optimize_parameters(1)
+    # the G loss's cotangent at G's output, for the float64 reference below
+    cot = []
+    def keep(module, inputs, out):
+        out.register_hook(lambda g: cot.append(g.numpy().copy()))
+    hook = model.netG.register_forward_hook(keep)
+    model.set_input(batch)
+    model.optimize_parameters(1)
+    hook.remove()
+    (ct,) = cot
+
+    def g_vjp(dtype):
+        cast = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), t)  # noqa: E731
+        f = jax.jit(lambda p, x, c: jax.vjp(lambda q: jmodel.netG.apply({"params": q}, x),
+                                            p)[1](c)[0])
+        return flat(f(cast(states0["G"][0]), jnp.asarray(batch["S"], dtype),
+                      jnp.asarray(ct, dtype)))
+    g32 = g_vjp(jnp.float32)
+    with jax.enable_x64(True):
+        g64 = g_vjp(jnp.float64)
+    return types.SimpleNamespace(jopt=jopt, jmodel=jmodel, model=model, states0=states0,
+                                 losses=jmodel.get_current_losses(),
+                                 g_stray={k: np.abs(g32[k] - g64[k]).max() for k in g64},
+                                 states1={k: (_copy(s.params), _copy(s.stats),
+                                              _copy(s.opt_state.mu))
+                                          for k, s in jmodel.states.items()})
+
+
+def test_visgel_step_losses(visgel_step):
+    got = visgel_step.model.get_current_losses()
+    assert set(got) == set(visgel_step.losses)
+    for k, v in visgel_step.losses.items():
+        np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-7, err_msg=k)
+
+
+@pytest.mark.parametrize("net", ["G", "D", "D2"])
+def test_visgel_step_grads_params_and_moments(visgel_step, net):
+    """Gradients (Adam's first moment over 1 − β1) per leaf within
+    ``_grad_tol``, where a leaf whose gradient is round-off (VisGel's
+    decoder conv biases, which an instance norm follows, and the D biases of
+    :data:`ZERO_GRAD`) is held to 1e-5 of the network's max; G's leaves with
+    3× the reference's own fp32 stray from float64 on top (G's vjp at the
+    step's weights, patches and G-loss cotangent, in both precisions): an
+    instance norm of a near-constant 16² channel in the encoder's s1b3
+    amplifies round-off, and there JAX's fp32 gradient is 7% off float64,
+    the encoder's earlier leaves ~1%, as the port's; the second moments
+    within 2e-4 of their leaf's max plus what the gradient's tolerance makes
+    of a square; the params after Adam within :func:`_adam_spread` of JAX's;
+    the running statistics within 1e-5."""
+    st = visgel_step
+    b1 = st.jopt.beta1
+    to_flax = _to_flax(net)
+    mu = flat(st.states1[net][2])
+    a = {k: v / (1 - b1) for k, v in mu.items()}
+    adam = st.model.adam[net]
+    b = {k: v / (1 - b1) for k, v in flat(to_flax(adam.mu)[0]).items()}
+    assert a.keys() == b.keys() and adam.count == 1
+    net_max = max(np.abs(v).max() for v in a.values())
+    tols = {k: (1e-5 * net_max if np.abs(v).max() <= 1e-5 * net_max
+                else _grad_tol(k, v, net_max)) + (3 * st.g_stray[k] if net == "G" else 0.0)
+            for k, v in a.items()}
+    if net == "G":
+        assert {k for k, v in a.items() if np.abs(v).max() <= 1e-5 * net_max} == {
+            f"['{c}']['bias']" for c in ("conv_00", "conv_01")}
+    for k in a:
+        assert np.abs(a[k] - b[k]).max() <= tols[k], (net, k, np.abs(a[k] - b[k]).max(), tols[k])
+    nu_want = flat(st.jmodel.states[net].opt_state.nu)
+    nu_got = flat(to_flax(adam.nu)[0])
+    for k in nu_want:
+        assert np.abs(nu_got[k] - nu_want[k]).max() <= 2e-4 * np.abs(nu_want[k]).max() + \
+            2 * (1 - st.jopt.beta2) * tols[k] * np.abs(a[k]).max(), k
+    lr = st.jopt.lr if net != "D2" else st.jopt.lr_G2
+    params, stats = to_flax(getattr(st.model, f"net{net}").state_dict())
+    p0, p1, p_got = flat(st.states0[net][0]), flat(st.states1[net][0]), flat(params)
+    for k in p1:
+        bound = 1e-4 * np.abs(p1[k] - p0[k]).max() + _adam_spread(a[k], tols[k], lr)
+        assert (np.abs(p_got[k] - p1[k]) <= bound).all(), (net, k)
+    s_want, s_got = flat(st.states1[net][1]), flat(stats)
+    assert s_want.keys() == s_got.keys() and (len(s_want) > 0) == (net != "G")
+    for k in s_want:
+        assert np.abs(s_got[k] - s_want[k]).max() <= 1e-5, k
+
+
 def test_g_gradient_on_dataset_patches_is_fp64_accurate(step, env):  # noqa: F811
     """G at the step's initial weights on the patchskit dataset's first batch,
     a random cotangent: the port's fp32 gradient within 1e-5 of float64's per

@@ -100,6 +100,8 @@ def test_port_imports_without_jax_or_vts_tpu():
             "import vts_torch.losses.vgg, vts_torch.utils.image_pool; "
             "import vts_torch.models.spade, vts_torch.networks.spade_nets; "
             "import vts_torch.parallel, vts_torch.parallel.fleet, vts_torch.parallel.packing; "
+            "import vts_torch.networks.unet_plain, vts_torch.networks.visgel; "
+            "import vts_torch.networks.munit, vts_torch.networks.stylegan2; "
             "bad = [m for m in sys.modules if m.startswith('vts_tpu') "
             "or m.split('.')[0] in ('jax', 'flax', 'optax') and sys.modules[m] is not None]; "
             "assert not bad, bad; print('ok')")

@@ -214,18 +214,22 @@ def test_cpu_train_then_test_smoke(tmp_path):
 
 
 def test_train_requires_no_html_and_refuses_unported_settings(tmp_path):
-    """The settings the port does not run raise ``NotImplementedError`` naming
-    the flag when parsed: a mesh, the StyleGAN2 D.  The cropped LPIPS, bf16,
+    """The settings the port does not run raise naming the flag: a mesh
+    when parsed (``NotImplementedError``), the tile StyleGAN2 D2 at model
+    creation (a ``ValueError``: the reference cannot run it).  The cropped
+    LPIPS, bf16,
     the gallery (``--no_html`` is not required) and the settings ported since
     (the plateau schedule, the hinge and WGAN losses, the other D norms and
     nets, the other init types, the other DiffAugment letters, tactile
     super-resolution, the legacy evaluation, style codes, the skit model and
     dataset, the live dashboard) parse."""
     from vts_torch.config import TrainOptions
+    from vts_torch.models import create_model
     base = ["--checkpoints_dir", str(tmp_path), "--device", "cpu"]
-    for extra in (["--mesh", "data:2"], ["--netD", "stylegan2"]):
-        with pytest.raises(NotImplementedError, match=extra[0]):
-            TrainOptions().parse(base + extra, quiet=True)
+    with pytest.raises(NotImplementedError, match="--mesh"):
+        TrainOptions().parse(base + ["--mesh", "data:2"], quiet=True)
+    with pytest.raises(ValueError, match="--netD2 tilestylegan2"):
+        create_model(TrainOptions().parse(base + ["--netD2", "tilestylegan2"], quiet=True))
     opt = TrainOptions().parse(base + ["--lpips_crop", "64", "--dtype", "bfloat16"], quiet=True)
     assert (opt.display_id, opt.lpips_crop, opt.dtype) == (0, 64, "bfloat16")
     for extra in (["--lr_policy", "plateau"], ["--gan_mode", "hinge"], ["--gan_mode", "wgangp"],

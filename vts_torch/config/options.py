@@ -65,14 +65,25 @@ three things:
     pix2pixhd and spade, a ``--dataset_mode`` other than singleskit, skit
     and patchskit, a ``--netG`` other than unet256_custom (sinskit, skit),
     resnet_{9,6,4}blocks, global, local and encoder (pix2pix, pix2pixHD) or
-    spade (SPADE), ``--normG`` other than instance, batch or none (with
-    ``--netG spade`` a SPADE config string as the reference's
-    ``parse_spade_config`` reads it: an unparsable one is its
-    ``ValueError``), ``--normD`` other than instance, batch or none (or,
-    with the three patch baselines, ``spectral`` followed by one of them or
-    by nothing), ``--multihost``; in training also the StyleGAN2
-    ``--netD``/``--netD2``, a DiffAugment policy that repeats a letter, and
-    ``--mesh``.
+    spade (SPADE) or the zoo's (unet_256, unet_128, visgel, resnet_cat,
+    stylegan2, smallstylegan2 for sinskit, skit, pix2pix and pix2pixHD;
+    resnet_cat for SPADE, whose step passes G a second argument),
+    ``--normG`` other than instance, batch or none (with ``--netG spade`` a
+    SPADE config string as the reference's ``parse_spade_config`` reads it:
+    an unparsable one is its ``ValueError``; the zoo's G other than the
+    plain U-Nets read none), ``--normD`` other than instance, batch or none
+    (or, with the three patch baselines, ``spectral`` followed by one of
+    them or by nothing), ``--multihost``; in training also a DiffAugment
+    policy that repeats a letter, and ``--mesh``.
+
+The zoo's combinations that the reference parses and cannot run are each a
+``ValueError`` naming the flag at model creation (:func:`check_zoo`): a
+plain U-Net on pix2pix's 32² patches, the StyleGAN2 G above ``--crop_size``
+1448, a zoo G with ``--use_style_code`` or, under sinskit, at
+``--T_resolution_multiplier`` > 1; in training a StyleGAN2 D under
+``--dtype bfloat16`` or on batches of more than 4 not divisible by 4, and
+``tilestylegan2`` where its (crop_size // 4)² tiles do not divide its input
+(as D2, on the 32² patches, at any crop from 132 on).
 
 ``--no_dropout false`` is accepted and builds no dropout: the reference's
 dropout layers never run (its sinskit never passes ``deterministic=False``).
@@ -413,12 +424,51 @@ _NORMS = ("instance", "batch", "none")
 _SKIT_MODELS = ("skit", "skitg")
 _PATCH_MODELS = ("pix2pix", "pix2pixhd", "spade")
 _PATCH_G = ("resnet_9blocks", "resnet_6blocks", "resnet_4blocks", "global", "local", "encoder")
+# the zoo's generators: no --normG read but by the plain U-Nets, one output
+# map at the input's size (VisGel's at T_resolution_multiplier times it)
+_PLAIN_UNETS = ("unet_256", "unet_128")
+_NORM_FREE_G = ("visgel", "resnet_cat", "stylegan2", "smallstylegan2")
+_ZOO_G = _PLAIN_UNETS + _NORM_FREE_G
 
 
 def _netgs(model: str):
+    """The generators each model runs, as the reference's run them; the
+    plain U-Nets under the patch models are refused with their reason at
+    model creation (:func:`check_zoo`)."""
     if model == "spade":
-        return ("spade",)
-    return _PATCH_G if model in _PATCH_MODELS else ("unet256_custom",)
+        return ("spade", "resnet_cat")
+    if model in _PATCH_MODELS:
+        return _PATCH_G + _ZOO_G
+    return ("unet256_custom",) + _ZOO_G
+
+
+def check_zoo(opt) -> None:
+    """At model creation: ValueErrors, each naming its flag with the
+    reference's failure, for the zoo's combinations that the reference
+    parses and cannot run (its step or its model creation fails)."""
+    model = opt.model.lower()
+    if opt.isTrain:
+        _check_stylegan2_ds(opt)
+    g = opt.netG
+    if g not in _ZOO_G:
+        return
+    if g in _PLAIN_UNETS and model in _PATCH_MODELS:
+        raise ValueError(f"--netG {g} with --model {opt.model}: its {8 if g == 'unet_256' else 7} "
+                         f"stride-2 downs collapse the 32² training patches to nothing (the "
+                         f"reference's step fails concatenating a 1² map with a 0² skip)")
+    if g in ("stylegan2", "smallstylegan2"):
+        from ..networks.stylegan2 import MAX_CROP_SIZE
+        if int(opt.crop_size) > MAX_CROP_SIZE:
+            raise ValueError(f"--netG {g} with --crop_size {opt.crop_size}: its width table, "
+                             f"keyed 2^rint(log2(crop_size)), stops at 1024, so the crop must "
+                             f"be <= {MAX_CROP_SIZE} (the reference fails with a KeyError)")
+    if getattr(opt, "use_style_code", False):
+        raise ValueError(f"--use_style_code with --netG {g}: the reference passes the style "
+                         f"code positionally to a generator that takes none (a TypeError)")
+    if int(opt.T_resolution_multiplier) > 1 and model not in _PATCH_MODELS:
+        raise ValueError(f"--T_resolution_multiplier {opt.T_resolution_multiplier} with --netG "
+                         f"{g}: G gives one map, touch and image at one size, which the "
+                         f"reference's step multiplies by masks at two sizes and fails")
 
 
 def _check_common(opt) -> None:
@@ -432,13 +482,41 @@ def _check_common(opt) -> None:
     if opt.netG == "spade":
         from ..networks.spade_nets import parse_spade_config
         parse_spade_config(opt.normG)        # the reference's ValueError when unparsable
-    elif opt.normG not in _NORMS:
+    elif opt.normG not in _NORMS and opt.netG not in _NORM_FREE_G:
         _refuse("--normG", repr(opt.normG))
     m = int(opt.T_resolution_multiplier)
     if m < 1 or m & (m - 1):
         raise ValueError(f"--T_resolution_multiplier {m} must be a power of two")
     if opt.multihost:
         _refuse("--multihost", "(several hosts)")
+
+
+def _check_stylegan2_ds(opt) -> None:
+    """ValueErrors, each with the reference's failure, for the StyleGAN2 Ds'
+    combinations the reference's sinskit cannot run (the patch models take
+    their own D kinds whatever ``--netD`` says)."""
+    if opt.model.lower() in _PATCH_MODELS:
+        return
+    crop, m = int(opt.crop_size), int(opt.T_resolution_multiplier)
+    for flag, name, side in (("--netD", opt.netD, crop), ("--netD2", opt.netD2, 32 * m)):
+        if "stylegan2" not in name:
+            continue
+        if opt.dtype == "bfloat16":
+            raise ValueError(f"{flag} {name} with --dtype bfloat16: its equalized convs take "
+                             f"bf16 images with fp32 weights, which the reference's conv "
+                             f"refuses (a TypeError)")
+        k, more = int(opt.batch_size_G2), int(opt.add_fake_T_sample_size)
+        for b in ([int(opt.batch_size)] if flag == "--netD" else
+                  [opt.batch_size * k] + ([opt.batch_size * more] if opt.use_more_fakeT else [])):
+            if b > 4 and b % 4:
+                raise ValueError(f"{flag} {name} on batches of {b}: its minibatch stddev "
+                                 f"groups min(n, 4) samples and needs n < 4 or a multiple of 4 "
+                                 f"(the reference fails broadcasting the group values)")
+        tile = crop // 4 if crop >= 64 else 16
+        if name == "tilestylegan2" and side % tile:
+            raise ValueError(f"{flag} tilestylegan2: it cuts its {side}² inputs into "
+                             f"(crop_size // 4)² = {tile}² tiles, which do not divide them "
+                             f"(the reference fails reshaping them)")
 
 
 class _Options:
@@ -509,9 +587,6 @@ class TrainOptions(_Options):
 
     def check(self, opt) -> None:
         _check_common(opt)
-        for flag, v in (("--netD", opt.netD), ("--netD2", opt.netD2)):
-            if "stylegan2" in v:
-                _refuse(flag, repr(v))
         from ..networks.discriminators import split_spectral
         spectral, sub = split_spectral(opt.normD)
         if sub not in _NORMS or (spectral and opt.model.lower() not in _PATCH_MODELS):

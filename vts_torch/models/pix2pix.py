@@ -40,9 +40,6 @@ from ..losses.gan import gan_loss
 from ..networks import define_D, define_G
 from ..networks.blocks import make_initializer
 from ..networks.discriminators import reset_parameters as reset_d
-from ..utils.convert_jax import (d_params_to_torch, d_stats_to_torch, resnet_params_to_torch,
-                                 resnet_stats_to_torch, torch_to_d_params,
-                                 torch_to_resnet_params)
 from .base import Adam, lr_factor
 from .sinskit import SinSKITModel
 
@@ -152,9 +149,3 @@ class Pix2PixModel(SinSKITModel):
             return self._split(self.netG(S, dtype=torch.float32), M)
         finally:
             self.netG.train(was_training)
-
-    @staticmethod
-    def _converters(name: str):
-        if name == "G":
-            return torch_to_resnet_params, resnet_params_to_torch, resnet_stats_to_torch
-        return torch_to_d_params, d_params_to_torch, d_stats_to_torch

@@ -83,7 +83,8 @@ from ..losses.vision_aided import D3Heads, d3_logits, init_d3_head_params, softp
 from ..metrics.evaluate import DEFAULT_EVAL_METRICS, compute_evaluation_metrics
 from ..metrics.evaluate_batch import compute_evaluation_metrics_batched
 from ..metrics.inception import InceptionBlock0, init_inception_params, load_inception_weights
-from ..networks import define_D, define_G
+from ..networks import (CustomUNet, StyleGAN2Discriminator, StyleGAN2Generator, define_D,
+                        define_G)
 from ..networks.blocks import make_initializer
 from ..networks.clip_vit import CLIPViT, init_clip_params, load_clip_weights
 from ..networks.discriminators import reset_parameters as reset_d
@@ -94,8 +95,11 @@ from ..ops.patch import gather_patches_from_coords, gather_patches_group, sample
 from ..ops.resize import resize_bicubic, resize_nearest
 from ..utils.collage import bbox_overlay, patch_collage
 from ..utils.convert_jax import (adam_state_to_flax, adam_state_to_torch, d_params_to_torch,
-                                 d_stats_to_torch, torch_to_d_params, torch_to_unet_params,
-                                 torch_to_unet_stats, unet_params_to_torch, unet_stats_to_torch)
+                                 d_stats_to_torch, resnet_params_to_torch, resnet_stats_to_torch,
+                                 stylegan2_params_to_torch, torch_to_d_params,
+                                 torch_to_resnet_params, torch_to_stylegan2_params,
+                                 torch_to_unet_params, torch_to_unet_stats, unet_params_to_torch,
+                                 unet_stats_to_torch)
 from .base import Adam, load_net, load_opt_state, lr_factor, save_net
 
 _PATCH_STACKS = ("T_images", "I_masks", "T_valid",
@@ -148,13 +152,20 @@ class SinSKITModel:
                                  "per-tile losses do not match the patches' validity mask "
                                  "(the reference's step fails on it too)")
             d1_in = opt.image_nc + (opt.sketch_nc if opt.use_cGAN else 0)
-            self.netD = define_D(opt, d1_in, netD=opt.netD, num_D=opt.num_D_D1, dtype=self.dtype)
+            crop = int(opt.crop_size)
+            self.netD = define_D(opt, d1_in, netD=opt.netD, num_D=opt.num_D_D1, dtype=self.dtype,
+                                 input_size=(crop, crop))
             d2_in = opt.touch_nc
             if opt.use_cGAN_G2:
                 d2_in += (opt.sketch_nc if opt.use_cGAN_G2_S else 0) \
                     + (opt.image_nc + 1 if opt.use_cGAN_G2_I else 0)
             self.netD2 = define_D(opt, d2_in, netD=opt.netD2, n_layers=opt.n_layers_D2,
-                                  num_D=opt.num_D_D2, dtype=self.dtype)
+                                  num_D=opt.num_D_D2, dtype=self.dtype,
+                                  input_size=(32 * self.mult,) * 2)
+            if "stylegan2" in opt.netD2:
+                # its flattened head is sized for the patches: the full-canvas
+                # pass fails in the reference (a matmul of mismatched widths)
+                self.pred_fake_T_full_visual = False
             if opt.lambda_G1_GAN > 0:
                 self.model_names.append("D")
             if opt.lambda_G2_GAN > 0:
@@ -524,7 +535,11 @@ class SinSKITModel:
         return None if code is None else code.detach()
 
     def _split_g_out(self, out, M, M_T):
-        """G's (visual, tactile) pair → (fake_I, fake_T) masked by M and M_T."""
+        """G's (visual, tactile) pair, or the one map of a zoo generator (its
+        first ``image_nc`` channels visual) → (fake_I, fake_T) masked by M and
+        M_T."""
+        if torch.is_tensor(out):
+            out = (out[..., :self.opt.image_nc], out[..., self.opt.image_nc:])
         vis, tac = out
         return vis * M.to(vis.dtype), tac * M_T.to(tac.dtype)
 
@@ -699,13 +714,18 @@ class SinSKITModel:
         exp = getattr(self.opt, "pretrained_name", None) if for_load else None
         return f"{self.opt.checkpoints_dir}/{exp or self.opt.name}"
 
-    @staticmethod
-    def _converters(name: str):
+    def _converters(self, name: str):
         """(state dict → (flax params, flax stats), flax params → state dict,
-        flax stats → state dict) for network ``name``."""
-        if name == "G":
+        flax stats → state dict) for network ``name``, by its family."""
+        net = getattr(self, f"net{name}")
+        if isinstance(net, CustomUNet):
             return (lambda sd: (torch_to_unet_params(sd), torch_to_unet_stats(sd)),
                     unet_params_to_torch, unet_stats_to_torch)
+        if isinstance(net, (StyleGAN2Generator, StyleGAN2Discriminator)):
+            return (lambda sd: (torch_to_stylegan2_params(sd), {}), stylegan2_params_to_torch,
+                    None)
+        if name == "G":
+            return torch_to_resnet_params, resnet_params_to_torch, resnet_stats_to_torch
         return torch_to_d_params, d_params_to_torch, d_stats_to_torch
 
     def save_networks(self, tag: str, ckpt_dir: Optional[str] = None) -> None:

@@ -7,10 +7,14 @@ import torch
 
 from .discriminators import (MultiscaleDiscriminator, NLayerDiscriminator, PatchDiscriminator,
                              PixelDiscriminator)
+from .munit import GResnet
 from .pix2pixhd_nets import Encoder, GlobalGenerator, LocalEnhancer
 from .resnet_gen import ResnetGenerator
 from .spade_nets import ConvEncoder, SPADEGenerator
+from .stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
 from .unet_custom import CustomUNet
+from .unet_plain import UnetGenerator
+from .visgel import VisGelGenerator
 
 _RESNET_BLOCKS = {"resnet_9blocks": 9, "resnet_6blocks": 6, "resnet_4blocks": 4}
 
@@ -18,10 +22,12 @@ _RESNET_BLOCKS = {"resnet_9blocks": 9, "resnet_6blocks": 6, "resnet_4blocks": 4}
 def define_G(opt, input_nc: int, output_nc: int, dtype: torch.dtype = torch.float32):
     """Generator factory: ``unet256_custom`` (sinskitG, skitG),
     ``resnet_{9,6,4}blocks`` (pix2pix), pix2pixHD's ``global``, ``local``
-    and ``encoder``, and SPADE's ``spade`` (conditioned on the
+    and ``encoder``, SPADE's ``spade`` (conditioned on the
     ``input_nc``-channel sketch) and ``conv_encoder`` (the VAE's image
-    encoder, ``input_nc`` the image's channels, ndf ``--ngf``); every other
-    name raises.  The pix2pixHD and SPADE depths and the
+    encoder, ``input_nc`` the image's channels, ndf ``--ngf``), and the
+    zoo's ``unet_256``/``unet_128``, ``visgel``, ``resnet_cat``,
+    ``stylegan2`` and ``smallstylegan2``; every other name raises.  The
+    pix2pixHD and SPADE depths and the
     style-code options default as the reference's factory defaults them
     when the model's parser did not declare them (a pix2pix run with
     ``--netG global``, a sinskit run with ``--use_style_code``)."""
@@ -57,6 +63,20 @@ def define_G(opt, input_nc: int, output_nc: int, dtype: torch.dtype = torch.floa
     if opt.netG == "conv_encoder":
         return ConvEncoder(input_nc, ndf=opt.ngf, z_dim=int(getattr(opt, "z_dim", 256)),
                            init_type=opt.init_type, init_gain=opt.init_gain)
+    if opt.netG in ("unet_256", "unet_128"):
+        return UnetGenerator(input_nc, ngf=opt.ngf, out_nc=output_nc,
+                             num_downs=8 if opt.netG == "unet_256" else 7,
+                             use_dropout=not opt.no_dropout, **common)
+    if opt.netG == "visgel":
+        return define_G2(opt, input_nc, output_nc,
+                         t_resolution_multiplier=int(opt.T_resolution_multiplier))
+    if opt.netG == "resnet_cat":
+        return GResnet(input_nc, ngf=opt.ngf, out_nc=output_nc, num_downs=2, n_res=4,
+                       init_type=opt.init_type, init_gain=opt.init_gain)
+    if opt.netG in ("stylegan2", "smallstylegan2"):
+        return StyleGAN2Generator(input_nc, ngf=opt.ngf, out_nc=output_nc,
+                                  n_blocks=2 if opt.netG == "smallstylegan2" else None,
+                                  crop_size=int(opt.crop_size))
     if opt.netG != "unet256_custom":
         raise NotImplementedError(f"netG {opt.netG!r} is not ported yet")
     return CustomUNet(
@@ -73,10 +93,29 @@ def define_G(opt, input_nc: int, output_nc: int, dtype: torch.dtype = torch.floa
         init_type=opt.init_type, init_gain=opt.init_gain, dtype=dtype)
 
 
+def define_G2(opt, input_nc: int, output_nc: int, netG2: str = "VisGel",
+              t_resolution_multiplier: int = None):
+    """Super-resolution G2 factory (``vts_tpu/networks/__init__.py::define_G2``):
+    the VisGel generator, emitting at ``t_resolution_multiplier`` (default
+    ``--T_resolution_multiplier``, and 2 where the options have none) × its
+    input (in fp32, whatever the compute dtype, as the reference's); every
+    other name raises, as the reference's."""
+    if netG2 != "VisGel":
+        raise NotImplementedError(f"super resolution model name {netG2!r} is not recognized")
+    if t_resolution_multiplier is None:
+        t_resolution_multiplier = int(getattr(opt, "T_resolution_multiplier", 2))
+    return VisGelGenerator(input_nc, out_nc=output_nc,
+                           t_resolution_multiplier=t_resolution_multiplier,
+                           init_type=opt.init_type, init_gain=opt.init_gain)
+
+
 def define_D(opt, input_nc: int, netD: str = None, n_layers: int = None, num_D: int = 3,
-             dtype: torch.dtype = torch.float32):
+             dtype: torch.dtype = torch.float32, input_size=None):
     """Discriminator factory (reference models/networks.py:392-442): basic,
-    n_layers, pixel, patch or multiscale."""
+    n_layers, pixel, patch, multiscale, or ``stylegan2`` and
+    ``tilestylegan2``, which take the (H, W) ``input_size`` of the images they
+    will see (default ``--crop_size``²: their flattened head's width follows
+    it)."""
     name = netD or opt.netD
     nl = n_layers if n_layers is not None else opt.n_layers_D
     sig = opt.gan_mode == "vanilla"
@@ -92,4 +131,8 @@ def define_D(opt, input_nc: int, netD: str = None, n_layers: int = None, num_D: 
         return MultiscaleDiscriminator(input_nc, ndf=opt.ndf, n_layers=nl, num_D=num_D,
                                        norm_type=opt.normD, use_sigmoid=sig,
                                        get_interm_feat=interm, dtype=dtype)
+    if name in ("stylegan2", "tilestylegan2"):
+        return StyleGAN2Discriminator(input_nc, ndf=opt.ndf, tile=name.startswith("tile"),
+                                      crop_size=int(opt.crop_size),
+                                      input_size=input_size or (int(opt.crop_size),) * 2)
     raise NotImplementedError(f"netD {name!r} is not ported yet")

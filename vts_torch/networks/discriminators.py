@@ -161,7 +161,12 @@ class PatchDiscriminator(nn.Module):
 
 def reset_parameters(net: nn.Module, init, gen: torch.Generator) -> None:
     """Seeded init of a discriminator: every conv weight from ``init`` with the
-    reference's flax fans, conv biases zero, batch-norm scales N(1, 0.02)."""
+    reference's flax fans, conv biases zero, batch-norm scales N(1, 0.02); a
+    D with a seeded ``reset_parameters(generator)`` of its own (the StyleGAN2
+    D, whose equalized weights ignore ``init``) takes that."""
+    if hasattr(type(net), "reset_parameters"):
+        net.reset_parameters(gen)
+        return
     for m in net.modules():
         if isinstance(m, (Conv, BatchNorm)):
             m.reset_parameters(init, gen)

@@ -134,23 +134,27 @@ def torch_to_unet_stats(state_dict: Dict[str, torch.Tensor]) -> Dict:
     return stats
 
 
-# ----------------------------------- ResNet, pix2pixHD and SPADE generators ---
+# ------------------------- ResNet, pix2pixHD, SPADE and the zoo's generators ---
 # The port's ResnetGenerator, pix2pixHD's GlobalGenerator, LocalEnhancer and
-# Encoder, and SPADE's SPADEGenerator and ConvEncoder name their submodules as
-# flax does, so a key is the flax tree path, dot-joined, under the scopes
-# ``core`` and ``global`` where the tree has them (core.ResnetBlock_3.Conv_1.
-# weight ↔ params["core"]["ResnetBlock_3"]["Conv_1"]["kernel"]); the
-# converters below take any such tree:
+# Encoder, SPADE's SPADEGenerator and ConvEncoder, and the zoo's plain
+# UnetGenerator, VisGelGenerator and GResnet name their submodules as flax
+# does, so a key is the flax tree path, dot-joined, under the scopes
+# ``core``, ``global``, ``down{i}``, ``encoder``, … where the tree has them
+# (core.ResnetBlock_3.Conv_1.weight ↔
+# params["core"]["ResnetBlock_3"]["Conv_1"]["kernel"]); the converters below
+# take any such tree:
 #   Conv_i.weight|bias, ResnetBlock_b.Conv_{0,1}.weight  ↔ params[...][kernel|bias]
+#   <any conv>.weight (stem, s0b0.conv1, up0, head, …)   ↔ params[...][kernel]
 #   ConvTranspose_i.weight|bias                          ↔ the flax ConvTranspose
 #   a 2-D weight (SPADE's Dense fc, fc_mu, fc_var)       ↔ the Dense kernel, transposed
-#   BatchNorm_i.scale|bias (ResnetBlock_b.BatchNorm_j.·) ↔ params[...][scale|bias]
+#   BatchNorm_i.scale|bias, up_ln{i}.scale|bias          ↔ params[...][scale|bias]
 #   BatchNorm_i.mean|var                                 ↔ batch_stats[...][mean|var]
 #   <conv>.u (a spectral conv's)                         ↔ batch_stats[...][<conv>][u]
 
 def resnet_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
     """flax ``ResnetGenerator`` (or ``GlobalGenerator``, ``LocalEnhancer``,
-    ``Encoder``, ``SPADEGenerator``, ``ConvEncoder``) params → the port's
+    ``Encoder``, ``SPADEGenerator``, ``ConvEncoder``, ``UnetGenerator``,
+    ``VisGelGenerator``, ``GResnet``) params → the port's
     generator's state-dict entries (every leaf of the tree: params, or Adam
     moments in the params' layout)."""
     sd = OrderedDict()
@@ -160,10 +164,8 @@ def resnet_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
             sd[key + ".weight"] = (_t(np.asarray(v).T) if np.ndim(v) == 2
                                    else _convt_to_torch(v) if path[-2].startswith("ConvTranspose")
                                    else _conv_to_torch(v))
-        elif path[-2].startswith("BatchNorm"):
-            sd[".".join(path)] = _t(v)
         else:
-            sd[key + ".bias"] = _t(v)
+            sd[".".join(path)] = _t(v)
     return sd
 
 
@@ -193,6 +195,35 @@ def torch_to_resnet_params(state_dict: Dict[str, torch.Tensor]):
         else:
             _set(params, path, _np(t).copy())
     return params, stats
+
+
+# ------------------------------------------------------------- StyleGAN2 ---
+# The StyleGAN2 G and D name their modules and parameters as flax does, and
+# their equalized weights are flax params named ``weight``:
+#   <conv>.weight (EqualConv, ModulatedConv)  ↔ params[...][weight] (HWIO ↔ OIHW)
+#   <linear>.weight (EqualLinear)             ↔ params[...][weight] ((in, out) ↔ (out, in))
+#   bias, noise_strength (a scalar)           ↔ params[...][bias|noise_strength]
+# They hold no batch statistics (their checkpoints' ``stats`` are {}), and the
+# StyledConvs' fixed noise maps are not saved.
+
+def stylegan2_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """flax ``StyleGAN2Generator`` or ``StyleGAN2Discriminator`` params (or
+    Adam moments in their layout) → the port's state dict."""
+    sd = OrderedDict()
+    for path, v in _leaves(params):
+        sd[".".join(path)] = ((_t(np.asarray(v).T) if np.ndim(v) == 2 else _conv_to_torch(v))
+                              if path[-1] == "weight" else _t(v))
+    return sd
+
+
+def torch_to_stylegan2_params(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """Inverse of :func:`stylegan2_params_to_torch`."""
+    params: Dict = {}
+    for key, t in state_dict.items():
+        path = tuple(key.split("."))
+        _set(params, path, (_np(t).T.copy() if t.dim() == 2 else _conv_from_torch(t))
+             if path[-1] == "weight" else _np(t).copy())
+    return params
 
 
 # ---------------------------------------------------------------- LPIPS ---

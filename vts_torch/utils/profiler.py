@@ -28,7 +28,11 @@ kernels), the measure of its share of the step; for a model with
 spectral-norm convs (``--model spade``) it profiles, alone, the spectral
 norms one step computes (``spectral_norm``): each conv's power iteration
 and kernel / σ, once for each of G's convs and three times for each of
-D's and D2's (the fake, the real and the G-loss pass), with their launches.
+D's and D2's (the fake, the real and the G-loss pass), with their launches;
+for a model with StyleGAN2 nets (``--netG stylegan2``, ``--netD
+stylegan2``, ...) it records every call the step makes to them and replays
+those alone, forward and backward (``stylegan2``: on cuDNN, their FIR
+blurs, equalized and modulated convs), the measure of their share.
 ``--trace`` also writes the chrome trace.
 """
 
@@ -47,6 +51,7 @@ from ..device import resolve_device
 from ..metrics import evaluate_batch
 from ..models import create_model
 from ..networks.spade_nets import SpectralConv
+from ..networks.stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
 
 
 def _busy_ms(events) -> float:
@@ -153,6 +158,27 @@ def profile_train_step(argv, trace_path: str = None) -> dict:
         spectral_part()                            # warm-up
         out["spectral_norm"] = dict(_profile(spectral_part), convs=len(passes),
                                     passes=sum(n for _, n in passes))
+    zoo = [getattr(model, f"net{name}") for name in model.model_names]
+    zoo = [m for m in zoo if isinstance(m, (StyleGAN2Generator, StyleGAN2Discriminator))]
+    if zoo:
+        # every call the step makes to a StyleGAN2 net, recorded in one more
+        # step, replayed alone: forward, and backward to its parameters and
+        # to its input where the step's input took a gradient
+        calls = []
+        hooks = [m.register_forward_hook(lambda mod, inp, o: calls.append(
+            (mod, inp[0].detach().clone(), inp[0].requires_grad))) for m in zoo]
+        one_step()
+        for h in hooks:
+            h.remove()
+
+        def stylegan2_part():
+            for mod, x, needs in calls:
+                x = x.requires_grad_(needs)
+                torch.autograd.grad(mod(x).sum(), list(mod.parameters()) + ([x] if needs else []))
+            torch.cuda.synchronize()
+
+        stylegan2_part()                           # warm-up
+        out["stylegan2"] = dict(_profile(stylegan2_part), calls=len(calls))
     return out
 
 
