@@ -154,7 +154,9 @@ Phases, each of which must pass or the script exits non-zero:
      on cpu from the same weights, held as the x2 step of 4c is (G meets the
      VGG19 loss's fp32 max-pool near-ties) with the round-off leaves found
      from the CPU gradient, and the pool within 1e-5; G's 256²
-     eval forward from the same weights within 1e-4 of its max; the launcher's ``pix2pixhd launch
+     eval forward from the same weights within 1e-4 of its max; the same
+     step under ``--dtype bfloat16`` on cuda and on cpu, held by phase
+     4b's bf16 rule with the cpu fp32 step as the reference; the launcher's ``pix2pixhd launch
      --mode process`` child on phase 4f's on-disk garment (1 epoch of 32
      patches, no validation, ngf/ndf 8) on the
      card;
@@ -181,7 +183,9 @@ Phases, each of which must pass or the script exits non-zero:
      2-norm within what a 1e-6 relative change of the sketch does to it on
      the cpu (at least 1e-4: VGG19's near-ties on an untrained G's
      near-constant outputs); G's 256² eval forward from the same weights
-     within 1e-4 of its max; the launcher's ``spade launch --mode process``
+     within 1e-4 of its max; the VGG-less step under ``--dtype bfloat16``
+     on cuda and on cpu, held by phase 4b's bf16 rule; the launcher's
+     ``spade launch --mode process``
      child on phase 4f's on-disk garment (1 epoch of 32 patches, no
      validation, ngf/ndf 8) on the card;
  4j. the garment fleet: ``vts_torch.launch ours launch`` in its default
@@ -222,7 +226,30 @@ Phases, each of which must pass or the script exits non-zero:
      noise injected, both Ds) on cuda against cpu at a small size: forward,
      input and parameter gradients, running statistics; each step's wall
      (median of 5 after 2), peak memory and launches, each test sample's
-     wall and G forward (median of 3 after 1);
+     wall and G forward (median of 3 after 1).  The sinskit run trains
+     with the repeated-letter policy ``--diffaugment btbt``: its next
+     step's draws on the card equal a cpu replay from the same generator
+     state at every position, each repeated letter's two positions differ,
+     and that step's augmentation of the real canvas is the cpu's bit for
+     bit;
+ 4l. the library's last modules (:func:`cut_phase`): the LPIPS VGG16 taps
+     of a random 1536² image (K1 forward on the card), ``PatchSampleF`` with
+     its MLP on 256 locations of each tap, ``patch_nce_loss`` against the
+     real image's taps and ``texture_loss``, backward to the image (K1 dx)
+     and the head: K1 and K1 dx 3 launches each, the losses within 1e-4
+     and the gradients within 1e-4 in the 2-norm of the plain path of the
+     same code on the card (K1's plain version under autograd), each limit
+     raised to twice the plain path's own move under a 1e-6 relative move
+     of the image where that is larger (ReLU slopes flipping near 0, and
+     the texture loss a small difference of two grams), both timed;
+     the four normal-loss modes on the normals of two random 1536² gx/gy
+     maps on cuda against the cpu (values within 1e-5, gradients within
+     1e-5 of their max, each widened by acos' conditioning near ±1; a
+     pixel within 2^-20 of a mask bound of AL or TAL left out of the
+     gradient's check, since the loss jumps there); one
+     batch of each legacy dataset (single, unaligned, singleimage,
+     template) through the port's ``DataLoader`` onto the card, the same
+     bits back;
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
@@ -254,7 +281,8 @@ Phases, each of which must pass or the script exits non-zero:
      full-width pix2pix step (median of 5 after 2 warm-ups, samples/s, peak
      memory), one full-canvas pix2pix test sample (median of 3 after 1, its
      G forward and launches) and one traced pix2pix step in a process of its
-     own (``vts_torch.utils.profiler --phase train``: the idle share); the
+     own (``vts_torch.utils.profiler``'s ``profile_train_step``: the idle
+     share; the three baselines' traced steps share that process); the
      same three for pix2pixHD, the traced step's process also profiling
      the step's VGG19 loss alone (its device time); the same three for
      SPADE, with the test sample's G forward and peak memory, the traced
@@ -1490,8 +1518,11 @@ def pix2pixhd_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
     print(f"[pix2pixhd ref] 256² eval forward cuda vs cpu from the same weights: max|d|/max|ref| "
           f"{err:.3e}")
     check(err <= 1e-4, "the pix2pixHD eval forward on cuda disagrees with cpu")
-    torch.backends.cudnn.deterministic = cudnn_det
     del pair
+    # the same step under --dtype bfloat16 on cuda and on cpu, cpu fp32 the reference
+    out["bf16"] = bf16_trio("32² pix2pixHD bf16 step (VGG, corrected GAN-feat, pool)", small,
+                            patch_batch(4), 4)
+    torch.backends.cudnn.deterministic = cudnn_det
 
     # the launcher's pix2pixhd child on the on-disk garment of phase 4f, 1 epoch,
     # ngf/ndf 8 (cut for time: the full-width G's seeded init on the host
@@ -1510,7 +1541,29 @@ def pix2pixhd_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
     return out
 
 
-def pix2pixhd_times(hd, dirs, smi):
+def traced_baseline_steps(dirs):
+    """One traced full-width training step each of pix2pix, pix2pixHD and
+    SPADE (``vts_torch.utils.profiler.profile_train_step``, as ``python -m
+    vts_torch.utils.profiler --phase train`` runs it), in one process of
+    their own started once for the three: {"pix2pix", "pix2pixhd",
+    "spade"} → the profiler's record."""
+    code = ("import json, sys\n"
+            "from vts_torch.utils.profiler import profile_train_step\n"
+            "for argv in json.loads(sys.argv[1]):\n"
+            "    print(json.dumps(profile_train_step(argv)), flush=True)\n")
+    argvs = [P2P_TRAIN + dirs, HD_TRAIN + dirs, SP_TRAIN + dirs]
+    t0 = time.time()
+    prof = subprocess.run([sys.executable, "-c", code, json.dumps(argvs)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=1200)
+    check(prof.returncode == 0, f"the traced baseline steps failed:\n{prof.stderr[-3000:]}")
+    # the models' set-up prints lines of their own between the records
+    recs = [json.loads(line) for line in prof.stdout.splitlines() if line.startswith("{")]
+    check(len(recs) == 3, f"the traced baseline steps printed {len(recs)} records, not 3")
+    print(f"[time traced baselines] the three traced steps' process took {time.time() - t0:.1f} s")
+    return dict(zip(("pix2pix", "pix2pixhd", "spade"), recs))
+
+
+def pix2pixhd_times(hd, dirs, smi, rec):
     """Phase 5's pix2pixHD times: one untraced full-width training step
     (median of 5 after 2 warm-ups, samples/s, peak memory), one full-canvas
     test sample (median of 3 after 1, its G forward and launches), and one
@@ -1573,14 +1626,9 @@ def pix2pixhd_times(hd, dirs, smi):
     check(hd_one == PER_SAMPLE, f"a pix2pixHD test sample launched {hd_one}, not {PER_SAMPLE}")
     del model, batch
     torch.cuda.empty_cache()
-    prof = subprocess.run([sys.executable, "-m", "vts_torch.utils.profiler", "--phase", "train",
-                           *HD_TRAIN, *dirs], cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    check(prof.returncode == 0, f"the traced pix2pixHD step failed:\n{prof.stderr[-3000:]}")
-    rec = json.loads(prof.stdout.strip().splitlines()[-1])
     vgg = rec["vgg19"]
-    print(f"[time pix2pixhd traced] {smi}: one traced full-width pix2pixHD step in a fresh "
-          f"process (vts_torch.utils.profiler --phase train): wall {rec['wall_ms']:.1f} ms, "
+    print(f"[time pix2pixhd traced] {smi}: one traced full-width pix2pixHD step in a process "
+          f"of its own (vts_torch.utils.profiler --phase train): wall {rec['wall_ms']:.1f} ms, "
           f"device busy {rec['device_busy_ms']:.1f} ms, idle share "
           f"{rec['device_idle_share']:.3f}, peak memory {rec['peak_memory_gib']:.2f} GiB; top "
           f"kernels: " + "; ".join(f"{k['name'][:60]} {k['ms']:.2f} ms"
@@ -1767,8 +1815,11 @@ def spade_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
     print(f"[spade ref] 256² eval forward cuda vs cpu from the same weights: max|d|/max|ref| "
           f"{err:.3e}")
     check(err <= 1e-4, "the SPADE eval forward on cuda disagrees with cpu")
-    torch.backends.cudnn.deterministic = cudnn_det
     del pair
+    # the VGG-less step under --dtype bfloat16 on cuda and on cpu, cpu fp32 the reference
+    out["bf16"] = bf16_trio("32² SPADE bf16 step (hinge, TTUR, pool; no VGG)",
+                            small + ["--no_vgg_loss"], patch_batch(4), 4)
+    torch.backends.cudnn.deterministic = cudnn_det
 
     # the launcher's spade child on the on-disk garment of phase 4f, 1 epoch,
     # ngf/ndf 8 (cut for time: the full-width G's seeded init on the host
@@ -1787,7 +1838,7 @@ def spade_baseline(tmp, dirs, wf_data, run_train, run_test, p2p_shapes):
     return out
 
 
-def spade_times(sp, dirs, smi):
+def spade_times(sp, dirs, smi, rec):
     """Phase 5's SPADE times: one untraced full-width training step (median
     of 5 after 2 warm-ups, samples/s, peak memory), one full-canvas test
     sample (median of 3 after 1, its G forward, launches and peak memory),
@@ -1857,14 +1908,9 @@ def spade_times(sp, dirs, smi):
     check(sp_one == PER_SAMPLE, f"a SPADE test sample launched {sp_one}, not {PER_SAMPLE}")
     del model, batch
     torch.cuda.empty_cache()
-    prof = subprocess.run([sys.executable, "-m", "vts_torch.utils.profiler", "--phase", "train",
-                           *SP_TRAIN, *dirs], cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    check(prof.returncode == 0, f"the traced SPADE step failed:\n{prof.stderr[-3000:]}")
-    rec = json.loads(prof.stdout.strip().splitlines()[-1])
     vgg, sn = rec["vgg19"], rec["spectral_norm"]
-    print(f"[time spade traced] {smi}: one traced full-width SPADE step in a fresh process "
-          f"(vts_torch.utils.profiler --phase train): wall {rec['wall_ms']:.1f} ms, device busy "
+    print(f"[time spade traced] {smi}: one traced full-width SPADE step in a process of "
+          f"its own (vts_torch.utils.profiler --phase train): wall {rec['wall_ms']:.1f} ms, device busy "
           f"{rec['device_busy_ms']:.1f} ms, idle share {rec['device_idle_share']:.3f}, "
           f"{rec['kernel_launches']} kernel launches, peak memory {rec['peak_memory_gib']:.2f} "
           f"GiB; top kernels: " + "; ".join(f"{k['name'][:60]} {k['ms']:.2f} ms"
@@ -2210,9 +2256,13 @@ def garment_fleet(tmp, dirs, run_test, smi):
 # whose center fits its crop); (c) each new network on cuda
 # against cpu at a small size from the same weights
 ZOO_DATA = f"synthetic://smoke?size={PADDED}"
+# a repeated-letter DiffAugment policy rides on this run: each position draws
+# its own numbers (diffaug_replay checks them against a cpu replay)
+ZOO_POLICY = "btbt"
 ZOO_TRAIN = ["--model", "sinskit", "--name", "zoo", "--netG", "unet_256", "--netD", "stylegan2",
              "--netD2", "stylegan2", "--dataroot", ZOO_DATA, "--device", "cuda", "--data_len", "3",
-             "--n_epochs", "1", "--n_epochs_decay", "0", "--no_html"]
+             "--n_epochs", "1", "--n_epochs_decay", "0", "--no_html",
+             "--diffaugment", ZOO_POLICY]
 ZOO_TEST = ["--model", "sinskit", "--name", "zoo", "--netG", "unet_256", "--epoch", "latest",
             "--dataroot", ZOO_DATA, "--device", "cuda", "--batch_size_G2", str(K_PATCH)]
 # the StyleGAN2 G's garment fits its 1024² crop: a 1024 × 768 center (the
@@ -2360,7 +2410,8 @@ def zoo_cuda_vs_cpu():
     by 1e-6 of themselves makes on the cpu (five draws; phase 4j holds the
     fleet's G to one such jump: twice, because five draws sample the flips
     that the card's other rounding makes, and its StyleGAN2 G read 1.08×
-    the largest of them in the 2-norm)."""
+    the largest of them in the 2-norm).  The jumps are drawn only for a net
+    that a plain limit fails."""
     import copy
     worst = {}
     for label, build, shapes in zoo_nets():
@@ -2377,17 +2428,6 @@ def zoo_cuda_vs_cpu():
         on_card = copy.deepcopy(net).cuda().train()
         o_c, x_c, g_c, s_c = zoo_grads(net.train(), ins, "cpu")
         o_g, x_g, g_g, s_g = zoo_grads(on_card, ins, "cuda")
-        jumps = []
-        for _ in range(5):
-            moved = copy.deepcopy(net)
-            with torch.no_grad():
-                for p in moved.parameters():
-                    p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=gen))
-            o_m, x_m, g_m, _ = zoo_grads(moved, ins, "cpu")
-            jumps.append(((o_m - o_c).abs().max().item() / o_c.abs().max().item(),
-                          (x_m - x_c).abs().max().item() / x_c.abs().max().item(),
-                          rel_norm(g_m, g_c, g_c)))
-        jump = [max(j[i] for j in jumps) for i in range(3)]
         f_err = (o_g - o_c).abs().max().item() / o_c.abs().max().item()
         x_err = (x_g - x_c).abs().max().item() / x_c.abs().max().item()
         net_max = max(v.abs().max().item() for v in g_c.values())
@@ -2400,11 +2440,26 @@ def zoo_cuda_vs_cpu():
         norm = rel_norm(g_g, g_c, g_c)
         s_err = max([(s_g[k] - v).abs().max().item() for k, v in s_c.items()] or [0.0])
         per_leaf = ratio[k_worst] <= 1.0
+        # the jumps only raise the limits: drawn where a plain limit fails
+        jump = [0.0, 0.0, 0.0]
+        if f_err > 1e-4 or x_err > 1e-4 or not (per_leaf or norm <= 1e-4):
+            jumps = []
+            for _ in range(5):
+                moved = copy.deepcopy(net)
+                with torch.no_grad():
+                    for p in moved.parameters():
+                        p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=gen))
+                o_m, x_m, g_m, _ = zoo_grads(moved, ins, "cpu")
+                jumps.append(((o_m - o_c).abs().max().item() / o_c.abs().max().item(),
+                              (x_m - x_c).abs().max().item() / x_c.abs().max().item(),
+                              rel_norm(g_m, g_c, g_c)))
+            jump = [max(j[i] for j in jumps) for i in range(3)]
         print(f"[zoo ref] {label}, cuda vs cpu: forward max|d|/max|ref| {f_err:.2e}, input "
               f"gradient {x_err:.2e}, worst parameter leaf |d|/tolerance {ratio[k_worst]:.2e} "
               f"at {k_worst}, |d|/|g| over the network {norm:.2e}, running statistics max|d| "
-              f"{s_err:.2e} ({len(s_c)} buffers); a 1e-6 move of the weights on the cpu: "
-              f"forward {jump[0]:.2e}, input gradient {jump[1]:.2e}, parameters {jump[2]:.2e}; "
+              f"{s_err:.2e} ({len(s_c)} buffers); a 1e-6 move of the weights on the cpu (0: "
+              f"not drawn, the plain limits hold): forward {jump[0]:.2e}, input gradient "
+              f"{jump[1]:.2e}, parameters {jump[2]:.2e}; "
               + ("the per-leaf rule holds" if per_leaf else
                  f"held in the 2-norm to {max(1e-4, 2 * jump[2]):.2e}"))
         ok = (f_err <= max(1e-4, 2 * jump[0]) and x_err <= max(1e-4, 2 * jump[1])
@@ -2437,6 +2492,7 @@ def zoo_phase(tmp, dirs, run_train, run_test, train_shapes, p2p_shapes):
           f"{sum(p.numel() for p in model.netD2.parameters()) / 1e6:.3f} M params; last "
           f"losses: " + " ".join(f"{k}={v:.6g}" for k, v in losses.items()))
     print(f"[zoo sinskit] launches during the training run: {run}")
+    out["diffaug"] = diffaug_replay(model)
     check(isinstance(model.netG, UnetGenerator)
           and isinstance(model.netD, StyleGAN2Discriminator)
           and isinstance(model.netD2, StyleGAN2Discriminator), "phase 4k built other networks")
@@ -2533,6 +2589,277 @@ def zoo_phase(tmp, dirs, run_train, run_test, train_shapes, p2p_shapes):
     torch.backends.cudnn.deterministic = True
     out["nets"] = zoo_cuda_vs_cpu()
     torch.backends.cudnn.deterministic = cudnn_det
+    return out
+
+
+def diffaug_replay(model):
+    """The zoo run's repeated-letter policy (``ZOO_POLICY``): the draws of
+    its next step, taken on the card model, against a cpu replay from the
+    same generator state (``SinSKITModel.draw`` on a stand-in with a copy of
+    the generator): every position's numbers equal, the repeated letters'
+    two positions different, and that step's augmentation of the real
+    canvas on the card the cpu's bit for bit."""
+    import types
+
+    from vts_torch.models.sinskit import SinSKITModel
+    from vts_torch.ops import diffaug
+    policy = model.opt.diffaugment
+    check(policy == ZOO_POLICY, f"the zoo run trained with --diffaugment {policy!r}")
+    size = tuple(model._input["I"].shape[1:3])
+    gen = torch.Generator()
+    gen.set_state(model.generator.get_state())
+    replay = types.SimpleNamespace(opt=model.opt, generator=gen,
+                                   _crop_active=model._crop_active)
+    want = SinSKITModel.draw(replay, 1, size)
+    got = model.draw(1, size)
+    for side in ("aug_real", "aug_fake"):
+        check(len(got[side]) == len(want[side]) == len(policy)
+              and all(torch.equal(a, b) for a, b in zip(got[side], want[side])),
+              f"{side}: the card model's per-position draws differ from the cpu replay")
+        for i, letter in enumerate(policy):
+            j = policy.index(letter)
+            check(j == i or not torch.equal(got[side][i], got[side][j]),
+                  f"{side}: positions {j} and {i} ({letter!r}) drew the same numbers")
+    t0 = time.time()
+    real = model._input["I"]
+    on_card = diffaug.diff_augment(real, policy, draws=got["aug_real"])
+    torch.cuda.synchronize()
+    on_cpu = diffaug.diff_augment(real.cpu(), policy, draws=want["aug_real"])
+    same = torch.equal(on_card.cpu(), on_cpu)
+    print(f"[zoo diffaug] --diffaugment {policy} at {size[0]}²: the next step's draws on the card "
+          f"equal a cpu replay at every position ({', '.join(policy)}; each repeated letter's "
+          f"two positions differ: b {got['aug_real'][0].tolist()} and "
+          f"{got['aug_real'][2].tolist()}, t {got['aug_real'][1].tolist()} and "
+          f"{got['aug_real'][3].tolist()}); the augmented real canvas on the card equals the "
+          f"cpu's bit for bit: {same} ({time.time() - t0:.2f} s)")
+    check(same, "the repeated-letter augmentation on the card differs from the cpu's")
+    model.optimize_parameters(1, draws=got)
+    return {"policy": policy, "same": same}
+
+
+def bf16_trio(label, argv, batch, n, size=None):
+    """One bf16 step on cuda and on cpu from the same weights, batch and
+    draws, the cpu fp32 step as the reference (phase 4b's rule): per loss
+    |cuda16 − cpu16| ≤ 2·|cpu16 − cpu32| + 1e-3·|cpu32|, per network
+    ‖cuda16 − cpu16‖/‖cpu32‖ ≤ 2·‖cpu16 − cpu32‖/‖cpu32‖ + 1e-3 over the
+    gradient (Adam's first moment).  ``batch``: the batch, or None for the
+    options' dataset's first."""
+    from vts_torch.config import TrainOptions
+    from vts_torch.data import create_dataset
+    from vts_torch.models import create_model
+    trio = {}
+    for key, dt, device in (("cpu32", "float32", "cpu"), ("cpu16", "bfloat16", "cpu"),
+                            ("cuda16", "bfloat16", "cuda")):
+        o = TrainOptions().parse(argv + ["--dtype", dt, "--device", device], quiet=True)
+        trio[key] = create_model(o)
+        trio[key].setup()
+    batch = batch if batch is not None else next(iter(create_dataset(o)))
+    draws = trio["cpu16"].draw(n, size) if size else trio["cpu16"].draw(n)
+    for m in trio.values():
+        m.set_input(batch)
+        m.optimize_parameters(1, draws=draws)
+    l32, l16, lg = (trio[k].get_current_losses() for k in ("cpu32", "cpu16", "cuda16"))
+    worst = 0.0
+    for k in l32:
+        gap = abs(l16[k] - l32[k])
+        worst = max(worst, abs(lg[k] - l16[k]) / (2 * gap + 1e-3 * abs(l32[k]) + 1e-30))
+        check(abs(lg[k] - l16[k]) <= 2 * gap + 1e-3 * abs(l32[k]),
+              f"{label}: loss {k} on cuda {lg[k]} vs cpu {l16[k]} (fp32 {l32[k]})")
+    print(f"[bf16 ref] {label}, cuda vs cpu: worst loss |cuda16 - cpu16| / (2·|cpu16 - cpu32| "
+          f"+ 1e-3·|cpu32|) {worst:.3f}")
+    out = {"loss": worst}
+    for net in trio["cpu32"].adam:
+        mu32, mu16, mug = (trio[k].adam[net].mu for k in ("cpu32", "cpu16", "cuda16"))
+        d_dev, d_bf = rel_norm(mug, mu16, mu32), rel_norm(mu16, mu32, mu32)
+        print(f"[bf16 ref] {label}, {net} grads: |cuda16 - cpu16|/|cpu32| {d_dev:.3e}, "
+              f"|cpu16 - cpu32|/|cpu32| {d_bf:.3e}")
+        check(d_dev <= 2 * d_bf + 1e-3, f"{label}: {net} gradient on cuda disagrees with cpu "
+                                        f"beyond the bf16 bound")
+        out[net] = (d_dev, d_bf)
+    return out
+
+
+class PlainK1:
+    """Within it, the LPIPS VGG16 runs K1's plain version (and autograd's
+    backward of it) in place of K1 and K1 dx: the plain path of the same code."""
+
+    def __enter__(self):
+        from vts_torch.losses import lpips as lpips_mod
+        from vts_torch.ops import conv3x3 as k1
+        self.mod, self.kernel = lpips_mod, lpips_mod.conv3x3_bias_relu
+        lpips_mod.conv3x3_bias_relu = k1.conv3x3_bias_relu_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.conv3x3_bias_relu = self.kernel
+        return False
+
+
+def cut_phase(tmp):
+    """Phase 4l (see above): the CUT heads and the texture loss on the LPIPS
+    VGG16 taps of the canvas, the normal-loss modes, the legacy datasets."""
+    from vts_torch.config import TrainOptions
+    from vts_torch.data import create_dataset
+    from vts_torch.losses.lpips import LPIPS, init_lpips_params
+    from vts_torch.losses.normal import cosine_similarity, surface_normal_angle_error
+    from vts_torch.networks import cut_heads
+    import numpy as np
+    from PIL import Image
+
+    from vts_torch.ops.normal import compute_normal
+
+    dev = torch.device("cuda")
+    out = {}
+    gen = torch.Generator().manual_seed(17)
+    lp = LPIPS(init_lpips_params(0)).to(dev)
+    fake0 = (torch.rand(1, CANVAS, CANVAS, 3, generator=gen) * 2 - 1).to(dev)
+    real0 = (torch.rand(1, CANVAS, CANVAS, 3, generator=gen) * 2 - 1).to(dev)
+    with torch.no_grad():
+        real_taps = lp.vgg16_taps(real0)
+    chans = [t.shape[-1] for t in real_taps]
+    head = cut_heads.PatchSampleF(use_mlp=True, nc=256, num_patches=256, in_channels=chans,
+                                  generator=torch.Generator().manual_seed(18)).to(dev)
+    ids = [torch.randperm(t.shape[1] * t.shape[2], generator=gen)[:256].to(dev)
+           for t in real_taps]
+    params = list(head.parameters())
+
+    def run(image=fake0):
+        """PatchNCE (the MLP head on 256 locations of each tap, the real
+        image's as keys) + the texture loss of the five taps, and the
+        gradients to the image and the head."""
+        fake = image.clone().requires_grad_(True)
+        taps = lp.vgg16_taps(fake)
+        q, _ = head(taps, patch_ids=ids)
+        k, _ = head(real_taps, patch_ids=ids)
+        nce = sum(torch.mean(cut_heads.patch_nce_loss(a, b)) for a, b in zip(q, k))
+        tex = cut_heads.texture_loss(taps, real_taps)
+        grads = torch.autograd.grad(nce + tex, [fake] + params)
+        return nce.detach(), tex.detach(), grads
+
+    torch.cuda.synchronize()
+    reset_counts()
+    nce, tex, grads = run()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    with PlainK1():
+        nce_p, tex_p, grads_p = run()
+        # the plain path's own jump under a 1e-6 relative move of the image
+        nce_m, tex_m, grads_m = run(fake0 * (1 + 1e-6 * torch.randn(
+            fake0.shape, generator=torch.Generator().manual_seed(19)).to(dev)))
+        plain_ms = cuda_ms(run, reps=5, warmup=1)
+    kernel_ms = cuda_ms(run, reps=5, warmup=1)
+
+    def diffs(a, b):
+        """(nce, texture, image gradient, head gradient): relative
+        differences, the gradients' in the 2-norm."""
+        head = math.sqrt(sum(((x - y).double() ** 2).sum().item()
+                             for x, y in zip(a[2][1:], b[2][1:]))
+                         / sum((y.double() ** 2).sum().item() for y in b[2][1:]))
+        return (abs(a[0].item() - b[0].item()) / abs(b[0].item()),
+                abs(a[1].item() - b[1].item()) / abs(b[1].item()),
+                ((a[2][0] - b[2][0]).double().norm() / b[2][0].double().norm()).item(), head)
+    got = diffs((nce, tex, grads), (nce_p, tex_p, grads_p))
+    jump = diffs((nce_m, tex_m, grads_m), (nce_p, tex_p, grads_p))
+    lim = [max(1e-4, 2 * j) for j in jump]
+    names = ("PatchNCE", "texture loss", "image gradient", "head gradient")
+    print(f"[cut] PatchNCE (PatchSampleF with its MLP, 256 locations of each of the 5 VGG16 "
+          f"taps of a {CANVAS}² image, the real image's as keys) {nce.item():.6g}, texture loss "
+          f"{tex.item():.6g}, backward to the image and the head: launches {launches}; against "
+          f"the plain path on the card (relative; the gradients in the 2-norm; the plain path's "
+          f"own move under a 1e-6 relative move of the image beside): "
+          + ", ".join(f"{n} {g:.2e} (jump {j:.2e})" for n, g, j in zip(names, got, jump))
+          + f"; forward + backward {kernel_ms:.2f} ms with K1 and K1 dx, {plain_ms:.2f} ms plain "
+          f"(median of 5 after 1, CUDA events)")
+    check(launches["conv3x3_bias_relu"] == 3 and launches["conv3x3_dx"] == 3
+          and launches["gather_patches"] == launches["scatter_patches"] == 0,
+          f"the CUT/texture pass launched {launches}, not K1 and K1 dx 3 times each")
+    bad = [n for n, g, m in zip(names, got, lim) if g > m]
+    check(not bad, f"with K1 the CUT/texture {bad} disagree with the plain path")
+    out.update(cut_ms=kernel_ms, cut_plain_ms=plain_ms, cut_launches=launches, cut_err=got,
+               cut_jump=jump)
+
+    # the normal-loss modes on the card against the same code on the cpu, on
+    # the normals of two random canvas-sized gx/gy maps: each value within 1e-5 of
+    # itself (the angles also within what a cosine 2^-22 away moves them
+    # by), the gradients within 1e-5 of their max plus, per pixel, what a
+    # cosine 2^-22 away moves acos' slope by
+    tg = [torch.rand(1, CANVAS, CANVAS, 2, generator=gen) * 2 - 1 for _ in range(2)]
+    real_n, pred_n = (compute_normal(t, scale_nz=1.0) for t in tg[::-1])
+    cos = cosine_similarity(pred_n, real_n).double()
+    amp = cos.abs() * 2.0 ** -22 / (1 - cos * cos).clamp_min(1e-30)
+    worst = {}
+    BOUNDS = {"train_L2_loss": (), "train_AL_loss": (-0.999, 0.999),
+              "train_TAL_loss": (0.0, 0.9999)}
+    for mode in ("evaluate", "train_L2_loss", "train_AL_loss", "train_TAL_loss"):
+        res = {}
+        for device in ("cpu", "cuda"):
+            p = tg[0].to(device).requires_grad_(True)
+            r = compute_normal(tg[1].to(device), scale_nz=1.0)
+            val = surface_normal_angle_error(r, compute_normal(p, scale_nz=1.0), mode)
+            g = torch.autograd.grad(val, p)[0] if mode != "evaluate" else None
+            res[device] = (val.detach().cpu().double(), None if g is None else g.cpu().double())
+        (v_c, g_c), (v_g, g_g) = res["cpu"], res["cuda"]
+        if mode == "evaluate":
+            # degrees; acos moves by 2^-22/sin(angle) for a cosine 2^-22 away
+            lim = 1e-5 * v_c.abs() + 1e-6 + torch.rad2deg(
+                2.0 ** -22 / torch.sin(torch.deg2rad(v_c)).clamp_min(1e-12))
+        else:
+            lim = 1e-5 * v_c.abs() + 1e-7
+        err = ((v_g - v_c).abs() / lim).max().item()
+        check(err <= 1.0, f"normal {mode}: value {err:.2f} of its limit on cuda vs cpu")
+        g_err, edge = 0.0, 0
+        if g_c is not None:
+            # a pixel whose cosine lies within 2^-20 of one of the mode's mask
+            # bounds may fall on the other side of it on the other device:
+            # the loss jumps there, so its gradient is left out (counted)
+            near = torch.zeros_like(cos, dtype=torch.bool)
+            for bound in BOUNDS[mode]:
+                near |= (cos - bound).abs() <= 2.0 ** -20
+            edge = int(near.sum())
+            tol = 1e-5 * g_c.abs().max() + g_c.abs() * amp[..., None]
+            g_err = ((g_g - g_c).abs() / tol)[~near.expand_as(g_c[..., 0])].max().item()
+            check(g_err <= 1.0, f"normal {mode}: gradient {g_err:.2f} of its limit")
+        worst[mode] = (err, g_err, edge)
+    print(f"[normal] the four modes on a {CANVAS}² normal map, cuda vs cpu: " + ", ".join(
+        f"{m} value {e:.2f}" + (f" and gradient {g:.2f} of its limit ({n} pixels at a mask "
+                                f"bound left out)" if m != "evaluate" else " of its limit")
+        for m, (e, g, n) in worst.items()))
+    out["normal"] = worst
+
+    # the legacy datasets: a batch of each through the port's DataLoader onto the card
+    root = os.path.join(tmp, "legacy")
+    rng = np.random.default_rng(5)
+
+    def write(path, w, h):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(path)
+    for i in range(4):
+        write(os.path.join(root, "single", f"im{i}.png"), 300 + 7 * i, 260 + 5 * i)
+        write(os.path.join(root, "template", f"im{i}.png"), 290, 270)
+        write(os.path.join(root, "unaligned", "trainA", f"a{i}.png"), 310, 280)
+        write(os.path.join(root, "unaligned", "trainB", f"b{i}.png"), 280, 310)
+    write(os.path.join(root, "singleimage", "trainA", "a.png"), 333, 301)
+    write(os.path.join(root, "singleimage", "trainB", "b.png"), 301, 333)
+    for mode in ("single", "unaligned", "singleimage", "template"):
+        t0 = time.time()
+        o = TrainOptions().parse(["--dataset_mode", mode, "--dataroot", os.path.join(root, mode),
+                                  "--name", f"legacy_{mode}", "--checkpoints_dir",
+                                  os.path.join(tmp, "ckpt"), "--preprocess", "resize_and_crop",
+                                  "--load_size", "286", "--crop_size", "256", "--no_flip",
+                                  "false", "--batch_size", "2", "--data_len", "4",
+                                  "--device", "cuda"], quiet=True)
+        batch = next(iter(create_dataset(o)))
+        on_card = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        same = all(torch.equal(on_card[k].cpu(), torch.from_numpy(v)) for k, v in batch.items())
+        print(f"[legacy {mode}] a batch through the port's DataLoader onto the card in "
+              f"{time.time() - t0:.2f} s: " + ", ".join(
+                  f"{k} {tuple(v.shape)} {v.dtype}" for k, v in sorted(on_card.items()))
+              + f"; the same bits back: {same}")
+        images = [v for k, v in on_card.items() if v.dim() == 4]
+        check(same and images and all(v.shape == (2, 256, 256, 3)
+                                      and v.abs().max().item() <= 1.0 for v in images),
+              f"the legacy {mode} batch on the card: {[(k, v.shape) for k, v in on_card.items()]}")
     return out
 
 
@@ -3135,36 +3462,9 @@ def main() -> int:
     # a 256² bf16 step on cuda and on cpu, the cpu fp32 step as the reference
     cudnn_det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    lane_small = strain + ["--use_vision_aided_loss", "false", "--batch_size", "2",
-                           "--lpips_crop", "128"]
-    trio = {}
-    for key, dt, device in (("cpu32", "float32", "cpu"), ("cpu16", "bfloat16", "cpu"),
-                            ("cuda16", "bfloat16", "cuda")):
-        o = TrainOptions().parse(lane_small + ["--dtype", dt, "--device", device], quiet=True)
-        trio[key] = create_model(o)
-        trio[key].setup()
-    sbatch = next(iter(create_dataset(o)))
-    draws = trio["cpu16"].draw(2, (256, 256))
-    for m in trio.values():
-        m.set_input(sbatch)
-        m.optimize_parameters(1, draws=draws)
-    l32, l16, lg = (trio[k].get_current_losses() for k in ("cpu32", "cpu16", "cuda16"))
-    worst = 0.0
-    for k in l32:
-        gap = abs(l16[k] - l32[k])
-        worst = max(worst, abs(lg[k] - l16[k]) / (2 * gap + 1e-3 * abs(l32[k]) + 1e-30))
-        check(abs(lg[k] - l16[k]) <= 2 * gap + 1e-3 * abs(l32[k]),
-              f"256² bf16 step: loss {k} on cuda {lg[k]} vs cpu {l16[k]} (fp32 {l32[k]})")
-    print(f"[lane ref] 256² bf16 step (batch 2, LPIPS crop 128), cuda vs cpu: worst loss "
-          f"|cuda16 - cpu16| / (2·|cpu16 - cpu32| + 1e-3·|cpu32|) {worst:.3f}")
-    for net in ("G", "D", "D2"):
-        mu32, mu16, mug = (trio[k].adam[net].mu for k in ("cpu32", "cpu16", "cuda16"))
-        d_dev, d_bf = rel_norm(mug, mu16, mu32), rel_norm(mu16, mu32, mu32)
-        print(f"[lane ref] 256² bf16 step, {net} grads: |cuda16 - cpu16|/|cpu32| {d_dev:.3e}, "
-              f"|cpu16 - cpu32|/|cpu32| {d_bf:.3e}")
-        check(d_dev <= 2 * d_bf + 1e-3, f"256² bf16 step: {net} gradient on cuda disagrees "
-                                        f"with cpu beyond the bf16 bound")
-    del trio
+    bf16_trio("256² bf16 step (batch 2, LPIPS crop 128)",
+              strain + ["--use_vision_aided_loss", "false", "--batch_size", "2",
+                        "--lpips_crop", "128"], None, 2, (256, 256))
     torch.backends.cudnn.deterministic = cudnn_det
 
     # --------------------------------------------------------------- 4c ---
@@ -3465,6 +3765,15 @@ def main() -> int:
     zoo = zoo_phase(tmp, dirs, run_train, run_test, train_shapes, p2p["shapes"])
     zoo_s = time.time() - t0
     print(f"[zoo] phase 4k took {zoo_s:.1f} s")
+
+    # --------------------------------------------------------------- 4l ---
+    print(f"[phase] phase 4l (the CUT heads, the normal modes, the legacy datasets) from "
+          f"{time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    cut = cut_phase(tmp)
+    cut_s = time.time() - t0
+    print(f"[cut] phase 4l took {cut_s:.1f} s")
 
     # ---------------------------------------------------------------- 5 ---
     print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s; the card: {card_state()} "
@@ -4008,6 +4317,7 @@ def main() -> int:
     # warm-ups), one full-canvas test sample (median of 3 after 1, the
     # launches of one); then one traced step in a process of its own
     print(f"[phase] pix2pix walls from {time.time() - t_start:.1f} s")
+    traced = traced_baseline_steps(dirs)
     model = p2p.pop("train_model")
     batch = next(iter(create_dataset(TrainOptions().parse(P2P_TRAIN + dirs, quiet=True))))
     model.set_input(batch)
@@ -4059,20 +4369,16 @@ def main() -> int:
     check(p2p_one == PER_SAMPLE, f"a pix2pix test sample launched {p2p_one}, not {PER_SAMPLE}")
     del model, batch
     torch.cuda.empty_cache()
-    prof = subprocess.run([sys.executable, "-m", "vts_torch.utils.profiler", "--phase", "train",
-                           *P2P_TRAIN, *dirs], cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    check(prof.returncode == 0, f"the traced pix2pix step failed:\n{prof.stderr[-3000:]}")
-    rec = json.loads(prof.stdout.strip().splitlines()[-1])
-    print(f"[time pix2pix traced] {smi}: one traced full-width pix2pix step in a fresh process "
-          f"(vts_torch.utils.profiler --phase train): wall {rec['wall_ms']:.1f} ms, device busy "
+    rec = traced["pix2pix"]
+    print(f"[time pix2pix traced] {smi}: one traced full-width pix2pix step in a process of "
+          f"its own (vts_torch.utils.profiler --phase train): wall {rec['wall_ms']:.1f} ms, device busy "
           f"{rec['device_busy_ms']:.1f} ms, idle share {rec['device_idle_share']:.3f}, peak "
           f"memory {rec['peak_memory_gib']:.2f} GiB; top kernels: "
           + "; ".join(f"{k['name'][:60]} {k['ms']:.2f} ms" for k in rec["kernels_ms"][:6]))
     print(f"[phase] pix2pixhd walls from {time.time() - t_start:.1f} s")
-    pix2pixhd_times(hd, dirs, smi)
+    pix2pixhd_times(hd, dirs, smi, traced["pix2pixhd"])
     print(f"[phase] spade walls from {time.time() - t_start:.1f} s")
-    spade_times(sp, dirs, smi)
+    spade_times(sp, dirs, smi, traced["spade"])
     # device-only times of every kernel, and of their library calls
     print(f"[phase] device-only times from {time.time() - t_start:.1f} s")
     print(f"[device-only] the card: {card_state()} (SM clock, power, temperature)")
@@ -4154,7 +4460,7 @@ def main() -> int:
     print(f"[shapes] {json.dumps(shape_rows)}")
     print(f"[done] chip_smoke took {time.time() - t_start:.1f} s (phase 4f: {workflow_s:.1f} s, "
           f"phase 4g: {p2p_s:.1f} s, phase 4h: {hd_s:.1f} s, phase 4i: {sp_s:.1f} s, "
-          f"phase 4j: {fl_s:.1f} s, phase 4k: {zoo_s:.1f} s)")
+          f"phase 4j: {fl_s:.1f} s, phase 4k: {zoo_s:.1f} s, phase 4l: {cut_s:.1f} s)")
     tmp_dir.cleanup()
 
     print(smi)

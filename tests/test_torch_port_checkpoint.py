@@ -14,6 +14,7 @@ from vts_torch.models.base import load_net, save_net
 from vts_torch.networks.unet_custom import CustomUNet
 from vts_torch.utils import msgpack
 from vts_torch.utils.convert_jax import torch_to_unet_params, unet_params_to_torch
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 
 def _flat(tree):

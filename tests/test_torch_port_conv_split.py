@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 from vts_tpu.ops.pallas_conv import conv3x3_relu
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 MASK = np.uint32(0xFFFFE000)          # the 13 low mantissa bits a tensor core drops
 

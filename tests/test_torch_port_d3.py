@@ -25,6 +25,7 @@ from vts_torch.losses import vision_aided as tv
 from vts_torch.networks import clip_vit as tc
 from vts_torch.ops.resize_mm import _resize_matrix, resize_mm
 from vts_torch.utils.convert_jax import clip_params_to_torch, d3_head_params_to_torch
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 
 def _np_tree(tree):

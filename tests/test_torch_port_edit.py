@@ -27,6 +27,7 @@ import pickle
 import numpy as np
 import pytest
 from PIL import Image, ImageOps
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 SIZE, CW, CH = 320, 192, 128
 MATERIALS = ("synthA", "synthB")

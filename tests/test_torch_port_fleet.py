@@ -20,6 +20,8 @@ port's seeded weights through the converters, no flax init):
     weights, batches and draws bit for bit, before D3 and with D3 active
     (256², ngf/ndf 4: the U-Net's 8 downs need 256²); garment 0's update
     does not depend on garment 1's batch; the frozen towers are one copy;
+    skitG (``--model skit``) through the fleet equals its two single runs
+    bit for bit too;
   * the launcher's default mode on the CPU (two garments): the reference's
     ``[fleet]`` lines, each garment's ``latest`` files shaped as a single
     run's, the test driver on them, ``--epoch best`` after a fleet launch in
@@ -27,9 +29,11 @@ port's seeded weights through the converters, no flax init):
     cannot call their steps), ``ours_edit`` failing at the first loader in
     both;
   * ``slow``: one port fleet step against ``vts_tpu``'s ``FleetTrainer`` on
-    the same states and draws, replayed as ``tests/torch_port_step.py`` does.
+    the same states and draws, replayed as ``tests/torch_port_step.py`` does,
+    for sinskit and for skitG (its G by the 2-norm near-tie rule).
 """
 
+import functools
 import inspect
 import io
 import re
@@ -50,19 +54,10 @@ from vts_torch.parallel import packing as port_packing
 from vts_torch.utils.convert_jax import (packed_unet_to_torch, torch_to_unet_params,
                                          torch_to_unet_stats)
 from vts_tpu.parallel import packing as jax_packing
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 SIZE, NDOWNS, NGF, IN_NC = 64, 6, 4, 9
 RTOL, ATOL = 2e-4, 2e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread while this module runs: its nets are tiny, and under
-    the suite's parallel workers threads oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _garments(g, norm="instance", t_mult=1, pack=1):
@@ -345,6 +340,36 @@ def test_fleet_step_equals_single_steps_bit_for_bit(fleet_run, epoch):
         assert not bad, (g, bad[:5])
 
 
+def test_skitg_fleet_step_equals_single_steps_bit_for_bit(env):  # noqa: F811
+    """skitG through the fleet: two garments of the skit dataset (the style
+    code from each batch's style image) step as the two single skitG runs
+    with ``--seed g`` do, every loss, parameter, running statistic and Adam
+    moment exactly."""
+    from vts_torch.data import create_dataset
+    from vts_torch.models import create_model
+    skit = ("--model", "skit")
+    it = iter(create_dataset(_opt(env, skit)))
+    batches = [next(it), next(it)]
+    assert all("style_image" in b for b in batches)
+    trainer = port_fleet.FleetTrainer(create_model(_opt(env, skit)), 2)
+    trainer.init_states()
+    fleet_losses = trainer.step(batches, 1)
+    for g, b in enumerate(batches):
+        trainer.select(g)
+        got = _state(trainer.model)
+        single = create_model(_opt(env, skit + ("--seed", str(g))))
+        single.setup()
+        single.set_input(b)
+        single.optimize_parameters(1)
+        want = _state(single)
+        assert fleet_losses[g].keys() == single._losses.keys()
+        assert all(torch.equal(torch.as_tensor(fleet_losses[g][k]),
+                               torch.as_tensor(single._losses[k])) for k in fleet_losses[g])
+        assert got.keys() == want.keys() and single.opt.use_style_code
+        bad = [k for k in got if not torch.equal(got[k], want[k])]
+        assert not bad, (g, bad[:5])
+
+
 def test_fleet_towers_are_one_copy(fleet_run):
     """Both garments' steps ran the one LPIPS tower (its weights at one
     address), and the model holds one CLIP tower for D3."""
@@ -526,22 +551,16 @@ def test_ours_edit_launch_fails_at_the_first_loader_in_both(tmp_path):
 
 # -------------------------------------------------------------------- slow ---
 
-@pytest.mark.slow
-def test_fleet_step_matches_jax_fleet_trainer(env):  # noqa: F811
-    """One D3-off fleet step of two garments in both packages from the same
-    states (the port's seeded weights through the converters into JAX's
-    garment-stacked ``NetState``s, and back through ``fleet_states_to_torch``)
-    and the same draws (each garment's split from its key as JAX's step
-    splits it): losses within rtol 1e-4, each garment's G, D and D2
-    gradients (Adam's first moment, β1 = 0) per leaf within 4×
-    ``tests/test_torch_port_train.py``'s ``_grad_tol`` and 1e-4 in the
-    2-norm over each network (the x2 and skitG rule): JAX's vmapped convs
-    sum in another order than its single step (``tests/test_parallel.py``
-    holds its own fleet to the single step at rtol 1e-2): garment 1's G
-    read 1.2× the single step's per-leaf rule at one leaf when it took
-    garment 0's batch, 0.67× with the flipped sketch here."""
+def _fleet_against_jax_fleet_trainer(env, extra=(), batch_fn=None, near_tie=False):  # noqa: F811
+    """One D3-off fleet step of two garments in both packages (``extra``: the
+    flags of both; ``batch_fn`` maps each garment's batch) from the same
+    states and draws, held as :func:`test_fleet_step_matches_jax_fleet_trainer`
+    states; with ``near_tie``, each garment's G in the 2-norm alone, to 1e-4
+    plus twice how far the port's own fleet step moves that gradient
+    (relative, in the 2-norm) under a 1e-6 relative change of the garments'
+    G weights."""
     from tests.test_torch_port_train import _grad_tol
-    from tests.torch_port_step import flat, jax_batch, jax_draws, np_tree
+    from tests.torch_port_step import flat, jax_batch, jax_draws, np_tree, rel_norm
     from vts_torch.models import create_model
     from vts_torch.utils.convert_jax import (fleet_states_to_torch, torch_to_d_params)
     from vts_tpu.models import create_model as jax_create_model
@@ -549,12 +568,14 @@ def test_fleet_step_matches_jax_fleet_trainer(env):  # noqa: F811
     from vts_tpu.parallel.fleet import FleetTrainer, stack_batches, stack_states
     from vts_tpu.parallel.mesh import build_mesh
 
-    jopt, batch0 = jax_batch(env, 1)
+    jopt, batch0 = jax_batch(env, 1, extra=extra)
     batches = [batch0, {k: np.ascontiguousarray(v[:, ::-1]) if k == "S" else v
                         for k, v in batch0.items()}]
+    if batch_fn is not None:
+        batches = [batch_fn(b) for b in batches]
     from vts_torch.config import TrainOptions
-    model = create_model(TrainOptions().parse(step_argv(env, 1) + ["--device", "cpu",
-                                                                   "--no_html"], quiet=True))
+    model = create_model(TrainOptions().parse(step_argv(env, 1, extra=extra)
+                                              + ["--device", "cpu", "--no_html"], quiet=True))
     trainer = port_fleet.FleetTrainer(model, 2)
     trainer.init_states()
     jm = jax_create_model(jopt)
@@ -582,6 +603,19 @@ def test_fleet_step_matches_jax_fleet_trainer(env):  # noqa: F811
                                      stack_batches(per_in), rngs, jopt.lr, jopt.lr_G2, 1)
     port_losses = trainer.step(batches, 1, draws=[jax_draws(rngs[g], 1) for g in range(2)])
     new = {"G": gS, "D": dS, "D2": d2S}
+    jump = [0.0, 0.0]
+    if near_tie:
+        noise = np.random.default_rng(0)
+        shaken = dict(stacked, G=stacked["G"].replace(params=jax.tree_util.tree_map(
+            lambda a: a * (1 + 1e-6 * noise.standard_normal(a.shape).astype(np.float32)),
+            stacked["G"].params)))
+        other = port_fleet.FleetTrainer(create_model(model.opt), 2)
+        other.init_states()
+        other.load_states(fleet_states_to_torch(jax.tree_util.tree_map(np.asarray, shaken), 2))
+        other.step(batches, 1, draws=[jax_draws(rngs[g], 1) for g in range(2)])
+        jump = [rel_norm(flat(torch_to_unet_params(other.slots[g].adam["G"].mu)),
+                         flat(torch_to_unet_params(trainer.slots[g].adam["G"].mu)))
+                for g in range(2)]
     for g in range(2):
         assert set(port_losses[g]) == set(losses)
         for k, v in port_losses[g].items():
@@ -600,5 +634,51 @@ def test_fleet_step_matches_jax_fleet_trainer(env):  # noqa: F811
             r2 = sum(float((want[k].astype(np.float64) ** 2).sum()) for k in want)
             worst = max(ratio, key=ratio.get)
             print(f"garment {g} {name}: worst per-leaf |d|/_grad_tol {ratio[worst]:.2f} at "
-                  f"{worst}, |d|/|g| over the network {np.sqrt(d2 / r2):.2e}")
-            assert ratio[worst] <= 4 and np.sqrt(d2 / r2) <= 1e-4, (g, name, worst)
+                  f"{worst}, |d|/|g| over the network {np.sqrt(d2 / r2):.2e}"
+                  + (f", the port's near-tie jump {jump[g]:.2e}" if name == "G" and near_tie
+                     else ""))
+            if name == "G" and near_tie:
+                assert np.sqrt(d2 / r2) <= 1e-4 + 2 * jump[g], (g, name, jump[g])
+            else:
+                assert ratio[worst] <= 4 and np.sqrt(d2 / r2) <= 1e-4, (g, name, worst)
+
+
+@pytest.mark.slow
+def test_fleet_step_matches_jax_fleet_trainer(env):  # noqa: F811
+    """One D3-off fleet step of two garments in both packages from the same
+    states (the port's seeded weights through the converters into JAX's
+    garment-stacked ``NetState``s, and back through ``fleet_states_to_torch``)
+    and the same draws (each garment's split from its key as JAX's step
+    splits it): losses within rtol 1e-4, each garment's G, D and D2
+    gradients (Adam's first moment, β1 = 0) per leaf within 4×
+    ``tests/test_torch_port_train.py``'s ``_grad_tol`` and 1e-4 in the
+    2-norm over each network (the x2 and skitG rule): JAX's vmapped convs
+    sum in another order than its single step (``tests/test_parallel.py``
+    holds its own fleet to the single step at rtol 1e-2): garment 1's G
+    read 1.2× the single step's per-leaf rule at one leaf when it took
+    garment 0's batch, 0.67× with the flipped sketch here."""
+    _fleet_against_jax_fleet_trainer(env)
+
+
+@pytest.mark.slow
+def test_skitg_fleet_step_matches_jax_fleet_trainer(env):  # noqa: F811
+    """skitG through the fleet, two garments (the second with its sketch
+    flipped), against ``vts_tpu``'s ``FleetTrainer`` on the skit model, the
+    style code entering both as ``batch["style_code"]`` (the port's CLIP
+    encoding of each batch's style image) so that JAX compiles no CLIP:
+    held as the sinskit fleet step above, but each garment's G in the
+    2-norm alone, by the near-tie rule of ``ROADMAP.md`` §C: 1e-4 plus twice
+    what a 1e-6 relative change of G's weights does to the port's own G
+    gradient.  The touch LPIPS's fp32 max-pool near-ties
+    (``tests/test_torch_port_skit.py``) sit in this step's way: garment 0's
+    G read 7.1e-4 from JAX's fleet in the 2-norm (53× ``_grad_tol`` at one
+    leaf of ``up3_T``), the port's own jump 7.4e-4.  ``slow``, as its
+    sinskit sibling: the JAX fleet's compile takes ~70 s in one process."""
+    from vts_torch.networks.clip_vit import CLIPViT, clip_style_code, init_clip_params
+    clip = CLIPViT(init_clip_params(0))
+
+    def with_code(batch):
+        with torch.no_grad():
+            code = clip_style_code(clip, torch.from_numpy(batch["style_image"])).numpy()
+        return {**batch, "style_code": code}
+    _fleet_against_jax_fleet_trainer(env, ("--model", "skit"), with_code, near_tie=True)

@@ -28,6 +28,7 @@ from vts_torch.ops import conv3x3 as k1
 from vts_torch.ops import diffaug
 from vts_torch.ops import patch as k2
 from vts_torch.utils.convert_jax import d_params_to_torch, d_stats_to_torch
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 
 def _t(a):
@@ -197,8 +198,8 @@ def test_diffaug_bs_matches_jax_given_the_same_draws():
     key = jax.random.key(11)
     want = np.asarray(jax_diff_augment(key, jnp.asarray(x), "bs"))
     kb, ks = jax.random.split(key, 2)
-    draws = {"b": _t(np.asarray(jax.random.uniform(kb, (3, 1, 1, 1))).reshape(3)),
-             "s": _t(np.asarray(jax.random.uniform(ks, (3, 1, 1, 1))).reshape(3))}
+    draws = [_t(np.asarray(jax.random.uniform(kb, (3, 1, 1, 1))).reshape(3)),
+             _t(np.asarray(jax.random.uniform(ks, (3, 1, 1, 1))).reshape(3))]
     got = diffaug.diff_augment(_t(x), "bs", draws=draws).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     with pytest.raises(ValueError):              # a letter DiffAugment does not have

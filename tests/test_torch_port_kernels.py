@@ -17,6 +17,7 @@ from vts_tpu.ops.patch import gather_patches as jax_gather
 from vts_tpu.ops.patch import gather_patches_from_coords as jax_gather_coords
 from vts_torch.ops import conv3x3 as k1
 from vts_torch.ops import patch as k2
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 
 def _lax_conv(x, w, b, relu):

@@ -33,7 +33,9 @@ import torch
 
 from tests.test_torch_port_train import _grad_tol
 from tests.torch_port_step import env  # noqa: F401  (module-scoped fixture)
+from tests.torch_port_step import assert_bf16_losses, assert_bf16_tree
 from tests.torch_port_step import flat, jax_batch, jax_draws, load_jax_states, port_model
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 LANE = ["--lpips_crop", "128"]
 BF16 = ["--dtype", "bfloat16"]
@@ -113,18 +115,7 @@ def test_fp32_crop_step_grads_params_and_stats(lane, net):
 
 def test_bf16_crop_step_losses(lane):
     """|port16 − jax16| ≤ 2·|jax16 − jax32| + 1e-3·|jax32| per loss."""
-    ref, want, got = (lane[k]["losses"] for k in ("jax32", "jax16", "port16"))
-    assert set(got) == set(want) == set(ref)
-    for k in ref:
-        gap = abs(want[k] - ref[k])
-        diff = abs(got[k] - want[k])
-        print(f"[bf16 loss] {k}: |port16 - jax16| {diff:.3e}, |jax16 - jax32| {gap:.3e}, "
-              f"|jax32| {abs(ref[k]):.3e}")
-        assert diff <= 2 * gap + 1e-3 * abs(ref[k]), (k, diff, gap, ref[k])
-
-
-def _norm(tree, keys):
-    return float(np.sqrt(sum(np.sum(np.square(tree[k].astype(np.float64))) for k in keys)))
+    assert_bf16_losses(*(lane[k]["losses"] for k in ("jax32", "jax16", "port16")))
 
 
 @pytest.mark.parametrize("net", ["G", "D", "D2"])
@@ -133,16 +124,7 @@ def test_bf16_crop_step_grads(lane, net):
     the network's whole gradient (Adam μ), and the running stats likewise."""
     ref, want, got = (lane[k][net] for k in ("jax32", "jax16", "port16"))
     for part in ("mu", "stats"):
-        keys = sorted(ref[part])
-        if not keys:
-            continue
-        assert set(keys) == set(want[part]) == set(got[part])
-        scale = _norm(ref[part], keys)
-        d_port = _norm({k: got[part][k] - want[part][k] for k in keys}, keys) / scale
-        d_jax = _norm({k: want[part][k] - ref[part][k] for k in keys}, keys) / scale
-        print(f"[bf16 {part}] {net}: |port16 - jax16|/|jax32| {d_port:.3e}, "
-              f"|jax16 - jax32|/|jax32| {d_jax:.3e}")
-        assert d_port <= 2 * d_jax + 1e-3, (net, part, d_port, d_jax)
+        assert_bf16_tree(ref[part], want[part], got[part], f"{part} {net}")
 
 
 @pytest.mark.parametrize("kind", ["canvas", "gray_patches"])

@@ -27,6 +27,7 @@ import pytest
 
 from vts_torch.utils import live as port_live
 from vts_tpu.utils import live as jax_live
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 
 def _get(url):

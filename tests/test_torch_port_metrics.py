@@ -27,6 +27,7 @@ from vts_torch.metrics.inception import InceptionBlock0, init_inception_params
 from vts_torch.metrics.psnr_ssim import psnr, ssim
 from vts_torch.ops.normal import compute_normal
 from vts_torch.ops.resize import resize_nearest
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 T = torch.from_numpy
 

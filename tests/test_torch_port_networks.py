@@ -14,6 +14,7 @@ from vts_torch.networks.blocks import InstanceNorm
 from vts_torch.networks.positional import positional_encoding
 from vts_torch.networks.unet_custom import CustomUNet
 from vts_torch.utils.convert_jax import torch_to_unet_params, unet_params_to_torch
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.mark.parametrize("h,w,dim", [(256, 256, 4), (96, 160, 4), (33, 17, 6)])

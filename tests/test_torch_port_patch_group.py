@@ -11,6 +11,7 @@ import torch
 from vts_tpu.ops.patch import gather_patches as jax_gather
 from vts_tpu.ops.patch import gather_patches_from_coords as jax_gather_coords
 from vts_torch.ops import patch as k2
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 _CHANNELS = (1, 2, 3)
 

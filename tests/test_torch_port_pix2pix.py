@@ -65,6 +65,7 @@ from tests.test_torch_port_train import CANCELLING, ZERO_GRAD, _grad_tol
 from tests.torch_port_step import env  # noqa: F401  (module-scoped fixture)
 from tests.torch_port_step import seeded_towers_drawn_once  # noqa: F401  (autouse fixture)
 from tests.torch_port_step import flat
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 DATA = "synthetic://p2p?size=320&center_w=192&center_h=128&patches=6&val_patches=3"
 

@@ -30,6 +30,12 @@ the CPU, at ngf/ndf 4 with 2 downsamplings and 2 blocks:
     norm follows has an exactly zero gradient: held to 1e-5 of the
     network's max), the params after Adam as ``test_torch_port_pix2pix.py``
     holds them, the pool's buffer within 1e-5 of its max and its count;
+  * the same step under ``--dtype bfloat16`` in both packages, from the same
+    weights, batch and draws, held by the bf16 lane's rules with the fp32
+    JAX step as the reference (``tests/torch_port_step.py``): per loss
+    |port16 − jax16| ≤ 2·|jax16 − jax32| + 1e-3·|jax32|, per network
+    ‖port16 − jax16‖/‖jax32‖ ≤ 2·‖jax16 − jax32‖/‖jax32‖ + 1e-3 over
+    Adam's first moment (no VGG, so no near-tie rule);
   * port-only: the reference's GAN-feat term is exactly 0 and leaves the
     step equal to a ``--no_ganFeat_loss`` step; the step's G_VGG equals
     λ_vgg times the ported ``vgg_loss`` of its outputs; the same step with
@@ -63,7 +69,8 @@ from tests.test_torch_port_pix2pix import _adam_spread, _copy, _patch_batch, _po
 from tests.test_torch_port_train import ZERO_GRAD, _grad_tol
 from tests.torch_port_step import env  # noqa: F401  (module-scoped fixture)
 from tests.torch_port_step import seeded_towers_drawn_once  # noqa: F401  (autouse fixture)
-from tests.torch_port_step import flat
+from tests.torch_port_step import assert_bf16_losses, assert_bf16_tree, flat
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 DATA = "synthetic://p2phd?size=320&center_w=192&center_h=128&patches=6&val_patches=3"
 SMALL_G = ["--n_downsample_global", "2", "--n_blocks_global", "2"]
@@ -468,6 +475,44 @@ def test_step_pool_state(step):
     buf, n = step.model._pool
     assert n == int(step.jmodel._pool_state["pool_n"]) == 2
     assert np.abs(buf.numpy() - want_buf).max() <= 1e-5 * np.abs(want_buf).max()
+
+
+@pytest.fixture(scope="module")
+def step16(env, step):  # noqa: F811
+    """The shared step under ``--dtype bfloat16``: a JAX and a port step from
+    the shared step's weights, batch and pool draws."""
+    from vts_tpu.config import TrainOptions as JaxTrainOptions
+    from vts_tpu.models import create_model as jax_create_model
+    argv = _argv(env, *STEP_ARGS, "--dtype", "bfloat16")
+    jopt = JaxTrainOptions().parse(argv, quiet=True)
+    jmodel = jax_create_model(jopt)
+    model = _port_model(argv)
+    for name in model.model_names:      # the seeded weights of the shared step
+        params = _to_flax(name)(getattr(model, f"net{name}").state_dict())[0]
+        assert all(np.array_equal(v, flat(step.states0[name][0])[k])
+                   for k, v in flat(params).items()), name
+    _jax_setup(jmodel, model)
+    key = jmodel.rng
+    jmodel.set_input(step.batch)
+    jmodel.optimize_parameters(1)
+    model.set_input(step.batch)
+    model.optimize_parameters(1, draws=_pool_draws(key, 4, jopt.pool_size))
+    return types.SimpleNamespace(
+        jax16={"losses": jmodel.get_current_losses(),
+               **{n: flat(s.opt_state.mu) for n, s in jmodel.states.items()}},
+        port16={"losses": model.get_current_losses(),
+                **{n: flat(_to_flax(n)(model.adam[n].mu)[0]) for n in model.model_names}})
+
+
+def test_bf16_step_losses(step, step16):
+    assert_bf16_losses(step.losses, step16.jax16["losses"], step16.port16["losses"])
+
+
+@pytest.mark.parametrize("net", ["G", "D", "D2"])
+def test_bf16_step_grads(step, step16, net):
+    """Adam's first moment after one step, (1 − β1)·g, of each network by
+    the bf16 lane's 2-norm rule."""
+    assert_bf16_tree(flat(step.states1[net][1]), step16.jax16[net], step16.port16[net], net)
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ import sys
 
 import numpy as np
 import pytest
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATAROOT = "synthetic://portslice?size=320&center_w=192&center_h=128&patches=6&val_patches=3"
@@ -102,6 +103,8 @@ def test_port_imports_without_jax_or_vts_tpu():
             "import vts_torch.parallel, vts_torch.parallel.fleet, vts_torch.parallel.packing; "
             "import vts_torch.networks.unet_plain, vts_torch.networks.visgel; "
             "import vts_torch.networks.munit, vts_torch.networks.stylegan2; "
+            "import vts_torch.networks.cut_heads, vts_torch.losses.normal; "
+            "import vts_torch.data.base_transforms, vts_torch.data.legacy; "
             "bad = [m for m in sys.modules if m.startswith('vts_tpu') "
             "or m.split('.')[0] in ('jax', 'flax', 'optax') and sys.modules[m] is not None]; "
             "assert not bad, bad; print('ok')")

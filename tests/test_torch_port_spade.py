@@ -24,6 +24,13 @@ against ``vts_tpu`` on the CPU, at ngf/ndf 4 and 3 upsamplings:
     that a batch or instance norm follows at the round-off floor), params
     after Adam at TTUR's three rates, every ``u`` and running statistic
     after the step within 1e-6, the pool's buffer and count;
+  * the same step under ``--dtype bfloat16`` in both packages, from the same
+    weights, ``u``, batch and draws, held by the bf16 lane's rules with the
+    fp32 JAX step as the reference (``tests/torch_port_step.py``): per loss
+    |port16 − jax16| ≤ 2·|jax16 − jax32| + 1e-3·|jax32|, per network
+    ‖port16 − jax16‖/‖jax32‖ ≤ 2·‖jax16 − jax32‖/‖jax32‖ + 1e-3 over
+    Adam's first moment and over every ``u`` and running statistic (no VGG,
+    so no near-tie rule);
   * port-only: G_VGG equals λ_vgg times ``Pix2PixHDModel.vgg_term`` of the
     step's outputs; ``--no_TTUR`` hands lr to all three Adams (TTUR: lr/2,
     2·lr, 2·lr); ``--correct_gan_feat`` changes nothing;
@@ -53,24 +60,14 @@ from tests.test_torch_port_pix2pix import _adam_spread, _copy, _patch_batch, _po
 from tests.test_torch_port_pix2pixhd import _query_draws, _to_flax, flat_shapes
 from tests.torch_port_step import env  # noqa: F401  (module-scoped fixture)
 from tests.torch_port_step import seeded_towers_drawn_once  # noqa: F401  (autouse fixture)
-from tests.torch_port_step import flat
+from tests.torch_port_step import assert_bf16_losses, assert_bf16_tree, flat
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 DATA = "synthetic://spade?size=320&center_w=192&center_h=128&patches=6&val_patches=3"
 # the shared step: one D scale each (the 2-scale D is held to JAX alone,
 # below; a second scale costs the JAX compile of the step ~7 of its ~21 s)
 STEP_ARGS = ["--no_vgg_loss", "--pool_size", "2", "--num_D_D1", "1", "--num_D_D2", "1"]
 KEY = jax.random.key(7)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread while this module runs: its nets are tiny, so
-    threads buy nothing alone, and under the suite's parallel workers they
-    oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _argv(tmp, *extra, phase="train"):
@@ -491,6 +488,45 @@ def test_step_pool_state(step):
     buf, n = step.model._pool
     assert n == int(step.jmodel._pool_state["pool_n"]) == 2
     _close(buf.numpy(), want_buf, 1e-5, "pool")
+
+
+@pytest.fixture(scope="module")
+def step16(env, step):  # noqa: F811
+    """The shared step under ``--dtype bfloat16``: a JAX and a port step from
+    the shared step's weights, ``u``, batch and pool draws."""
+    from vts_tpu.config import TrainOptions as JaxTrainOptions
+    from vts_tpu.models import create_model as jax_create_model
+    argv = _argv(env, *STEP_ARGS, "--dtype", "bfloat16")
+    jopt = JaxTrainOptions().parse(argv, quiet=True)
+    jmodel = jax_create_model(jopt)
+    model = _port_model(argv)
+    for name in model.model_names:
+        getattr(model, f"net{name}").load_state_dict(getattr(step.base, f"net{name}").state_dict())
+    _jax_setup(jmodel, model)
+    draws = _query_draws(jax.random.fold_in(jmodel.rng, 1), 4, jopt.pool_size)
+    jmodel.set_input(step.batch)
+    jmodel.optimize_parameters(1)
+    model.set_input(step.batch)
+    model.optimize_parameters(1, draws=draws)
+    return {"losses": (jmodel.get_current_losses(), model.get_current_losses()),
+            "jax16": {n: (flat(st.opt_state.mu), flat(st.stats))
+                      for n, st in jmodel.states.items()},
+            "port16": {n: (flat(_to_flax(n)(model.adam[n].mu)[0]),
+                           flat(_to_flax(n)(getattr(model, f"net{n}").state_dict())[1]))
+                       for n in model.model_names}}
+
+
+def test_bf16_step_losses(step, step16):
+    assert_bf16_losses(step.losses, *step16["losses"])
+
+
+@pytest.mark.parametrize("net", ["G", "D", "D2"])
+def test_bf16_step_grads_u_and_running_stats(step, step16, net):
+    """Adam's first moment, and every ``u`` and running statistic, of each
+    network by the bf16 lane's 2-norm rule."""
+    for i, part in enumerate(("mu", "stats")):
+        assert_bf16_tree(flat(step.states1[net][1 + i]), step16["jax16"][net][i],
+                         step16["port16"][net][i], f"{part} {net}")
 
 
 @pytest.fixture(scope="module")

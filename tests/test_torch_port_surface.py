@@ -43,6 +43,7 @@ from tests.test_torch_port_train import _grad_tol
 from tests.torch_port_step import K, env  # noqa: F401  (module-scoped fixture)
 from tests.torch_port_step import seeded_towers_drawn_once  # noqa: F401  (autouse fixture)
 from tests.torch_port_step import flat, jax_aug_draws, jax_batch, np_tree, run_step
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 GAN_MODES = ["lsgan", "vanilla", "wgan", "wgangp", "nonsaturating", "hinge"]
 ZERO_GRAD = re.compile(r"(Conv4x4_[123]|conv1)\W.*bias")
@@ -175,8 +176,12 @@ def test_gradient_penalty_matches_jax(net, norm):
         assert np.abs(a[k] - b[k]).max() <= tol, (k, np.abs(a[k] - b[k]).max(), tol)
 
 
-@pytest.mark.parametrize("policy", ["b", "s", "c", "t", "o", "n", "bscton"])
+@pytest.mark.parametrize("policy", ["b", "s", "c", "t", "o", "n", "bscton",
+                                    "bb", "ss", "cc", "tt", "oo", "nn", "btbt", "bscbsc"])
 def test_diffaug_letters_match_jax_given_the_same_draws(policy):
+    """Each letter, alone, all six, and repeated: a repeated letter takes the
+    draws of its own position (the reference splits one key per position).
+    Tolerance 1e-6 absolute on [-1, 1] inputs."""
     from vts_torch.ops import diffaug
     from vts_tpu.ops.diffaug import diff_augment as jax_diff_augment
     x = np.random.default_rng(len(policy)).uniform(-1, 1, size=(3, 24, 20, 3)).astype(np.float32)

@@ -47,6 +47,7 @@ from tests.test_torch_port_visuals import _assert_visuals_match
 from tests.torch_port_step import env  # noqa: F401  (module-scoped fixture)
 from tests.torch_port_step import argv as _argv
 from tests.torch_port_step import flat, jax_batch, port_model, run_step
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 X2 = ["--dataroot", "synthetic://portx2?size=320&center_w=192&center_h=128&patches=6"
       "&val_patches=3&mult=2", "--T_resolution_multiplier", "2"]

@@ -36,6 +36,7 @@ import vts_torch.launch as port_launch
 import vts_tpu.launch as jax_launch
 from vts_torch import postprocess as port_pp
 from vts_tpu import postprocess as jax_pp
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

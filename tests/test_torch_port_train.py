@@ -37,6 +37,7 @@ from tests.torch_port_step import flat as _flat
 from tests.torch_port_step import jax_batch as _jax_batch
 from tests.torch_port_step import port_model as _port_model
 from tests.torch_port_step import run_step
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 TV_IDX = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
 VGG_OUT = [64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512]

@@ -21,11 +21,24 @@
   * the refusals: each combination the reference cannot run raises naming
     its flag, with the reference's own failure beside it; the ones it runs
     parse and build;
+  * sinskit's ``--dtype bfloat16`` step at batch 1 with ``--netG unet_256``
+    and with ``--netG visgel`` (D3 off) against JAX's bf16 step, both from
+    the port's seeded weights (JAX's states built from them, no flax init),
+    by the bf16 lane's rules (``tests/torch_port_step.py``) with JAX's fp32
+    step as the reference: per loss |port16 − jax16| ≤ 2·|jax16 − jax32| +
+    1e-3·|jax32|, per network ‖port16 − jax16‖/‖jax32‖ ≤ 2·‖jax16 −
+    jax32‖/‖jax32‖ + 1e-3 over Adam's first moment and the running stats
+    and the running stats, G's bound plus the 2-norm near-tie rule: how far
+    JAX's own fp32 G gradient moves under a 1e-6 relative change of G's
+    weights (the canvas and touch LPIPS's max-pool near-ties: under VisGel
+    it moves by ~1.7e-2, and the port's fp32 step sits ~6e-3 from JAX's);
+    VisGel's convs stay fp32 under bf16 in both;
   * the port's drivers alone: one sinskit step of ``vts_torch.train`` with
     ``--netG unet_256 --netD stylegan2 --netD2 stylegan2`` at 256², then
     ``vts_torch.test`` on it: finite losses and 8 finite metrics.
 """
 
+import functools
 import os
 import types
 
@@ -38,7 +51,9 @@ import torch
 from tests.torch_port_step import env  # noqa: F401  (module-scoped fixture)
 from tests.torch_port_step import seeded_towers_drawn_once  # noqa: F401  (autouse fixture)
 from tests.torch_port_step import argv as sinskit_argv
-from tests.torch_port_step import flat
+from tests.torch_port_step import (assert_bf16_losses, assert_bf16_tree, flat, jax_batch,
+                                   jax_draws, rel_norm)
+from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 
 def _shapes(tree):
@@ -394,6 +409,73 @@ def test_checkpoints_cross_both_ways(name, tmp_path):
 # Each combination the reference cannot run fails in its step at one module
 # (traced in the whole step once, by hand); the tests show that module's
 # failure, shapes only, beside the port's refusal by name.
+
+# ------------------------------------------------------- the bf16 steps ---
+
+@pytest.fixture(scope="module", params=["unet_256", "visgel"])
+def zoo16(env, request):  # noqa: F811
+    """{"jax32", "jax16", "port16"}: each {"losses", net: {"mu", "stats"}}
+    after one sinskit step at batch 1 with the zoo G ``request.param``."""
+    from vts_tpu.models import create_model as jax_create_model
+    from vts_tpu.models.base import NetState
+    from tests.torch_port_step import port_model
+    zoo = ["--netG", request.param]
+    jopt, batch = jax_batch(env, 1, extra=zoo)
+    jopt16, _ = jax_batch(env, 1, extra=zoo + ["--dtype", "bfloat16"])
+    model = port_model(env, 1, extra=zoo + ["--dtype", "bfloat16"])
+    jm = jax_create_model(jopt)
+    txs = {"G": jm.tx_g, "D": jm.tx_d, "D2": jm.tx_d2}
+    states0 = {}
+    for name in ("G", "D", "D2"):
+        params, stats = model._converters(name)[0](getattr(model, f"net{name}").state_dict())
+        params = jax.tree_util.tree_map(jnp.asarray, params)
+        states0[name] = NetState(params=params, stats=jax.tree_util.tree_map(jnp.asarray, stats),
+                                 opt_state=txs[name].init(params))
+    jm.set_input(batch)
+    out = {}
+    for key, m in (("jax32", jm), ("jax16", jax_create_model(jopt16))):
+        fn = jax.jit(functools.partial(m._train_step, use_d3=False))
+        gS, dS, d2S, losses, _ = fn(states0["G"], states0["D"], states0["D2"], jm._input, jm.rng,
+                                    jnp.float32(jopt.lr), jnp.float32(jopt.lr_G2),
+                                    jnp.int32(1), {"lpips": jm.lpips_params})
+        out[key] = {"losses": {k: float(v) for k, v in losses.items()}}
+        for name, st in (("G", gS), ("D", dS), ("D2", d2S)):
+            out[key][name] = {"stats": flat(st.stats), "mu": flat(st.opt_state.mu)}
+        if key == "jax32":       # the near-tie jump: G's weights × (1 + 1e-6·N(0, 1))
+            noise = np.random.default_rng(0)
+            params = jax.tree_util.tree_map(
+                lambda a: a * (1 + 1e-6 * noise.standard_normal(a.shape).astype(np.float32)),
+                states0["G"].params)
+            g1 = fn(states0["G"].replace(params=params, opt_state=txs["G"].init(params)),
+                    states0["D"], states0["D2"], jm._input, jm.rng, jnp.float32(jopt.lr),
+                    jnp.float32(jopt.lr_G2), jnp.int32(1), {"lpips": jm.lpips_params})[0]
+            out["near_tie"] = rel_norm(flat(g1.opt_state.mu), out[key]["G"]["mu"])
+    model.set_input(batch)
+    draws = jax_draws(jm.rng, 1, jnp.bfloat16)
+    if request.param == "visgel":
+        # DiffAugment draws in its image's dtype: VisGel's fake stays fp32
+        draws["aug_fake"] = jax_draws(jm.rng, 1, jnp.float32)["aug_fake"]
+    model.optimize_parameters(epoch=1, draws=draws)
+    out["port16"] = {"losses": model.get_current_losses()}
+    for name in ("G", "D", "D2"):
+        to_flax = model._converters(name)[0]
+        out["port16"][name] = {
+            "stats": flat(to_flax(getattr(model, f"net{name}").state_dict())[1]),
+            "mu": flat(to_flax(dict(model.adam[name].mu))[0])}
+    return out
+
+
+def test_bf16_step_losses(zoo16):
+    assert_bf16_losses(*(zoo16[k]["losses"] for k in ("jax32", "jax16", "port16")))
+
+
+@pytest.mark.parametrize("net", ["G", "D", "D2"])
+def test_bf16_step_grads_and_stats(zoo16, net):
+    ref, want, got = (zoo16[k][net] for k in ("jax32", "jax16", "port16"))
+    for part in ("mu", "stats"):
+        assert_bf16_tree(ref[part], want[part], got[part], f"{part} {net}",
+                         near_tie=zoo16["near_tie"] if (net, part) == ("G", "mu") else 0.0)
+
 
 def _port_opt(tmp, model, extra):
     from vts_torch.config import TrainOptions

@@ -55,6 +55,22 @@ def env(tmp_path_factory):
 
 
 @pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """One intra-op torch thread while a module runs.  Its nets are small, so
+    threads buy little in one process, and under the suite's parallel workers
+    (6 on 8 cores) each worker's 8 threads oversubscribe the cores.  Autouse
+    in every ``tests/test_torch_*.py`` that imports it.  Not imported by
+    ``test_torch_port_skit.py`` and ``test_torch_port_visuals.py``: on one
+    thread torch's CPU sums run in another order, and the skitG step's G
+    gradient (per leaf, 4× ``_grad_tol``) and the visuals after ``test()``
+    on a trained G (rtol 1e-4) go past their tolerances there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def seeded_towers_drawn_once():
     """The seeded LPIPS, Inception and CLIP towers' numpy draws (deterministic,
     ~3 s a model with CLIP, most of a small model's set-up) made once for a
@@ -86,8 +102,8 @@ def jax_batch(tmp, batch, d3=False, extra=()):
 
 def jax_aug_draws(key, policy, shape, dt=jnp.float32):
     """DiffAugment's draws for ``policy`` on an image of ``shape``, split from
-    ``key`` as ``vts_tpu/ops/diffaug.py`` splits it (one key per letter), in
-    the port's layout (:func:`vts_torch.ops.diffaug.draw`)."""
+    ``key`` as ``vts_tpu/ops/diffaug.py`` splits it (one key per policy
+    position), in the port's layout (:func:`vts_torch.ops.diffaug.draw`)."""
     n, h, w = shape[:3]
 
     def uniform(k):
@@ -97,23 +113,23 @@ def jax_aug_draws(key, policy, shape, dt=jnp.float32):
     def ints(k, lo, hi):
         return torch.tensor(np.asarray(jax.random.randint(k, (n, 1), lo, hi))).reshape(n)
 
-    out = {}
+    out = []
     for k, letter in zip(jax.random.split(key, len(policy)), policy):
         if letter in "bsc":
-            out[letter] = uniform(k)
+            out.append(uniform(k))
         elif letter == "t":
             sh, sw = int(h * 0.125 + 0.5), int(w * 0.125 + 0.5)
             kh, kw = jax.random.split(k)
-            out[letter] = torch.stack([ints(kh, -sh, sh + 1), ints(kw, -sw, sw + 1)], 1)
+            out.append(torch.stack([ints(kh, -sh, sh + 1), ints(kw, -sw, sw + 1)], 1))
         elif letter == "o":
             ch, cw = int(h * 0.5 + 0.5), int(w * 0.5 + 0.5)
             ky, kx = jax.random.split(k)
-            out[letter] = torch.stack([ints(ky, 0, h + (1 - ch % 2)),
-                                       ints(kx, 0, w + (1 - cw % 2))], 1)
+            out.append(torch.stack([ints(ky, 0, h + (1 - ch % 2)),
+                                    ints(kx, 0, w + (1 - cw % 2))], 1))
         elif letter == "n":
             k1, k2, k3 = jax.random.split(k, 3)
-            out[letter] = {"sigma": uniform(k1), "gate": uniform(k2), "normal": torch.tensor(
-                np.asarray(jax.random.normal(k3, tuple(shape), dt).astype(jnp.float32)))}
+            out.append({"sigma": uniform(k1), "gate": uniform(k2), "normal": torch.tensor(
+                np.asarray(jax.random.normal(k3, tuple(shape), dt).astype(jnp.float32)))})
     return out
 
 
@@ -204,3 +220,44 @@ def run_step(tmp, n, d3=False, extra=(), draw_kw=None, batch_fn=None):
     model.set_input(batch)
     model.optimize_parameters(epoch=1, draws=jax_draws(jmodel.rng, n, **(draw_kw or {})))
     return jmodel, {k: float(v) for k, v in losses.items()}, model
+
+
+def assert_bf16_losses(ref, want, got, what=""):
+    """The bf16 lane's rule for the losses of one step (``ref``: JAX fp32,
+    ``want``: JAX bf16, ``got``: the port's bf16; dicts of floats):
+    |port16 − jax16| ≤ 2·|jax16 − jax32| + 1e-3·|jax32| per loss."""
+    assert set(got) == set(want) == set(ref)
+    for k in ref:
+        gap, diff = abs(want[k] - ref[k]), abs(got[k] - want[k])
+        print(f"[bf16 loss{what}] {k}: |port16 - jax16| {diff:.3e}, |jax16 - jax32| "
+              f"{gap:.3e}, |jax32| {abs(ref[k]):.3e}")
+        assert diff <= 2 * gap + 1e-3 * abs(ref[k]), (what, k, diff, gap, ref[k])
+
+
+def _norm(tree, keys):
+    return float(np.sqrt(sum(np.sum(np.square(tree[k].astype(np.float64))) for k in keys)))
+
+
+def rel_norm(got, want):
+    """‖got − want‖ / ‖want‖ over two flat dicts of arrays with want's keys."""
+    keys = sorted(want)
+    return _norm({k: got[k] - want[k] for k in keys}, keys) / _norm(want, keys)
+
+
+def assert_bf16_tree(ref, want, got, what="", near_tie=0.0):
+    """The bf16 lane's rule for one network's gradient (or running stats),
+    flat dicts of arrays: ‖port16 − jax16‖ / ‖jax32‖ ≤ 2·‖jax16 − jax32‖ /
+    ‖jax32‖ + 1e-3 over the whole tree, plus ``near_tie``: where LPIPS
+    near-ties make the gradient jump, how far JAX's own fp32 gradient moves
+    (relative, in the 2-norm) under a 1e-6 relative change of the weights."""
+    keys = sorted(ref)
+    assert set(keys) == set(want) == set(got), what
+    if not keys:
+        return
+    scale = _norm(ref, keys)
+    d_port = _norm({k: got[k] - want[k] for k in keys}, keys) / scale
+    d_jax = _norm({k: want[k] - ref[k] for k in keys}, keys) / scale
+    print(f"[bf16 {what}] |port16 - jax16|/|jax32| {d_port:.3e}, |jax16 - jax32|/|jax32| "
+          f"{d_jax:.3e}, near-tie jump {near_tie:.3e}")
+    assert d_port <= 2 * d_jax + 1e-3 + near_tie, (what, d_port, d_jax, near_tie)
+

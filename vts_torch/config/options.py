@@ -11,7 +11,8 @@ for that phase, plus ``--device`` (default ``cuda``) and
 makes ``--use_style_code`` true and ``--dataset_mode`` skit by default, and
 ``--dataset_mode skit`` adds the skit dataset's flags (``--material_list``,
 ``--dataroot_prefix``, ``--dataroot_suffix``, ``--style_image_dir``,
-``--style_image_size``).  ``--model pix2pix`` adds ``--lambda_L1`` and
+``--style_image_size``), and ``--dataset_mode template`` adds
+``--new_dataset_option``.  ``--model pix2pix`` adds ``--lambda_L1`` and
 ``--return_patch`` and takes the reference's pix2pix defaults: the base
 parser's where sinskit overrides them and pix2pix does not (ngf/ndf 64,
 Adam β 0.5/0.999, lr 2e-4, 200 + 200 epochs, ...), then pix2pix's own (the
@@ -62,8 +63,9 @@ three things:
     and schedule flags);
   * it raises ``NotImplementedError`` naming the flag when set to what the
     port does not run: a ``--model`` other than sinskit, skit, pix2pix,
-    pix2pixhd and spade, a ``--dataset_mode`` other than singleskit, skit
-    and patchskit, a ``--netG`` other than unet256_custom (sinskit, skit),
+    pix2pixhd and spade, a ``--dataset_mode`` other than singleskit, skit,
+    patchskit and the legacy four (single, unaligned, singleimage,
+    template), a ``--netG`` other than unet256_custom (sinskit, skit),
     resnet_{9,6,4}blocks, global, local and encoder (pix2pix, pix2pixHD) or
     spade (SPADE) or the zoo's (unet_256, unet_128, visgel, resnet_cat,
     stylegan2, smallstylegan2 for sinskit, skit, pix2pix and pix2pixHD;
@@ -73,10 +75,13 @@ three things:
     an unparsable one is its ``ValueError``; the zoo's G other than the
     plain U-Nets read none), ``--normD`` other than instance, batch or none
     (or, with the three patch baselines, ``spectral`` followed by one of
-    them or by nothing), ``--multihost``; in training also a DiffAugment
-    policy that repeats a letter, and ``--mesh``.
+    them or by nothing), ``--multihost``; in training also ``--mesh``.
 
-The zoo's combinations that the reference parses and cannot run are each a
+A legacy ``--dataset_mode`` parses and loads (its flags and samples are the
+reference's), and is a ``ValueError`` naming the flag at model creation
+(:func:`check_dataset`): its samples hold no sketch, and the reference's
+models fail reading it at setup.  The zoo's combinations that the
+reference parses and cannot run are each a
 ``ValueError`` naming the flag at model creation (:func:`check_zoo`): a
 plain U-Net on pix2pix's 32² patches, the StyleGAN2 G above ``--crop_size``
 1448, a zoo G with ``--use_style_code`` or, under sinskit, at
@@ -442,6 +447,18 @@ def _netgs(model: str):
     return ("unet256_custom",) + _ZOO_G
 
 
+def check_dataset(opt) -> None:
+    """At model creation: a legacy dataset's samples hold no sketch, which
+    every model reads first (the reference parses the options and loads the
+    data, then fails at its model's setup)."""
+    from ..data.legacy import LEGACY_DATASETS
+    if opt.dataset_mode.lower() in LEGACY_DATASETS:
+        raise ValueError(f"--dataset_mode {opt.dataset_mode} with --model {opt.model}: its "
+                         f"samples hold no sketch 'S', which the model's setup reads (the "
+                         f"reference fails there with a KeyError 'S'); the legacy datasets "
+                         f"serve the library only")
+
+
 def check_zoo(opt) -> None:
     """At model creation: ValueErrors, each naming its flag with the
     reference's failure, for the zoo's combinations that the reference
@@ -475,7 +492,8 @@ def _check_common(opt) -> None:
     model = opt.model.lower()
     if model not in ("sinskit", "sinskitg") + _PATCH_MODELS + _SKIT_MODELS:
         _refuse("--model", repr(opt.model))
-    if opt.dataset_mode.lower() not in ("singleskit", "skit", "patchskit"):
+    from ..data import DATASETS
+    if opt.dataset_mode.lower() not in DATASETS:
         _refuse("--dataset_mode", repr(opt.dataset_mode))
     if opt.netG not in _netgs(model):
         _refuse("--netG", f"{opt.netG!r} with --model {opt.model}")
@@ -552,6 +570,9 @@ class _Options:
             known, _ = parser.parse_known_args(args)
         if known.dataset_mode.lower() == "skit":
             _skit_dataset_flags(parser)
+        elif known.dataset_mode.lower() == "template":
+            parser.add_argument("--new_dataset_option", type=float, default=1.0,
+                                help="the template dataset's example flag (read by nothing)")
         opt = parser.parse_args(args)
         opt.isTrain = self.isTrain
         self.check(opt)
@@ -595,7 +616,5 @@ class TrainOptions(_Options):
             policy = opt.diffaugment
             if set(policy) - set("bscton"):
                 raise ValueError(f"--diffaugment {policy!r}: the letters are b, s, c, t, o, n")
-            if len(set(policy)) != len(policy):
-                _refuse("--diffaugment", f"{policy!r} (a letter used twice)")
         if opt.mesh:
             _refuse("--mesh", "(data parallelism over devices)")

@@ -2,7 +2,8 @@
 
 ``create_dataset(opt)`` wraps the ``--dataset_mode`` dataset (``singleskit``,
 one garment; ``skit``, several; ``patchskit``, one garment's touch squares
-as paired patches, for pix2pix) in a loader
+as paired patches, for pix2pix; the legacy ``single``, ``unaligned``,
+``singleimage`` and ``template``, :mod:`vts_torch.data.legacy`) in a loader
 that yields batch dicts of stacked numpy arrays (leading batch axis).  As in
 the reference, training shuffles with a generator seeded by ``seed + epoch``
 (``set_epoch``) and drops the last partial batch; the test loader
@@ -17,12 +18,13 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from .legacy import LEGACY_DATASETS
 from .patchskit import PatchSkitDataset
 from .singleskit import SingleSkitDataset
 from .skit import SkitDataset
 
 DATASETS = {"singleskit": SingleSkitDataset, "skit": SkitDataset,
-            "patchskit": PatchSkitDataset}
+            "patchskit": PatchSkitDataset, **LEGACY_DATASETS}
 
 
 def collate(samples) -> Dict[str, np.ndarray]:

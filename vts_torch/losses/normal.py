@@ -1,5 +1,5 @@
-"""Surface-normal angle error (``vts_tpu/losses/normal.py``, mode
-``evaluate`` — the metric; the training modes come with the training port)."""
+"""Surface-normal angle error and its training losses
+(``vts_tpu/losses/normal.py``)."""
 
 from __future__ import annotations
 
@@ -18,8 +18,31 @@ def cosine_similarity(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-6) -> to
 
 def surface_normal_angle_error(real_normal: torch.Tensor, pred_normal: torch.Tensor,
                                mode: str = "evaluate") -> torch.Tensor:
-    """Per-pixel angle between the normals, in degrees."""
-    if mode != "evaluate":
-        raise NotImplementedError(f"angle-error mode {mode!r} is not ported yet")
-    cos = torch.clamp(cosine_similarity(pred_normal, real_normal), -1.0, 1.0)
-    return torch.arccos(cos) * 180.0 / math.pi
+    """The angle between the normals and the losses built on it, by ``mode``:
+    ``evaluate``, per-pixel degrees; ``train_L2_loss``, 1 − mean cos;
+    ``train_AL_loss``, the mean acos over pixels with |cos| < 0.999;
+    ``train_TAL_loss``, acos where 0 < cos < 0.9999 and −cos where cos ≤ 0,
+    averaged over both.  A mask that selects no pixel gives 0.  The
+    gradients are the reference's, TAL's NaN where cos ≤ −1 included."""
+    cos = cosine_similarity(pred_normal, real_normal)
+    if mode == "evaluate":
+        return torch.arccos(torch.clamp(cos, -1.0, 1.0)) * 180.0 / math.pi
+    if mode == "train_L2_loss":
+        return 1.0 - torch.mean(cos)
+    zero = torch.zeros((), dtype=cos.dtype, device=cos.device)
+    if mode == "train_AL_loss":
+        safe = (cos < 0.999) & (cos > -0.999)
+        acos = torch.arccos(torch.clamp(cos, -0.999, 0.999))
+        return torch.sum(torch.where(safe, acos, zero)) / torch.clamp_min(safe.sum(), 1)
+    if mode == "train_TAL_loss":
+        acos_mask = (cos < 0.9999) & (cos > 0.0)
+        cos_mask = cos <= 0.0
+        # the clip passes the gradient through unmasked, as the reference's
+        # does (its clip's gradient multiplies by a 0/1 mask), so a pixel
+        # with cos ≤ −1 gets its NaN gradient (0 times acos' infinite slope)
+        # as in the reference; the value is the clip's, exactly
+        acos = torch.arccos(cos + (torch.clamp(cos, -1.0, 0.9999) - cos).detach())
+        num = torch.sum(torch.where(acos_mask, acos, zero)) \
+            - torch.sum(torch.where(cos_mask, cos, zero))
+        return num / torch.clamp_min(acos_mask.sum() + cos_mask.sum(), 1)
+    raise NotImplementedError(mode)

@@ -4,7 +4,7 @@ lowercased, as the reference's registry does."""
 
 from __future__ import annotations
 
-from ..config.options import check_zoo
+from ..config.options import check_dataset, check_zoo
 from .pix2pix import Pix2PixModel
 from .pix2pixhd import Pix2PixHDModel
 from .sinskit import SinSKITModel
@@ -27,5 +27,6 @@ def create_model(opt):
         raise ValueError(f"--pool_size > 0 is only wired into pix2pixHD (the reference's sole "
                          f"ImagePool query site) and SPADE; model {opt.model!r} ignores it. "
                          f"Pass --pool_size 0.")
+    check_dataset(opt)
     check_zoo(opt)
     return cls(opt)

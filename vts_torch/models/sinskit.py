@@ -113,6 +113,24 @@ def _detached(t):
     return t.detach() if torch.is_tensor(t) else t
 
 
+def _gather_by_size(images, **kw):
+    """:func:`gather_patches_group` over images that may differ in element
+    size, one launch for each size: a zoo G whose convs run in fp32
+    whatever the compute dtype (VisGel) gives fp32 maps beside the bf16
+    canvas under ``--dtype bfloat16``, as the reference's does."""
+    images = tuple(images)
+    sizes = {}
+    for i, im in enumerate(images):
+        sizes.setdefault(im.element_size(), []).append(i)
+    if len(sizes) == 1:
+        return gather_patches_group(images, **kw)
+    out = [None] * len(images)
+    for idx in sizes.values():
+        for i, t in zip(idx, gather_patches_group([images[i] for i in idx], **kw)):
+            out[i] = t
+    return tuple(out)
+
+
 class SinSKITModel:
     """Lifecycle as in the reference: setup → set_input → optimize_parameters
     / test → get_current_losses / compute_metrics → save/load_networks."""
@@ -289,7 +307,7 @@ class SinSKITModel:
         """The random numbers of one step for a batch of n (canvas ``size`` =
         (h, w), by default ``--crop_size``²), from the model's generator:
         ``{"aug_real": …, "aug_fake": …}``, DiffAugment's draws for each
-        policy letter (:func:`vts_torch.ops.diffaug.draw`), ``"more": (n, 2,
+        policy position (:func:`vts_torch.ops.diffaug.draw`), ``"more": (n, 2,
         add_fake_T_sample_size)`` uniforms in [0, 1); when ``--lpips_crop``
         crops that canvas, ``"lpips_crop": (oy, ox)``, integers in [0, h − c]
         and [0, w − c]; under ``--gan_mode wgangp``, ``"gp1": (n,)`` and
@@ -390,7 +408,7 @@ class SinSKITModel:
         k, pc = real_T.shape[0], real_T.shape[1]      # pc = 32·mult
         if mult == 1:
             # one K2 launch for the four stacks at the batch's coords
-            fake_T_patch_d, S_patch, real_I_patch, fake_I_patch = gather_patches_group(
+            fake_T_patch_d, S_patch, real_I_patch, fake_I_patch = _gather_by_size(
                 (fake_T_d, S_d, aug_real_I, aug_fake_I), coords=coords, cutout=32)
         else:
             # fake_T at 32·mult from the touch canvas, the conditioning at 32
@@ -398,7 +416,7 @@ class SinSKITModel:
             fake_T_patch_d, = gather_patches_group((fake_T_d,), coords=coords, cutout=pc,
                                                    scale_multiplier=mult)
             S_patch, real_I_patch, fake_I_patch = (resize_bicubic(t, (pc, pc)) for t in
-                                                   gather_patches_group(
+                                                   _gather_by_size(
                                                        (S_d, aug_real_I, aug_fake_I),
                                                        coords=coords, cutout=32))
         realI_cond = torch.cat([real_I_patch, batch["I_masks"]], -1)
@@ -421,11 +439,11 @@ class SinSKITModel:
             oy = torch.stack([o[1] for o in offs])
             if mult == 1:
                 # one K2 launch for the three stacks at the "more fake T" offsets
-                more_I, more_T, more_S = gather_patches_group(
+                more_I, more_T, more_S = _gather_by_size(
                     (fake_I_d, fake_T_d, S_d), offset_x=ox, offset_y=oy, cutout=32)
             else:
                 more_T, = gather_patches_group((fake_T_d,), offset_x=ox, offset_y=oy, cutout=pc)
-                more_I, more_S = (resize_bicubic(t, (pc, pc)) for t in gather_patches_group(
+                more_I, more_S = (resize_bicubic(t, (pc, pc)) for t in _gather_by_size(
                     (fake_I_d, S_d), offset_x=ox // mult, offset_y=oy // mult, cutout=32))
             more_I = torch.cat([more_I, torch.ones_like(more_I[..., :1])], -1)
             more_cond = d2_cond(more_T, more_S, more_I)
@@ -465,8 +483,10 @@ class SinSKITModel:
             aux["G_GAN"] = torch.mean(gan_loss(self.netD(g_in, update_stats=False), True,
                                                mode, real_lbl)) * opt.lambda_G1_GAN
         if opt.lambda_G1_L1 > 0:
-            aux["G_L1"] = torch.mean(torch.abs(fake_I - I_d), dtype=torch.float32) \
-                * opt.lambda_G1_L1
+            # I in G's output dtype (fp32 for a G whose convs stay fp32 under
+            # bf16, VisGel), as the reference casts it
+            aux["G_L1"] = torch.mean(torch.abs(fake_I - I.to(fake_I.dtype)),
+                                     dtype=torch.float32) * opt.lambda_G1_L1
         if opt.lambda_G1_lpips > 0:
             lp_x, lp_y = fake_I, I_d
             if self._crop_active(h, w):

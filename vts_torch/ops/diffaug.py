@@ -3,9 +3,11 @@ brightness, s saturation, c contrast, t translation (1/8 of the side,
 zero fill), o cutout (a half-side square zeroed), n noise (a Gaussian of
 std ∈ [0, 0.1) on half the samples).  The letters apply in policy order.
 
-The draws of each letter can be injected as ``draws`` (a dict letter →
-draws), so a caller can replay another framework's numbers, or come from a
-``torch.Generator``:
+A policy may use a letter more than once; each position takes draws of
+its own, as the reference splits one key per position.  The draws can be
+injected as ``draws`` (a list, one entry per policy position), so a caller
+can replay another framework's numbers, or come from a
+``torch.Generator``.  A position's entry by its letter:
   * b, s, c: an (N,) tensor of uniforms in [0, 1);
   * t: an (N, 2) int tensor of (row, column) shifts in [−⌊H/8+½⌋, ⌊H/8+½⌋]
     (likewise for the width);
@@ -17,7 +19,7 @@ draws), so a caller can replay another framework's numbers, or come from a
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -75,37 +77,40 @@ _AUGMENT_FNS = {"b": rand_brightness, "s": rand_saturation, "c": rand_contrast,
                 "t": rand_translation, "o": rand_cutout, "n": rand_noise}
 
 
-def draw(policy: str, shape, generator: Optional[torch.Generator] = None) -> Dict:
-    """The draws of each policy letter for an (N, H, W, C) image (``shape``)."""
+def draw(policy: str, shape, generator: Optional[torch.Generator] = None) -> List:
+    """The draws of each policy position for an (N, H, W, C) image
+    (``shape``), in policy order."""
     n, h, w = shape[:3]
-    out: Dict = {}
+    out: List = []
     for letter in policy:
         if letter in "bsc":
-            out[letter] = torch.rand((n,), generator=generator)
+            out.append(torch.rand((n,), generator=generator))
         elif letter == "t":
             sh, sw = _half(h, 0.125), _half(w, 0.125)
-            out[letter] = torch.stack([torch.randint(-sh, sh + 1, (n,), generator=generator),
-                                       torch.randint(-sw, sw + 1, (n,), generator=generator)], 1)
+            out.append(torch.stack([torch.randint(-sh, sh + 1, (n,), generator=generator),
+                                    torch.randint(-sw, sw + 1, (n,), generator=generator)], 1))
         elif letter == "o":
             ch, cw = _half(h, 0.5), _half(w, 0.5)
-            out[letter] = torch.stack([
+            out.append(torch.stack([
                 torch.randint(0, h + (1 - ch % 2), (n,), generator=generator),
-                torch.randint(0, w + (1 - cw % 2), (n,), generator=generator)], 1)
+                torch.randint(0, w + (1 - cw % 2), (n,), generator=generator)], 1))
         elif letter == "n":
-            out[letter] = {"sigma": torch.rand((n,), generator=generator),
-                           "gate": torch.rand((n,), generator=generator),
-                           "normal": torch.randn(tuple(shape), generator=generator)}
+            out.append({"sigma": torch.rand((n,), generator=generator),
+                        "gate": torch.rand((n,), generator=generator),
+                        "normal": torch.randn(tuple(shape), generator=generator)})
         else:
             raise ValueError(f"unknown DiffAugment letter {letter!r}")
     return out
 
 
 def diff_augment(x: torch.Tensor, policy: str = "", generator: Optional[torch.Generator] = None,
-                 draws: Optional[Dict] = None) -> torch.Tensor:
+                 draws: Optional[List] = None) -> torch.Tensor:
     if not policy:
         return x
     if draws is None:
         draws = draw(policy, x.shape, generator)
-    for letter in policy:
-        x = _AUGMENT_FNS[letter](x, draws[letter])
+    if len(draws) != len(policy):
+        raise ValueError(f"{len(draws)} draws for the {len(policy)} positions of {policy!r}")
+    for letter, d in zip(policy, draws):
+        x = _AUGMENT_FNS[letter](x, d)
     return x

@@ -351,6 +351,36 @@ def torch_to_d_params(state_dict: Dict[str, torch.Tensor]):
     return params, stats
 
 
+# ------------------------------------------------------------- CUT heads ---
+# ``StridedConvF`` and ``PatchSampleF`` keep flax's module names:
+#   Conv_i.weight|bias    ↔ params[Conv_i][kernel|bias]    (HWIO ↔ OIHW)
+#   mlp_i_j.weight|bias   ↔ params[mlp_i_j][kernel|bias]   (Dense (in, out) ↔ Linear (out, in))
+
+def cut_head_params_to_torch(params: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """flax ``StridedConvF`` or ``PatchSampleF`` params → the state dict of
+    :mod:`vts_torch.networks.cut_heads`' module."""
+    sd = OrderedDict()
+    for (name, leaf), v in _leaves(params):
+        if leaf == "kernel":
+            sd[f"{name}.weight"] = _conv_to_torch(v) if np.ndim(v) == 4 else _t(np.asarray(v).T)
+        else:
+            sd[f"{name}.{leaf}"] = _t(v)
+    return sd
+
+
+def torch_to_cut_head_params(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """Inverse of :func:`cut_head_params_to_torch`."""
+    params: Dict = {}
+    for key, t in state_dict.items():
+        name, leaf = key.split(".")
+        if leaf == "weight":
+            params.setdefault(name, {})["kernel"] = (_conv_from_torch(t) if t.dim() == 4
+                                                     else _np(t).T.copy())
+        else:
+            params.setdefault(name, {})[leaf] = _np(t).copy()
+    return params
+
+
 # ---------------------------------------------------------------- fleet ---
 
 def _field(state, name: str):
