@@ -250,17 +250,37 @@ Phases, each of which must pass or the script exits non-zero:
      batch of each legacy dataset (single, unaligned, singleimage,
      template) through the port's ``DataLoader`` onto the card, the same
      bits back;
+ 4m. several ranks (:func:`several_ranks`): two ranks that share the card
+     over gloo (``vts_torch.platform.spawn_ranks``, devices [cuda:0,
+     cuda:0]; the kernels built before): (a) one D3-active full-width
+     sinskit step of batch 2 under ``--mesh data:2``, one sample a rank,
+     against the serial batch-2 step on the card from the same seeded
+     weights, batch and draws: losses and Adam's first moments by phase
+     4's rule (the leaves at round-off held to its floor, a zero gradient's
+     leaf to its floor plus the serial step's |g| and twice what 1e-6
+     relative moves of the weights change there; G in the
+     2-norm within twice the largest move that 1e-6 relative moves of the
+     weights make to the serial step's G gradient, where that exceeds
+     1e-5: the touch LPIPS's near-ties), D1's and D2's running statistics
+     within 1e-6 + 1e-4·|ref|; the two ranks' networks and moments bit for
+     bit the same; each rank's K1, K1 dx, K2 and K2 bwd launches
+     ``PER_STEP`` at the ``train`` row's shapes; the walls of 3 more steps
+     on each rank and of the serial step, the collectives a step makes and
+     the bytes each rank sends (not a speed figure: the ranks contend for
+     one card); (b) phase 4j's two garments, one a rank
+     (``FleetTrainer`` on its block), each bit for bit its single step
+     under cuDNN's deterministic algorithms, the loss means gathered over
+     the ranks the same on both; (c) with two cards or more, over NCCL:
+     ``vts_torch.train --mesh data:2`` (two ``[dist]`` lines naming nccl)
+     and ``vts_torch.launch ours launch`` on two garments, one a card;
+     with one, ``[dist] nccl: 1 card visible, not run``;
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
      their fp32 CUDA-core bound beside it; a row's bound is the sum over its
-     shapes of launches × that shape's bound), and the device-only time of
-     every kernel from one torch.profiler session (not repeated when it
-     loses a marker), beside CUDA events in that
-     session (medians over the runs); the D3 part of a step (both CLIP
-     passes, the backward, resize_mm) by events; the device-only times of
-     the library calls and the D3 part from a second session, in a process
-     of its own that maps these tensors; the wall time of one test sample,
+     shapes of launches × that shape's bound) (no device-only profiler
+     session: cut for time); the D3 part of a step (both CLIP passes, the
+     backward, resize_mm) by events; the wall time of one test sample,
      and of one 1536²
      training step before D3's warmup and with D3 active (median of 5
      after 2 warm-ups each) with its peak memory and launches (and no
@@ -451,103 +471,6 @@ def cuda_ms(fn, reps=10, warmup=2):
     return statistics.median(s.elapsed_time(e) for s, e in evs)
 
 
-def device_times(calls):
-    """Device-only time of one call of each fn in ms, from one torch.profiler
-    session, beside its time by CUDA events in the same session: a list of
-    (device ms, events ms, first run's device ms).  ``calls`` holds (fn,
-    name, reps): each fn runs twice to warm up, then reps times between two
-    markers (spin kernels, ``torch.cuda._sleep``) of its span, with an
-    event pair around each run.  A run's device time is the time in which
-    at least one of its kernels whose name holds ``name`` (every kernel if
-    ``name`` is empty) runs (some cuDNN calls run kernels side by side);
-    both times are the median over the runs.  Nones where the span shows no
-    such kernel, or one a number of times that is not a multiple of reps
-    (the trace lost launches); all Nones if the spans cannot be told apart
-    (the session lost a marker, as one of 68 calls' did on an H100 after the
-    lead run of spins).  One session: a session per call lost launches after some dozens
-    of sessions on the H100, and a second session in a process recorded only
-    part of its spans (:func:`library_device_times` runs one in a process of
-    its own)."""
-    for fn, _, _ in calls:
-        fn()
-    torch.cuda.synchronize()
-    # one session, no retry (cut for time: in the last runs on an H100 every
-    # session, retries included, lost markers, at ~25 s each)
-    out = _device_times_session(calls)
-    return out if out is not None else [(None, None, None)] * len(calls)
-
-
-def _device_times_session(calls):
-    """One profiler session of :func:`device_times`; None if it lost a marker."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def marker():
-        # two spin kernels; a run of spins is one marker
-        torch.cuda._sleep(1000)
-        torch.cuda._sleep(1000)
-    evs = [[(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            for _ in range(reps)] for _, _, reps in calls]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # the session's first device events go missing on an H100 now and
-        # then (58 markers for 58 calls): a run of spins to lose first, which
-        # merges with the first call's marker
-        for _ in range(8):
-            marker()
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-        for (fn, _, _), pairs in zip(calls, evs):
-            # two warm-ups right before the runs, as cuda_ms does, in a span
-            # of their own
-            marker()
-            fn()
-            fn()
-            marker()
-            for st, en in pairs:
-                st.record()
-                fn()
-                en.record()
-        marker()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    spans, in_marker = [], False
-    for e in events:
-        if "spin" in e.name:
-            if not in_marker:
-                spans.append([])
-            in_marker = True
-        else:
-            in_marker = False
-            if spans:
-                spans[-1].append(e)
-    if len(spans) != 2 * len(calls) + 1:
-        print(f"[device-only] the session shows {len(spans)} markers for {len(calls)} calls "
-              f"({len(events)} device events)")
-        return None
-    out = []
-    for (_, name, reps), span, pairs in zip(calls, spans[1::2], evs):
-        mine = [e for e in span if name in e.name]
-        if not mine or len(mine) % reps:
-            out.append((None, None, None))
-            continue
-        k = len(mine) // reps
-        per_run = [busy_us(mine[i * k:(i + 1) * k]) / 1e3 for i in range(reps)]
-        out.append((statistics.median(per_run),
-                    statistics.median(st.elapsed_time(en) for st, en in pairs), per_run[0]))
-    return out
-
-
-def busy_us(events):
-    """The µs in which at least one of ``events`` (sorted by start) runs."""
-    total, end = 0.0, float("-inf")
-    for e in events:
-        start = max(e.time_range.start, end)
-        if e.time_range.end > start:
-            total += e.time_range.end - start
-            end = e.time_range.end
-    return total
-
-
 def d3_part(clip, heads, real_I, fake_I):
     """The D3 part of a step: CLIP of the real I without a gradient, CLIP of
     fake_I with one, the backward to fake_I (through the 12 blocks and
@@ -597,66 +520,6 @@ def library_call(spec):
     raise ValueError(kind)
 
 
-def backend_flags():
-    """The backend settings a timed library call depends on (TF32 off in
-    cuDNN and cuBLAS, cuDNN's algorithm choice), to carry into a child."""
-    b = torch.backends
-    return dict(cudnn_tf32=b.cudnn.allow_tf32, matmul_tf32=b.cuda.matmul.allow_tf32,
-                deterministic=b.cudnn.deterministic, benchmark=b.cudnn.benchmark)
-
-
-def _library_device_times(conn):
-    """Child process of :func:`library_device_times`: takes the parent's
-    backend flags and the specs from ``conn``, sends the times back after
-    dropping every tensor it mapped."""
-    import gc
-    flags, specs = conn.recv()
-    b = torch.backends
-    b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = flags["cudnn_tf32"], flags["matmul_tf32"]
-    b.cudnn.deterministic, b.cudnn.benchmark = flags["deterministic"], flags["benchmark"]
-    try:
-        if backend_flags() != flags:
-            raise RuntimeError(f"backend flags {backend_flags()} differ from the parent's {flags}")
-        calls = [(library_call(spec), "", reps) for spec, reps in specs]
-        out = device_times(calls)
-    except Exception as e:                      # noqa: BLE001 (sent back and printed)
-        out = f"{type(e).__name__}: {e}"
-    calls = specs = None
-    gc.collect()
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    conn.send(out)
-    conn.close()
-
-
-def library_device_times(specs, timeout=600):
-    """:func:`device_times` of the library calls of ``specs`` ((spec, reps)
-    pairs, see :func:`library_call`) in a profiler session of a process of
-    its own, which maps this process's tensors (CUDA IPC): with our kernels
-    in one session the library calls and the D3 part (65k-108k device
-    events) lost span markers on an H100.  The child runs under this
-    process's backend flags: a fresh process has cuDNN's TF32 on."""
-    ctx = torch.multiprocessing.get_context("spawn")
-    here, there = ctx.Pipe()
-    proc = ctx.Process(target=_library_device_times, args=(there,))
-    proc.start()
-    there.close()
-    try:
-        here.send((backend_flags(), specs))
-        out = here.recv() if here.poll(timeout) else f"no answer in {timeout} s"
-    except (EOFError, OSError):
-        out = f"the process ended with code {proc.exitcode}"
-    finally:
-        proc.join(30)
-        if proc.is_alive():
-            proc.kill()
-            proc.join()
-    if isinstance(out, str):
-        print(f"[device-only] library calls: {out}; not measured")
-        return [(None, None, None)] * len(specs)
-    return out
-
-
 def card_state():
     """The card's SM clock, power draw and temperature, as nvidia-smi reads
     them now."""
@@ -680,18 +543,6 @@ def host_ms(fn, reps=200):
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
     return dt / reps * 1e3
-
-
-def fmt_ms(v):
-    return "not measured" if v is None else f"{v:.5f} ms"
-
-
-def fmt_dev(times):
-    """A (device ms, events ms, first run's device ms) of
-    :func:`device_times` as printed."""
-    dev, ev, first = times
-    return "not measured" if dev is None else (f"{dev:.5f} ms, first run {first:.5f} ms; "
-                                               f"events in its session {ev:.5f} ms")
 
 
 def bf16_tol(ref):
@@ -794,7 +645,8 @@ def serial_scatter(grad, ox, oy, shape, mode):
         torch.use_deterministic_algorithms(was)
 
 
-def compare_steps(label, cpu, cuda, g_scale=1.0, named=True, g_norm=None):
+def compare_steps(label, cpu, cuda, g_scale=1.0, named=True, g_norm=None, vs="cuda vs cpu",
+                  extra_tol=None):
     """Losses within rtol 1e-4 (+1e-7) and each network's gradient (Adam's
     first moment after one step, β1 = 0) per leaf within :func:`grad_tol`
     of a CUDA step against the CPU step from the same weights and draws.
@@ -808,11 +660,12 @@ def compare_steps(label, cpu, cuda, g_scale=1.0, named=True, g_norm=None):
     tmult.py measures it against float64).  ``g_norm``: G is held in the
     2-norm over the network to that bound alone (its per-leaf ratios
     printed): a step whose G gradient is ill-conditioned, its bound
-    measured beside it (SPADE's VGG-on step)."""
+    measured beside it (SPADE's VGG-on step).  ``extra_tol``: net → leaf →
+    a bound added to that leaf's."""
     lc, lg = cpu.get_current_losses(), cuda.get_current_losses()
     check(set(lc) == set(lg), f"{label}: unexpected losses {sorted(lc)} / {sorted(lg)}")
     worst = max((abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-7), k) for k in lc)
-    print(f"[train ref] {label}, cuda vs cpu: worst loss rel {worst[0]:.2e} ({worst[1]})" + (
+    print(f"[train ref] {label}, {vs}: worst loss rel {worst[0]:.2e} ({worst[1]})" + (
         f" (G_D3 cuda {lg['G_D3']:.7g} cpu {lc['G_D3']:.7g}, D3_loss cuda "
         f"{lg['D3_loss']:.7g} cpu {lc['D3_loss']:.7g})" if "G_D3" in lc else ""))
     for k in lc:
@@ -831,11 +684,12 @@ def compare_steps(label, cpu, cuda, g_scale=1.0, named=True, g_norm=None):
         def tol(k, v):
             if not named and k in at_roundoff:
                 return 1e-5 * net_max
-            return grad_tol(k, v, net_max) * (1.0 if ZERO_GRAD.search(k) else scale)
+            extra = (extra_tol or {}).get(net, {}).get(k, 0.0)
+            return grad_tol(k, v, net_max) * (1.0 if ZERO_GRAD.search(k) else scale) + extra
         ratio = {k: (mu_g[k].cpu() - v).abs().max().item() / tol(k, v) for k, v in mu_c.items()}
         worst = max(ratio, key=ratio.get)
         norm = rel_norm(mu_g, mu_c, mu_c)
-        print(f"[train ref] {label}, {net} grads cuda vs cpu: worst per-leaf |d|/tolerance "
+        print(f"[train ref] {label}, {net} grads {vs}: worst per-leaf |d|/tolerance "
               f"{ratio[worst]:.2e} at {worst} (network max |g| {net_max:.3e}, "
               f"{len(at_roundoff)} leaves at round-off; limit x{scale:g}); |d|/|g| over the "
               f"network {norm:.2e}" + (f" (limit {g_norm:.2e}, the 2-norm alone)"
@@ -2085,6 +1939,10 @@ def garment_fleet(tmp, dirs, run_test, smi):
                 varied.append(g)
             del single
         check(not varied, f"the fleet step differs from the single steps for garments {varied}")
+        # phase 4m holds the fleet over ranks to these, the single steps' bits
+        out["batches"] = batches
+        out["steps"] = [({k: torch.as_tensor(v).cpu() for k, v in lf.items()},
+                         {k: v.cpu() for k, v in sf.items()}) for lf, sf in fleet]
         b1x = {k: v + 0.25 if k in ("S", "I") else v for k, v in batches[1].items()}
         trainer = FleetTrainer(create_model(opt_for(FLEET_MATERIALS[0])), 2)
         trainer.init_states()
@@ -2860,6 +2718,250 @@ def cut_phase(tmp):
         check(same and images and all(v.shape == (2, 256, 256, 3)
                                       and v.abs().max().item() <= 1.0 for v in images),
               f"the legacy {mode} batch on the card: {[(k, v.shape) for k, v in on_card.items()]}")
+    return out
+
+
+# ------------------------------------------------------------------ 4m ---
+# several ranks: one data-parallel step over two ranks against the serial
+# step, and the fleet over ranks; on one card, two ranks share it over gloo
+DP_TRAIN = ["--model", "sinskit", "--name", "dp", "--device", "cuda",
+            "--dataroot", f"synthetic://smoke?size={PADDED}", "--batch_size", "2",
+            "--data_len", "2", "--vision_aided_warmup_epoch", "1", "--no_html"]
+DP_TIMED = 3
+FLEET_FULL = ["--model", "sinskit", "--name", "fleet_full", "--device", "cuda", "--data_len", "1",
+              "--vision_aided_warmup_epoch", "1", "--no_html"]
+
+
+class Recorded:
+    """A finished step's losses and Adam moments, as :func:`compare_steps`
+    reads a model's."""
+
+    def __init__(self, rec):
+        import types
+        self.rec = rec
+        self.adam = {net: types.SimpleNamespace(mu=mu) for net, mu in rec["mu"].items()}
+
+    def get_current_losses(self):
+        return self.rec["losses"]
+
+
+def step_record(model):
+    """A step's losses, Adam first moments and networks' state dicts (the
+    parameters and running statistics), on the host."""
+    return {"losses": model.get_current_losses(),
+            "mu": {net: {k: v.cpu() for k, v in a.mu.items()} for net, a in model.adam.items()},
+            "state": {f"{name}.{k}": v.detach().cpu() for name, net in model.nets().items()
+                      for k, v in net.state_dict().items()}}
+
+
+def timed_steps(model, draws, n=DP_TIMED):
+    """The walls (ms) of n more steps on the model's input, each synchronized."""
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.optimize_parameters(1, draws=draws)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def ranks_rank(dirs, batch, draws, fleet_batches):
+    """One rank of phase 4m: (a) the data-parallel step on its half of the
+    batch, with its launches, their shapes, its collectives and the walls of
+    more steps; (b) its garment of the fleet, one step under cuDNN's
+    deterministic algorithms, the loss table gathered over the ranks."""
+    import functools
+
+    import vts_torch.models.sinskit as sinskit
+    from vts_torch.config import TrainOptions
+    from vts_torch.models import create_model
+    from vts_torch.parallel.dist import TRAFFIC, reset_traffic
+    from vts_torch.parallel.fleet import FleetTrainer
+    from vts_torch.platform import world
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sinskit.init_clip_params = functools.lru_cache(sinskit.init_clip_params)
+    rank = world().rank
+    model = create_model(TrainOptions().parse(DP_TRAIN + ["--mesh", "data:2"] + dirs,
+                                              quiet=True))
+    model.setup()
+    model.set_input(batch)
+    torch.cuda.synchronize()
+    reset_counts()
+    reset_traffic()
+    with RecordShapes() as rec:
+        model.optimize_parameters(1, draws=draws)
+        torch.cuda.synchronize()
+    out = {"launches": read_counts(), "shapes": rec.shapes(), "traffic": dict(TRAFFIC),
+           **step_record(model)}
+    reset_traffic()
+    out["walls"] = timed_steps(model, draws)
+    out["timed_traffic"] = dict(TRAFFIC)
+    del model
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.deterministic = True
+    m = FLEET_MATERIALS[rank]
+    trainer = FleetTrainer(create_model(TrainOptions().parse(
+        FLEET_FULL + dirs + ["--dataroot", FLEET_TEMPLATE.format(material=m)], quiet=True)),
+        1, first=rank)
+    trainer.init_states()
+    trainer.step([fleet_batches[rank]], 1)
+    out["fleet"] = ({k: torch.as_tensor(v).cpu() for k, v in trainer.losses[0].items()},
+                    {k: v.cpu() for k, v in garment_states(trainer.model).items()})
+    out["fleet_means"] = trainer.mean_losses(2)
+    return out
+
+
+def several_ranks(dirs, train_shapes, fleet, smi, devices=("cuda:0", "cuda:0")):
+    """Phase 4m: (a) a D3-active full-width sinskit step of batch 2 in two
+    ranks that share the card over gloo (1 + 1, ``--mesh data:2``), against
+    the serial batch-2 step from the same weights, batch and draws on the
+    card by phase 4's rule; the ranks' networks bit for bit the same; each
+    rank's kernel launches and their shapes the ``train`` row's; the walls
+    of more steps, the collectives and their bytes; (b) phase 4j's two
+    garments, one per rank, each bit for bit its single step; (c) over
+    NCCL, the training CLI and the launcher's fleet on two cards, where
+    there are two.  ``devices``: the two ranks' (two cards: (a) and (b)
+    over NCCL)."""
+    import functools
+
+    import vts_torch.models.sinskit as sinskit
+    from vts_torch.config import TrainOptions
+    from vts_torch.data import create_dataset
+    from vts_torch.models import create_model
+    from vts_torch.platform import spawn_ranks
+
+    out = {}
+    opt = TrainOptions().parse(DP_TRAIN + dirs, quiet=True)
+    real_clip = sinskit.init_clip_params
+    sinskit.init_clip_params = functools.lru_cache(real_clip)
+    try:
+        serial = create_model(opt)
+        serial.setup()
+        batch = next(iter(create_dataset(opt)))
+        draws = serial.draw(2)
+        serial.set_input(batch)
+        serial.optimize_parameters(1, draws=draws)
+        want = step_record(serial)
+        out["serial_walls"] = timed_steps(serial, draws)
+        del serial
+        # how far the serial step's gradients move when every weight moves by
+        # ~1e-6 of itself (two random directions): where a max-pool or ReLU
+        # near-tie of the touch LPIPS flips, the ranks' G (whose convs see
+        # batch 1, not 2) is held in the 2-norm to twice the larger jump; a
+        # zero gradient's leaf moves by its round-off
+        jumps, moved = [], []
+        for d in range(2):
+            m = create_model(opt)
+            m.setup()
+            gen = torch.Generator().manual_seed(100 + d)
+            with torch.no_grad():
+                for net in m.nets().values():
+                    for prm in net.parameters():
+                        prm.mul_(1 + 1e-6 * torch.randn(prm.shape, generator=gen).to(prm.device))
+            m.set_input(batch)
+            m.optimize_parameters(1, draws=draws)
+            moved.append({net: {k: v.cpu() for k, v in a.mu.items()} for net, a in m.adam.items()})
+            ref = want["mu"]["G"]
+            jumps.append(rel_norm(moved[-1]["G"], ref, ref))
+            del m
+    finally:
+        sinskit.init_clip_params = real_clip
+    torch.cuda.empty_cache()
+    jump = max(jumps)
+    print(f"[ranks] the serial batch-2 step's G gradient moves by "
+          f"{', '.join(f'{j:.2e}' for j in jumps)} in the 2-norm when the weights move by 1e-6 "
+          f"of themselves" + ("; G held to twice the larger, in the 2-norm" if jump > 1e-5
+                              else "; phase 4's rule"))
+
+    t0 = time.time()
+    res = spawn_ranks(ranks_rank, (dirs, batch, draws, fleet["batches"]), devices)
+    out["ranks_s"] = time.time() - t0
+    print(f"[ranks] two ranks on {', '.join(devices)}, (a) and (b) in {out['ranks_s']:.1f} s "
+          f"(process start, set-up and CLIP included)")
+    # (a) the data-parallel step against the serial one
+    # named=False: at batch 2 the G leaves at round-off are not ZERO_GRAD's
+    # batch-1 set, so every leaf at round-off is held to the floor.  A
+    # ZERO_GRAD leaf's exact gradient is zero, so both steps hold round-off
+    # there: its bound adds the serial |g| and twice the most the 1e-6 weight
+    # moves changed it (that round-off's measured size)
+    extra = {net: {k: want["mu"][net][k].abs().max().item()
+                   + 2 * max((mv[net][k] - want["mu"][net][k]).abs().max().item()
+                             for mv in moved)
+                   for k in want["mu"][net] if ZERO_GRAD.search(k)} for net in want["mu"]}
+    compare_steps("dp2 step (2 ranks x batch 1) against the serial batch-2 step",
+                  Recorded(want), Recorded(res[0]), named=False, vs="ranks vs serial",
+                  g_norm=2 * jump if jump > 1e-5 else None, extra_tol=extra)
+    zero = max(((res[0]["mu"][net][k] - want["mu"][net][k]).abs().max().item()
+                / max(extra[net][k], 1e-30), net, k, want["mu"][net][k].abs().max().item(), extra[net][k])
+               for net in ("D", "D2") for k in extra[net])
+    print(f"[ranks] D's and D2's zero-gradient leaves: the worst |d| is {zero[0]:.2f} of the "
+          f"serial round-off bound at {zero[1]} {zero[2]} (serial |g| {zero[3]:.3e}, bound "
+          f"{zero[4]:.3e}, the floor 1e-5 of the network's max |g| besides)")
+    stats = [k for k in want["state"] if k.startswith(("D.", "D2.")) and
+             k.endswith((".mean", ".var"))]
+    worst = max(((res[0]["state"][k] - want["state"][k]).abs()
+                 / (1e-6 + 1e-4 * want["state"][k].abs())).max().item() for k in stats)
+    print(f"[ranks] D1/D2 running statistics ({len(stats)} buffers) against the serial step: "
+          f"worst |d| / (1e-6 + 1e-4 |ref|) {worst:.3f}")
+    check(stats and worst <= 1.0, "the ranks' running statistics disagree with the serial step's")
+    same = [all(torch.equal(res[0]["state"][k], res[1]["state"][k]) for k in want["state"]),
+            all(torch.equal(res[0]["mu"][n][k], res[1]["mu"][n][k])
+                for n in want["mu"] for k in want["mu"][n])]
+    print(f"[ranks] the two ranks' networks after the step bit for bit the same: {same[0]}; "
+          f"their Adam moments: {same[1]}")
+    check(all(same), "the ranks' networks differ after the step")
+    for r, got in enumerate(res):
+        print(f"[ranks] rank {r}: launches {got['launches']} (PER_STEP {PER_STEP}); shapes "
+              f"those of the train row: {got['shapes'] == train_shapes}")
+        check(got["launches"] == PER_STEP and got["shapes"] == train_shapes,
+              f"rank {r}'s kernel launches are not the train row's: {got['launches']}")
+    t = res[0]["timed_traffic"]
+    out["collectives"], out["bytes"] = t["collectives"] / DP_TIMED, t["bytes"] / DP_TIMED
+    out["rank_walls"] = [got["walls"] for got in res]
+    walls = "; ".join(f"rank {r} median {statistics.median(w):.1f} ms "
+                      f"({', '.join(f'{v:.1f}' for v in w)})"
+                      for r, w in enumerate(out["rank_walls"]))
+    shared = len(set(devices)) == 1
+    print(f"[time ranks] {smi}: a D3-active {CANVAS}² dp2 step, 2 ranks on "
+          + ("one card over gloo (not a speed figure: the ranks contend for the card)" if shared
+             else f"{', '.join(devices)} over nccl") + f": {walls}; the serial "
+          f"batch-2 step {statistics.median(out['serial_walls']):.1f} ms "
+          f"({', '.join(f'{v:.1f}' for v in out['serial_walls'])}); per step "
+          f"{out['collectives']:.0f} collectives moving {out['bytes'] / 2 ** 20:.3f} MiB from "
+          f"each rank (the first step: {res[0]['traffic']['collectives']})")
+    # (b) the fleet over ranks against the single steps
+    for g, got in enumerate(res):
+        lw, sw = fleet["steps"][g]
+        lf, sf = got["fleet"]
+        same_l = lf.keys() == lw.keys() and all(torch.equal(lf[k], lw[k]) for k in lw)
+        diff = [k for k in sw if not torch.equal(sf[k], sw[k])]
+        print(f"[ranks] fleet garment {g} on rank {g}: against its single step losses "
+              f"bit-identical {same_l}; {len(sw) - len(diff)} of {len(sw)} parameter, statistic "
+              f"and Adam tensors bit-identical" + (f"; differing: {diff[:8]}" if diff else ""))
+        check(same_l and not diff, f"the fleet over ranks differs for garment {g}")
+    check(res[0]["fleet_means"] == res[1]["fleet_means"],
+          "the ranks' gathered fleet losses differ")
+    # (c) NCCL, one card per rank
+    if torch.cuda.device_count() < 2:
+        print(f"[dist] nccl: {torch.cuda.device_count()} card visible, not run")
+        return out
+    log = os.path.join(dirs[1], "dp_nccl.log")
+    with open(log, "w") as f:
+        subprocess.run([sys.executable, "-m", "vts_torch.train", *DP_TRAIN, "--mesh", "data:2",
+                        "--n_epochs", "1", "--n_epochs_decay", "0", *dirs], cwd=ROOT, stdout=f,
+                       stderr=subprocess.STDOUT, timeout=900, check=True)
+    with open(log) as f:
+        text = f.read()
+    print("\n".join(ln for ln in text.splitlines() if ln.startswith(("[dist]", "(epoch"))))
+    check(text.count("(backend nccl)") == 2, "the training CLI's ranks did not use nccl")
+    launcher(["ours", "launch", "--materials", ",".join(FLEET_MATERIALS), "--dataroot-template",
+              FLEET_TEMPLATE, "--checkpoints_dir", dirs[1], "--results_dir", dirs[3], "--",
+              "--data_len", "1", "--n_epochs", "1", "--n_epochs_decay", "0"],
+             os.path.join(dirs[1], "fleet_nccl.log"), "cuda", 2)
     return out
 
 
@@ -3775,6 +3877,14 @@ def main() -> int:
     cut_s = time.time() - t0
     print(f"[cut] phase 4l took {cut_s:.1f} s")
 
+    # --------------------------------------------------------------- 4m ---
+    print(f"[phase] phase 4m (several ranks) from {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    several_ranks(dirs, train_shapes, fl, smi)
+    ranks_s = time.time() - t0
+    print(f"[ranks] phase 4m took {ranks_s:.1f} s")
+
     # ---------------------------------------------------------------- 5 ---
     print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s; the card: {card_state()} "
           f"(SM clock, power, temperature)")
@@ -3795,7 +3905,7 @@ def main() -> int:
     def add(kname, path, per, ms, plain, lib, flops, nbytes, err, shape, peak=PEAK_FP32_FLOPS):
         acc = rows.setdefault((kname, path), dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
                                                   flops=0.0, bytes=0.0, err=0.0, per=0,
-                                                  dev=[], lib_dev=[], peak=peak, bound=0.0,
+                                                  peak=peak, bound=0.0,
                                                   by=dict(operations=0.0, bytes=0.0)))
         bound, by = bound_ms(flops, nbytes, peak)
         for k_, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
@@ -3807,13 +3917,12 @@ def main() -> int:
         shape_rows.append(dict(kernel=kname, path=path, shape=shape, launches=per, ms=ms,
                                plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
                                bound_fp32_ms=bound_ms(flops, nbytes)[0],
-                               tflops=flops / ms / 1e9, max_abs_err=err, device_ms=None))
+                               tflops=flops / ms / 1e9, max_abs_err=err))
         return bound, by
 
-    # Device-only times come from torch.profiler, run after the step timing
-    # below: a profiler session slows the host's later calls.  ``deferred``
-    # holds what those runs need: (row key, launches, shape row, kernel
-    # call, kernel name, library call, line to print).
+    # ``deferred``: (row key, launches, shape row, kernel call, kernel name,
+    # library call, line to print); the lines are printed after the step
+    # timing, their device-only fields "not measured" (no profiler session)
     deferred = []
 
     def k1_line(what, ms, plain, lib_name, lib, bound, flops, note):
@@ -4379,33 +4488,14 @@ def main() -> int:
     pix2pixhd_times(hd, dirs, smi, traced["pix2pixhd"])
     print(f"[phase] spade walls from {time.time() - t_start:.1f} s")
     spade_times(sp, dirs, smi, traced["spade"])
-    # device-only times of every kernel, and of their library calls
-    print(f"[phase] device-only times from {time.time() - t_start:.1f} s")
-    print(f"[device-only] the card: {card_state()} (SM clock, power, temperature)")
-    # our kernels here; the library calls and the D3 part in a process of
-    # their own (see library_device_times)
-    times = device_times([(call, kname_, 10 if kname_ == "conv3x3" else 25)
-                          for _, _, _, call, kname_, _, _ in deferred])
-    lib_times = library_device_times([(spec, 5) for *_, spec, _ in deferred] + d3_specs)
-    d3_dev, resize_dev = lib_times[-2:]
+    # no device-only profiler session: cut for time (the kernels' session
+    # lost its span markers in every run)
     print(f"[time D3] the D3 part of a {CANVAS}² step (CLIP ViT-B/32 of real I, no grad; of "
           f"fake_I with grad; backward to fake_I): {d3_ms:.2f} ms (host only {d3_host:.2f} ms, "
-          f"device only {fmt_dev(d3_dev)}); resize_mm {CANVAS}² -> 224² forward "
-          f"{resize_ms:.4f} ms (device only {fmt_dev(resize_dev)})")
-    over = [f"library of {what}" for what, (d, e, _) in zip(
-        [line[1:line.index(":")] for *_, line in deferred] + ["D3", "resize_mm"], lib_times)
-        if d is not None and d > e]
-    for (key, per, idx, _, _, _, line), dev_t, lib_t in zip(deferred, times, lib_times):
-        if key is not None:
-            shape_rows[idx]["device_ms"] = dev_t[0]
-            shape_rows[idx]["library_device_ms"] = lib_t[0]
-            rows[key]["dev"].append(None if dev_t[0] is None else per * dev_t[0])
-            rows[key]["lib_dev"].append(None if lib_t[0] is None else per * lib_t[0])
-            if dev_t[0] is not None and dev_t[0] > dev_t[1]:
-                over.append(f"{key[0]}@{key[1]} {shape_rows[idx]['shape']}")
-        print(line.format(dev=fmt_dev(dev_t), lib_dev=fmt_dev(lib_t)))
-    print(f"[device-only] {len(over)} calls whose kernels' device time exceeds their events' "
-          f"in the same session: {over}")
+          f"device only not measured); resize_mm {CANVAS}² -> 224² forward "
+          f"{resize_ms:.4f} ms")
+    for *_, line in deferred:
+        print(line.format(dev="not measured", lib_dev="not measured"))
     if hd["same_shapes"]:
         # a pix2pixHD test sample launches K1 and K2 at a pix2pix one's shapes
         for kname in ("conv3x3_bias_relu", "gather_patches"):
@@ -4440,27 +4530,24 @@ def main() -> int:
         # or operations, whichever is larger there) times its launches, summed;
         # bound_by names the kind that makes up most of it
         b_ms, b_by = acc["bound"], max(acc["by"], key=acc["by"].get)
-        dev_t = sum(acc["dev"]) if acc["dev"] and None not in acc["dev"] else None
-        lib_dev = sum(acc["lib_dev"]) if acc["lib_dev"] and None not in acc["lib_dev"] else None
         src, repl = sources[kname]
         per_what = "test sample" if path.startswith("eval") else "training step"
         print(f"[time {kname} {path}] per {per_what}: "
               f"{launches} launches, kernel {acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, "
               f"library {acc['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}"
               f"{', 3xTF32' if acc['peak'] == K1_PEAK else ''}; fp32 CUDA cores "
-              f"{bound_ms(acc['flops'], acc['bytes'])[0]:.4f}), device only {fmt_ms(dev_t)}, "
-              f"library device only {fmt_ms(lib_dev)}")
+              f"{bound_ms(acc['flops'], acc['bytes'])[0]:.4f})")
         kernels.append(dict(name=f"{kname}@{path}", route="cuda", source=src, replaces=repl,
                             launches=launches, max_abs_err=acc["err"], ms=acc["ms"],
                             plain_ms=acc["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                            library_ms=acc["library_ms"], device_ms=dev_t,
-                            library_device_ms=lib_dev, path=path,
+                            library_ms=acc["library_ms"], path=path,
                             bound_fp32_ms=bound_ms(acc["flops"], acc["bytes"])[0],
                             launches_in_run=in_run[path][kname]))
     print(f"[shapes] {json.dumps(shape_rows)}")
     print(f"[done] chip_smoke took {time.time() - t_start:.1f} s (phase 4f: {workflow_s:.1f} s, "
           f"phase 4g: {p2p_s:.1f} s, phase 4h: {hd_s:.1f} s, phase 4i: {sp_s:.1f} s, "
-          f"phase 4j: {fl_s:.1f} s, phase 4k: {zoo_s:.1f} s, phase 4l: {cut_s:.1f} s)")
+          f"phase 4j: {fl_s:.1f} s, phase 4k: {zoo_s:.1f} s, phase 4l: {cut_s:.1f} s, "
+          f"phase 4m: {ranks_s:.1f} s)")
     tmp_dir.cleanup()
 
     print(smi)

@@ -234,8 +234,8 @@ PORTED = [["--T_resolution_multiplier", "2"], ["--T_resolution_multiplier", "4"]
           ["--use_style_code", "true"], ["--model", "skit"], ["--eval_mode", "legacy"],
           ["--dataset_mode", "skit"], ["--display_id", "1", "--display_port", "0"],
           ["--model", "pix2pix"], ["--model", "pix2pixhd"], ["--model", "spade"],
-          ["--netD", "stylegan2"], ["--diffaugment", "bsb"]]
-STILL_REFUSED = [["--mesh", "data:2"], ["--netD2", "tilestylegan2"]]
+          ["--netD", "stylegan2"], ["--diffaugment", "bsb"], ["--mesh", "data:2"]]
+STILL_REFUSED = [["--netD2", "tilestylegan2"]]
 # refused with the reference's own failure (its tiles do not divide the 32²
 # patches), not as a setting still to port
 FAILS_IN_THE_REFERENCE = [["--netD2", "tilestylegan2"]]
@@ -244,10 +244,11 @@ FAILS_IN_THE_REFERENCE = [["--netD2", "tilestylegan2"]]
 @pytest.mark.parametrize("argv", PORTED + STILL_REFUSED,
                          ids=[" ".join(a) for a in PORTED + STILL_REFUSED])
 def test_ported_flags_parse_and_the_rest_are_refused_by_name(argv, tmp_path):
-    """Each newly ported setting parses in training (and builds its model);
-    each standing refusal raises ``NotImplementedError`` naming its flag at
-    parse, or, where the reference cannot run it, a ``ValueError`` naming it
-    at model creation."""
+    """Each newly ported setting parses in training (and builds its model:
+    under ``--mesh data:2``, at batch 2, in each of two spawned CPU ranks,
+    which join one data group); each standing refusal raises
+    ``NotImplementedError`` naming its flag at parse, or, where the
+    reference cannot run it, a ``ValueError`` naming it at model creation."""
     from vts_torch.models import create_model
     port = _port("train")
     base = SMALL + ["--checkpoints_dir", str(tmp_path), "--device", "cpu"]
@@ -259,9 +260,80 @@ def test_ported_flags_parse_and_the_rest_are_refused_by_name(argv, tmp_path):
         with pytest.raises(NotImplementedError, match=argv[0]):
             port.parse(base + argv, quiet=True)
         return
+    if argv[0] == "--mesh":
+        from tests.torch_port_ranks import setup_rank
+        from vts_torch.platform import spawn_ranks
+        opt = port.parse(base + argv + ["--batch_size", "2"], quiet=True)
+        assert opt.mesh == "data:2"
+        assert spawn_ranks(setup_rank, (opt,), ["cpu", "cpu"], threads=1,
+                           tmp_dir=str(tmp_path)) == [(0, 2), (1, 2)]
+        return
     opt = port.parse(base + argv, quiet=True)
     assert str(getattr(opt, argv[0][2:])).lower() == argv[1]
     create_model(opt).setup()
+
+
+# the reference's refusals of a --mesh, each made at the model's set-up (and
+# by the training driver before it starts ranks), each naming the flag
+MESH_REFUSALS = {
+    "unknown_axis": (["--mesh", "pipe:2"], ValueError, "--mesh pipe:2: unknown mesh axis 'pipe'"),
+    "too_few_devices": (["--mesh", "data:4096", "--batch_size", "4096"], AssertionError,
+                        "--mesh data:4096: mesh needs 4096 devices, have "),
+    "odd_batch": (["--mesh", "data:2", "--batch_size", "3"], ValueError,
+                  "--mesh data:2 needs batch_size divisible by 2 (got 3)"),
+    "steps_per_dispatch": (["--mesh", "data:2", "--batch_size", "2", "--steps_per_dispatch", "2"],
+                           ValueError, "--mesh data parallelism and --steps_per_dispatch > 1 are "
+                                       "mutually exclusive"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MESH_REFUSALS))
+def test_mesh_refusals_are_the_references_naming_the_flag(case, tmp_path):
+    """An unknown axis, more devices than the CPU's cores, a batch that the
+    data axis does not divide, ``--steps_per_dispatch`` > 1: the
+    reference's refusals (its ``parse_mesh_spec``'s and ``build_mesh``'s
+    texts, its ``_setup_dp_mesh``'s), at the model's set-up and from the
+    training driver before any rank or data, each naming ``--mesh``."""
+    from vts_torch.models import create_model
+    from vts_torch.train import rank_devices
+    from vts_tpu.parallel.mesh import build_mesh, parse_mesh_spec
+    argv, err, text = MESH_REFUSALS[case]
+    opt = _port("train").parse(SMALL + ["--checkpoints_dir", str(tmp_path), "--device", "cpu"]
+                               + argv, quiet=True)
+    with pytest.raises(err, match=re.escape(text)):
+        create_model(opt).setup()
+    with pytest.raises(err, match=re.escape(text)):
+        rank_devices(opt)
+    if case == "unknown_axis":
+        with pytest.raises(ValueError, match=re.escape(text.split(": ", 1)[1])):
+            parse_mesh_spec("pipe:2")
+    if case == "too_few_devices":
+        with pytest.raises(AssertionError, match="mesh needs 4096 devices, have 8"):
+            build_mesh("data:4096")
+
+
+def test_multihost_flags_parse_and_join_nothing_without_multihost(tmp_path, monkeypatch):
+    """``--multihost``, ``--coordinator_address``, ``--num_processes`` and
+    ``--process_id`` parse in both phases with the reference's defaults;
+    without ``--multihost`` nothing joins, as in the reference; with it and
+    neither those flags nor torchrun's variables, a ``ValueError`` names
+    them before any rendezvous."""
+    from vts_torch.platform import init_multihost, world
+    for phase in ("train", "test"):
+        opt = _port(phase).parse(SMALL + ["--checkpoints_dir", str(tmp_path), "--device", "cpu",
+                                          "--coordinator_address", "127.0.0.1:1",
+                                          "--num_processes", "2", "--process_id", "1"],
+                                 quiet=True)
+        assert (opt.multihost, opt.coordinator_address, opt.num_processes,
+                opt.process_id) == (False, "127.0.0.1:1", 2, 1)
+        assert init_multihost(opt) is False and world() is None
+        opt = _port(phase).parse(SMALL + ["--checkpoints_dir", str(tmp_path), "--device", "cpu",
+                                          "--multihost"], quiet=True)
+        for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+            monkeypatch.delenv(var, raising=False)
+        with pytest.raises(ValueError, match="--multihost: set --coordinator_address"):
+            init_multihost(opt)
+        assert world() is None
 
 
 @pytest.mark.parametrize("phase", ["train", "test"])

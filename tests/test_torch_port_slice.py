@@ -105,6 +105,7 @@ def test_port_imports_without_jax_or_vts_tpu():
             "import vts_torch.networks.munit, vts_torch.networks.stylegan2; "
             "import vts_torch.networks.cut_heads, vts_torch.losses.normal; "
             "import vts_torch.data.base_transforms, vts_torch.data.legacy; "
+            "import vts_torch.platform, vts_torch.parallel.mesh, vts_torch.parallel.dist; "
             "bad = [m for m in sys.modules if m.startswith('vts_tpu') "
             "or m.split('.')[0] in ('jax', 'flax', 'optax') and sys.modules[m] is not None]; "
             "assert not bad, bad; print('ok')")

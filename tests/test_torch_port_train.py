@@ -30,11 +30,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tests.torch_port_step import argv as _argv
 from tests.torch_port_step import env  # noqa: F401  (module-scoped fixture)
 from tests.torch_port_step import flat as _flat
 from tests.torch_port_step import jax_batch as _jax_batch
+from tests.torch_port_step import jax_draws
 from tests.torch_port_step import port_model as _port_model
 from tests.torch_port_step import run_step
 from tests.torch_port_step import one_intra_op_thread  # noqa: F401  (autouse fixture)
@@ -62,19 +64,76 @@ def _grad_tol(name, g, net_max):
     return 1e-4 * np.abs(g).max() + (1e-5 * net_max if CANCELLING.search(name) else 0.0)
 
 
-@pytest.fixture(scope="module", params=[(1, False), (2, False), (1, True)],
-                ids=["batch1", "batch2", "d3_batch1"])
-def step(request, env):  # noqa: F811
+_JAX_STEPS = {}
+
+
+def _jax_step(env, n, d3):  # noqa: F811
+    """:func:`run_step` once per configuration, with the JAX states it started
+    from: (JAX model after its step, JAX losses, port model after its step,
+    the initial states)."""
+    import tests.torch_port_step as tps
+    if (n, d3) not in _JAX_STEPS:
+        kept = {}
+
+        def keep(model, states):
+            kept["states"] = states
+            real(model, states)
+        real = tps.load_jax_states
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tps, "load_jax_states", keep)
+            _JAX_STEPS[(n, d3)] = run_step(env, n, d3) + (kept["states"],)
+    return _JAX_STEPS[(n, d3)]
+
+
+def _dp2_step(env, jmodel, states0, tmp):  # noqa: F811
+    """The port's batch-2 step as two gloo ranks on the CPU, one sample each
+    (``--mesh data:2``), from JAX's initial states and its whole batch's
+    draws: each rank's losses, Adam first moments and state dicts."""
+    from tests.torch_port_ranks import dp_step_rank
+    from tests.torch_port_step import np_tree
+    from vts_torch.platform import spawn_ranks
+    from vts_torch.utils.convert_jax import (d_params_to_torch, d_stats_to_torch,
+                                             unet_params_to_torch, unet_stats_to_torch)
+    states = {"G": {**unet_params_to_torch(np_tree(states0["G"].params)),
+                    **unet_stats_to_torch(np_tree(states0["G"].stats))}}
+    for name in ("D", "D2"):
+        states[name] = {**d_params_to_torch(np_tree(states0[name].params)),
+                        **d_stats_to_torch(np_tree(states0[name].stats))}
+    states = {n: {k: np.asarray(v) for k, v in sd.items()} for n, sd in states.items()}
+    argv = _argv(env, 2) + ["--device", "cpu", "--no_html", "--mesh", "data:2"]
+    return spawn_ranks(dp_step_rank, (argv, states, _jax_batch(env, 2)[1],
+                                      jax_draws(jmodel.rng, 2)), ["cpu", "cpu"], threads=1,
+                       tmp_dir=str(tmp))
+
+
+@pytest.fixture(scope="module", params=[(1, False), (2, False), "dp2", (1, True)],
+                ids=["batch1", "batch2", "dp2", "d3_batch1"])
+def step(request, env, tmp_path_factory):  # noqa: F811
     """One JAX training step and one port step from the same weights, batch
     and draws: at batch 1 and 2 before D3's warmup epoch, and at batch 1 with
     D3 active (JAX ``use_d3=True``, the port at ``--vision_aided_warmup_epoch
-    1``)."""
+    1``); ``dp2``: the batch-2 JAX step against the port's batch-2 step over
+    two CPU ranks of one sample each (``--mesh data:2``), rank 0's result,
+    the two ranks' states and moments asserted bit for bit the same."""
     from vts_torch.utils.convert_jax import torch_to_d_params, torch_to_unet_params
-    n, d3 = request.param
-    jmodel, losses, model = run_step(env, n, d3)
-    want = {"losses": losses, **jmodel.states}
     to_flax = {"G": lambda sd: (torch_to_unet_params(sd), {}), "D": torch_to_d_params,
                "D2": torch_to_d_params}
+    if request.param == "dp2":
+        jmodel, losses, _, states0 = _jax_step(env, 2, False)
+        res = _dp2_step(env, jmodel, states0, tmp_path_factory.mktemp("dp2"))
+        for part in ("state", "mu"):
+            for name, sd in res[0][part].items():
+                assert all(torch.equal(v, res[1][part][name][k]) for k, v in sd.items()), \
+                    (part, name)
+        got = {"losses": res[0]["losses"]}
+        for name in ("G", "D", "D2"):
+            params, stats = to_flax[name](res[0]["state"][name])
+            got[name] = {"params": params, "stats": stats,
+                         "mu": to_flax[name](res[0]["mu"][name])[0]}
+        return {"losses": losses, **jmodel.states}, got
+    n, d3 = request.param
+    jmodel, losses, model, _ = _jax_step(env, n, d3)
+    want = {"losses": losses, **jmodel.states}
     got = {"losses": model.get_current_losses()}
     for name in ("G", "D", "D2"):
         net = getattr(model, f"net{name}")
@@ -216,8 +275,9 @@ def test_cpu_train_then_test_smoke(tmp_path):
 
 def test_train_requires_no_html_and_refuses_unported_settings(tmp_path):
     """The settings the port does not run raise naming the flag: a mesh
-    when parsed (``NotImplementedError``), the tile StyleGAN2 D2 at model
-    creation (a ``ValueError``: the reference cannot run it).  The cropped
+    with an unknown axis at the model's set-up (the reference's
+    ``ValueError``), the tile StyleGAN2 D2 at model creation (a
+    ``ValueError``: the reference cannot run it).  A data mesh parses.  The cropped
     LPIPS, bf16,
     the gallery (``--no_html`` is not required) and the settings ported since
     (the plateau schedule, the hinge and WGAN losses, the other D norms and
@@ -227,8 +287,9 @@ def test_train_requires_no_html_and_refuses_unported_settings(tmp_path):
     from vts_torch.config import TrainOptions
     from vts_torch.models import create_model
     base = ["--checkpoints_dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        TrainOptions().parse(base + ["--mesh", "data:2"], quiet=True)
+    with pytest.raises(ValueError, match="--mesh pipe:2: unknown mesh axis"):
+        create_model(TrainOptions().parse(base + ["--mesh", "pipe:2"], quiet=True)).setup()
+    assert TrainOptions().parse(base + ["--mesh", "data:2"], quiet=True).mesh == "data:2"
     with pytest.raises(ValueError, match="--netD2 tilestylegan2"):
         create_model(TrainOptions().parse(base + ["--netD2", "tilestylegan2"], quiet=True))
     opt = TrainOptions().parse(base + ["--lpips_crop", "64", "--dtype", "bfloat16"], quiet=True)

@@ -40,12 +40,18 @@ creation for every other model, as the reference's.  Each flag does one of
 three things:
 
   * it is read, as in the reference (the data, model, loss, schedule,
-    checkpoint and gallery flags, and the loggers' ``--display_id``,
+    checkpoint and gallery flags, the ranks' ``--multihost``,
+    ``--coordinator_address``, ``--num_processes`` and ``--process_id``
+    (:mod:`vts_torch.platform`), and the loggers' ``--display_id``,
     ``--display_port`` and ``--use_wandb``; ``--suffix`` renames the run as
     ``<name>_<suffix.format(**opt)>``; ``--max_dataset_size`` caps the
     epoch; ``--lpips_weights``/``--inception_weights`` load the perceptual
-    towers; in training also ``--dtype``, ``--lpips_crop`` and
-    ``--anneal_epoch``/``--anneal_set``);
+    towers; in training also ``--dtype``, ``--lpips_crop``,
+    ``--anneal_epoch``/``--anneal_set`` and ``--mesh``, whose refusals are
+    the reference's, made where it makes them, at the model's set-up (and
+    by the training driver before it starts ranks), each naming the flag:
+    an unknown axis, too few devices, a batch the ``data`` axis does not
+    divide, ``--steps_per_dispatch`` > 1 with one);
   * it is accepted and has no effect, because it changes no math on one
     device: the TPU layout and cache flags (``--canvas_fold``,
     ``--lpips_fold``, ``--lpips_fold_axis``, ``--lpips_conv``,
@@ -75,7 +81,7 @@ three things:
     an unparsable one is its ``ValueError``; the zoo's G other than the
     plain U-Nets read none), ``--normD`` other than instance, batch or none
     (or, with the three patch baselines, ``spectral`` followed by one of
-    them or by nothing), ``--multihost``; in training also ``--mesh``.
+    them or by nothing).
 
 A legacy ``--dataset_mode`` parses and loads (its flags and samples are the
 reference's), and is a ``ValueError`` naming the flag at model creation
@@ -147,8 +153,18 @@ def _common(p: argparse.ArgumentParser, train: bool) -> None:
     a("--device", type=str, default="cuda", help="cuda | cpu")
     a("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
       help="training compute dtype (params stay fp32); the eval forward is fp32")
-    a("--mesh", type=str, default="", help="training: a device mesh (not ported)")
-    a("--multihost", action="store_true", help="not ported")
+    a("--mesh", type=str, default="",
+      help="training: a device layout 'axis:size,...' (garment, data, spatial); a data axis "
+           "of N > 1 trains on N ranks, one per card (the CPU: one per core)")
+    a("--multihost", action="store_true",
+      help="join the ranks at --coordinator_address (or torchrun's MASTER_ADDR:MASTER_PORT) "
+           "before anything runs")
+    a("--coordinator_address", type=str, default="",
+      help="--multihost: host:port of rank 0's store")
+    a("--num_processes", type=int, default=-1,
+      help="--multihost: the number of ranks (-1: torchrun's WORLD_SIZE)")
+    a("--process_id", type=int, default=-1,
+      help="--multihost: this process's rank (-1: torchrun's RANK)")
     # model
     a("--model", type=str, default="sinskit")
     a("--netG", type=str, default="unet256_custom", choices=_NETG)
@@ -255,8 +271,7 @@ def _common(p: argparse.ArgumentParser, train: bool) -> None:
                    help="accepted; no effect in the port (singleskit never flips)")
     _no_effect(p, (
         ("--easy_label", str, "experiment_name"), ("--platform", str, ""),
-        ("--coordinator_address", str, ""), ("--num_processes", int, -1),
-        ("--process_id", int, -1), ("--direction", str, "AtoB"),
+        ("--direction", str, "AtoB"),
         ("--num_threads", int, 0), ("--cache_data_device", bool, False),
         ("--load_size", int, 286), ("--cache_dir", str, ""),
         ("--verbose", bool, False), ("--load_iter", int, 0),
@@ -505,8 +520,6 @@ def _check_common(opt) -> None:
     m = int(opt.T_resolution_multiplier)
     if m < 1 or m & (m - 1):
         raise ValueError(f"--T_resolution_multiplier {m} must be a power of two")
-    if opt.multihost:
-        _refuse("--multihost", "(several hosts)")
 
 
 def _check_stylegan2_ds(opt) -> None:
@@ -616,5 +629,3 @@ class TrainOptions(_Options):
             policy = opt.diffaugment
             if set(policy) - set("bscton"):
                 raise ValueError(f"--diffaugment {policy!r}: the letters are b, s, c, t, o, n")
-        if opt.mesh:
-            _refuse("--mesh", "(data parallelism over devices)")

@@ -4,17 +4,28 @@ tmux/GPUtil layer, experiments/tmux_launcher.py:70-163, __main__.py:26-88).
 The reference fans the 20 TouchClothing garments out as 20 OS processes.
 Here a ``launch`` is either:
 
-  * ``--mode fleet`` (the default): every garment trained in ONE process on
-    the one card (:mod:`vts_torch.parallel.fleet`): the frozen LPIPS,
-    Inception, CLIP and D3 towers on the card once, the garments' steps one
-    after another, each garment's G, D and D2 initialized from its index as
-    ``--seed`` (the reference's ``seeds=range(G)``).  Each epoch runs over
-    the zip of the garments' loaders (as long as the shortest), a ``[fleet]``
-    line with each loss averaged over the garments every ``max(1,
-    print_freq // 100)`` epochs, each garment's ``latest_{net,opt}_{G,D,D2}
+  * ``--mode fleet`` (the default): the garments sharded over
+    g = min(G, devices) devices, as the reference shards them over its
+    ``garment`` axis (``[fleet] G garments over g devices``; the devices
+    are the cards, or on the CPU one device, as the reference's CPU has one,
+    unless a ``--mesh garment:N`` among the flags lays N CPU ranks out, the
+    counterpart of XLA's host devices; a g that does not divide G fails, as
+    the reference's ``device_put`` does).  One process (a rank,
+    :mod:`vts_torch.platform`; the only process when g is 1) per device
+    trains its contiguous block of garments (:mod:`vts_torch.parallel.fleet`):
+    the frozen LPIPS, Inception, CLIP and D3 towers on its device once, its
+    garments' steps one after another, each garment's G, D and D2
+    initialized from its index in the fleet as ``--seed`` (the reference's
+    ``seeds=range(G)``).  Each epoch runs over the zip of the garments'
+    loaders (as long as the shortest), a ``[fleet]`` line with each loss
+    averaged over all the garments every ``max(1, print_freq // 100)``
+    epochs (rank 0 prints it), each garment's ``latest_{net,opt}_{G,D,D2}
     .msgpack`` under ``<checkpoints_dir>/<material>_<suffix>`` every
-    ``--save_epoch_freq`` epochs and at the end; no validation, no ``best``
-    and no gallery, as in the reference.  ``ours`` and ``skit`` run in the
+    ``--save_epoch_freq`` epochs and at the end, by the rank that trains it;
+    no validation, no ``best`` and no gallery, as in the reference.  A
+    ``--mesh`` among the flags gets the reference's checks (its model's
+    setup builds that mesh) and changes no step: the reference's fleet
+    steps each garment's whole batch.  ``ours`` and ``skit`` run in the
     fleet; the baselines' presets (pix2pix, pix2pixhd, spade) are refused by
     name, before any data is built (the reference's fleet calls
     ``_train_step(..., frozen, use_d3=...)``, which their steps do not take);
@@ -44,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import itertools
 import os
 import shlex
 import subprocess
@@ -112,15 +124,18 @@ def run_process_mode(method: str, materials: List[str], args) -> int:
 FLEET_MODELS = ("sinskit", "skit")
 
 
-def run_fleet_mode(method: str, materials: List[str], args) -> int:
-    """Every garment in one process on one device (see the module docstring)."""
+def run_fleet_mode(method: str, materials: List[str], args, devices=None) -> int:
+    """The garments over min(G, devices) ranks (see the module docstring);
+    ``devices``: the devices to lay them over (default the visible cards, or
+    on the CPU one device, or as many as a ``--mesh`` garment axis asks)."""
     import torch
 
     from .config import TrainOptions
-    from .data import create_dataset
-    from .device import describe, resolve_device
-    from .models import create_model
-    from .parallel.fleet import FleetTrainer
+    from .device import resolve_device
+    from .models.sinskit import data_axis
+    from .parallel.mesh import (build_mesh, garment_block, mesh_for_flag, parse_mesh_spec,
+                                 visible_devices)
+    from .platform import spawn_ranks
 
     preset = METHOD_PRESETS[method]
     if preset["model"] not in FLEET_MODELS:
@@ -133,38 +148,78 @@ def run_fleet_mode(method: str, materials: List[str], args) -> int:
                  "--checkpoints_dir", args.checkpoints_dir,
                  "--results_dir", args.results_dir] + args.extra
     opt = TrainOptions().parse(base_argv, quiet=True)
+    kind = resolve_device(opt.device).type
+    if opt.mesh:
+        mesh_for_flag(opt.mesh, visible_devices(kind))
+        data_axis(opt)
+    if devices is None:
+        devices = (visible_devices(kind) if kind == "cuda"
+                   else [torch.device("cpu")] * parse_mesh_spec(opt.mesh).get("garment", 1))
+    opt.mesh = ""
+    n_garments = len(materials)
+    layout = build_mesh(f"garment:{min(n_garments, len(devices))}", devices)
+    g_ax = layout.axis("garment")
+    garment_block(n_garments, g_ax, 0)
+    print(f"[fleet] {n_garments} garments over {g_ax} devices", flush=True)
+    if g_ax == 1:
+        return _fleet_rank(method, materials, args, opt, g_ax)
+    threads = max(1, torch.get_num_threads() // g_ax) if kind == "cpu" else None
+    spawn_ranks(_fleet_rank, (method, materials, args, opt, g_ax), list(layout.devices),
+                threads=threads)
+    return 0
+
+
+def _fleet_rank(method: str, materials: List[str], args, opt, g_ax: int) -> int:
+    """Train this rank's block of the garments (all of them outside ranks)."""
+    import torch
+
+    from .data import create_dataset
+    from .device import describe, resolve_device
+    from .models import create_model
+    from .parallel.fleet import FleetTrainer
+    from .parallel.mesh import garment_block
+    from .platform import is_lead, over_ranks, world
+
+    preset = METHOD_PRESETS[method]
+    ranks = world()
+    block = garment_block(len(materials), g_ax, 0 if ranks is None else ranks.rank)
     device = resolve_device(opt.device)
-    print(f"[device] fleet trains on {describe(device)}", flush=True)
-    print(f"[fleet] {len(materials)} garments over 1 devices")
+    print(f"[device] fleet trains on {describe(device)}"
+          + ("" if ranks is None else f": garments {block.start}-{block.stop - 1}"), flush=True)
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         loaders = []
-        for m in materials:
+        for m in materials[block.start:block.stop]:
             sub = copy.copy(opt)
             sub.dataroot = args.dataroot_template.format(material=m)
             sub.name = f"{m}_{preset['name_suffix']}"
             loaders.append(create_dataset(sub))
         model = create_model(opt)
-        trainer = FleetTrainer(model, len(materials))
+        trainer = FleetTrainer(model, len(block), first=block.start)
         trainer.init_states()
         total_epochs = opt.n_epochs + opt.n_epochs_decay
+        # the shortest loader of the whole fleet, whichever rank holds it
+        steps = int(over_ranks(torch.tensor([min(len(ld) for ld in loaders)]), "min")[0])
         t0 = time.time()
         for epoch in range(opt.epoch_count, total_epochs + 1):
             for ld in loaders:
                 ld.set_epoch(epoch)
-            for batches in zip(*[iter(ld) for ld in loaders]):
+            for batches in itertools.islice(zip(*[iter(ld) for ld in loaders]), steps):
                 trainer.step(list(batches), epoch)
             if epoch % max(1, opt.print_freq // 100) == 0 and trainer.losses:
-                print(f"[fleet] epoch {epoch}/{total_epochs} ({time.time() - t0:.0f}s) "
-                      + " ".join(f"{k}:{v:.3f}" for k, v in trainer.mean_losses().items()),
-                      flush=True)
+                means = trainer.mean_losses(len(materials))
+                if is_lead():
+                    print(f"[fleet] epoch {epoch}/{total_epochs} ({time.time() - t0:.0f}s) "
+                          + " ".join(f"{k}:{v:.3f}" for k, v in means.items()), flush=True)
             if epoch % opt.save_epoch_freq == 0 or epoch == total_epochs:
-                for gi, m in enumerate(materials):
+                for gi, m in enumerate(materials[block.start:block.stop]):
                     trainer.save(gi, os.path.join(args.checkpoints_dir,
                                                   f"{m}_{preset['name_suffix']}"), "latest")
-        print(f"[fleet] trained {len(materials)} garments in {time.time() - t0:.0f}s")
+        if is_lead():
+            print(f"[fleet] trained {len(materials)} garments in {time.time() - t0:.0f}s",
+                  flush=True)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     return 0

@@ -42,8 +42,11 @@ def per_sample_gan_loss(pred, target_is_real: bool, mode: str, real_label: float
     return _per_sample_single(pred, target_is_real, mode, real_label, fake_label)
 
 
-def masked_mean(vec: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    return torch.sum(vec * valid) / torch.clamp_min(torch.sum(valid), 1.0)
+def masked_mean(vec: torch.Tensor, valid: torch.Tensor, count=None) -> torch.Tensor:
+    """Σ(vec·valid) over the valid count, or over ``count`` when given (a
+    data-parallel rank's share: the global batch's valid count)."""
+    count = torch.sum(valid) if count is None else count
+    return torch.sum(vec * valid) / torch.clamp_min(count, 1.0)
 
 
 def masked_patch_sum(vec: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

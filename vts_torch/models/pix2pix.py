@@ -49,6 +49,8 @@ class Pix2PixModel(SinSKITModel):
     pix2pix's."""
 
     pred_fake_T_full_visual = False
+    # the reference's baselines never split their step (vts_tpu/models/pix2pix.py:111-125)
+    data_parallel = False
     masked_stacks = ("",)               # the reference masks T_images, not val_T_images
     d_kind = "basic"                    # the kind of D and D2
 

@@ -63,6 +63,19 @@ D3 uses.  ``--eval_mode legacy`` scores each sample with the reference's
 per-metric loop (:func:`vts_torch.metrics.evaluate.compute_evaluation_metrics`)
 in place of the batched pass.
 
+``--mesh data:N`` (N > 1) splits the training batch over N ranks
+(:mod:`vts_torch.platform`), as the reference's GSPMD step shards it, and
+keeps the step's meaning: every rank holds the same networks and loads the
+same global batch, keeps its block of the samples (:meth:`set_input`) and
+of the step's draws (drawn for the global batch on every rank), and takes
+its *share* of each loss: a mean over the samples divided by N, a validity
+-masked mean over the global valid count, a per-image sum over the global
+batch size.  The batch norms and the StyleGAN2 D's minibatch stddev use the
+global batch (:mod:`vts_torch.parallel.dist`).  So the ranks' gradients sum
+to the global batch's: each network's are summed over the ranks in one
+collective before Adam, and the logged losses are the global ones.  The
+baselines (pix2pix, pix2pixHD, SPADE) never split, as in the reference.
+
 The settings not ported yet are refused by the options
 (:mod:`vts_torch.config.options`).
 """
@@ -85,7 +98,7 @@ from ..metrics.evaluate_batch import compute_evaluation_metrics_batched
 from ..metrics.inception import InceptionBlock0, init_inception_params, load_inception_weights
 from ..networks import (CustomUNet, StyleGAN2Discriminator, StyleGAN2Generator, define_D,
                         define_G)
-from ..networks.blocks import make_initializer
+from ..networks.blocks import BatchNorm, make_initializer
 from ..networks.clip_vit import CLIPViT, init_clip_params, load_clip_weights
 from ..networks.discriminators import reset_parameters as reset_d
 from ..networks.positional import positional_encoding
@@ -93,6 +106,9 @@ from ..ops import diffaug
 from ..ops.normal import compute_normal
 from ..ops.patch import gather_patches_from_coords, gather_patches_group, sample_offsets_in_mask
 from ..ops.resize import resize_bicubic, resize_nearest
+from ..parallel.dist import DataGroup
+from ..parallel.mesh import mesh_for_flag, parse_mesh_spec, visible_devices
+from ..platform import world
 from ..utils.collage import bbox_overlay, patch_collage
 from ..utils.convert_jax import (adam_state_to_flax, adam_state_to_torch, d_params_to_torch,
                                  d_stats_to_torch, resnet_params_to_torch, resnet_stats_to_torch,
@@ -131,10 +147,37 @@ def _gather_by_size(images, **kw):
     return tuple(out)
 
 
+def data_axis(opt) -> int:
+    """``--mesh``'s ``data`` axis N (1 without one), after the reference's
+    two refusals when N > 1: a batch that N does not divide, and
+    ``--steps_per_dispatch`` > 1."""
+    ndp = parse_mesh_spec(opt.mesh).get("data", 1)
+    if ndp > 1:
+        n = int(opt.batch_size)
+        if n % ndp:
+            raise ValueError(f"--mesh data:{ndp} needs batch_size divisible by {ndp} "
+                             f"(got {n}); the batch axis is what shards")
+        if int(opt.steps_per_dispatch) > 1:
+            raise ValueError("--mesh data parallelism and --steps_per_dispatch > 1 are mutually "
+                             "exclusive (chunk stacking would gather the sharded batch)")
+    return ndp
+
+
+def _rows(group: DataGroup, draws):
+    """This rank's rows of a (nested list or dict of) whole-batch draw(s)."""
+    if isinstance(draws, (list, tuple)):
+        return [_rows(group, d) for d in draws]
+    if isinstance(draws, dict):
+        return {k: _rows(group, d) for k, d in draws.items()}
+    return group.rows(draws)
+
+
 class SinSKITModel:
     """Lifecycle as in the reference: setup → set_input → optimize_parameters
     / test → get_current_losses / compute_metrics → save/load_networks."""
 
+    # whether --mesh data:N splits this model's training step over ranks
+    data_parallel = True
     # the gallery's full-canvas D2 logit map after a training step
     pred_fake_T_full_visual = True
     # the touch-patch stacks (by prefix) that set_input masks by their object masks
@@ -210,6 +253,7 @@ class SinSKITModel:
         self._outputs: Dict[str, torch.Tensor] = {}
         self._losses: Dict[str, torch.Tensor] = {}
         self.metrics: Dict[str, float] = {}
+        self.dp: Optional[DataGroup] = None   # --mesh data:N: this rank's data group
 
     # ------------------------------------------------------------------
     def nets(self) -> Dict[str, torch.nn.Module]:
@@ -241,6 +285,39 @@ class SinSKITModel:
               f"{sum(p.numel() for p in self.netD2.parameters()) / 1e6:.3f} M")
         if self.use_d3:
             self.d3_heads = D3Heads(init_d3_head_params(0)).to(self.device)
+        self._setup_dp()
+
+    def _setup_dp(self) -> None:
+        """``--mesh`` (the reference's ``_setup_dp_mesh``): outside ranks the
+        spec is checked against this machine's devices, as ``build_mesh``
+        checks it; a ``data`` axis of N > 1 then needs a batch divisible by
+        N and ``--steps_per_dispatch`` 1 (:func:`data_axis`), and this
+        process to be one of N ranks; the networks' batch norms and StyleGAN2
+        Ds join the ranks' :class:`DataGroup`.  Other axes change nothing, as
+        in the reference's train path; a model whose ``data_parallel`` is
+        False (the baselines) ignores ``--mesh``, as the reference's do."""
+        spec = self.opt.mesh
+        if not spec or not self.data_parallel:
+            return
+        ranks = world()
+        if ranks is None:
+            mesh_for_flag(spec, visible_devices(self.device.type))
+        ndp = data_axis(self.opt)
+        if ndp <= 1:
+            return
+        n = int(self.opt.batch_size)
+        if ranks is None or ranks.size != ndp:
+            raise RuntimeError(
+                f"--mesh {spec} trains on {ndp} data ranks, and this process is "
+                + ("not one of several" if ranks is None else f"one of {ranks.size}")
+                + ": vts_torch.train starts them (with --multihost, start one process a rank)")
+        self.dp = DataGroup(ranks.rank, ndp, ranks.group)
+        for net in (self.netG, self.netD, self.netD2):
+            for m in net.modules():
+                if isinstance(m, (BatchNorm, StyleGAN2Discriminator)):
+                    m.group = self.dp
+        print(f"[sinskit] data-parallel ranks active: batch {n} → {n // ndp} per rank × "
+              f"{ndp} ranks")
 
     def init_nets(self, seed: int) -> None:
         """Seeded init of the networks in place, on the device: G from ``seed``
@@ -281,11 +358,19 @@ class SinSKITModel:
         """Batch of numpy arrays → device tensors; S and I are masked by M, the
         patch stacks fold (N, K, …) → (N·K, …) (coords keep (N, K, 8)) and the
         tactile patches of :attr:`masked_stacks` are masked by their object
-        masks."""
+        masks.  On data-parallel ranks a training batch whose N the ranks
+        divide is cut to this rank's block of samples (the reference shards
+        it; anything else, the validation sample among it, stays whole)."""
+        arrays = {k: v for k, v in batch.items()
+                  if k not in ("name", "sample_idx") and isinstance(v, np.ndarray)
+                  and v.dtype.kind in "fiub"}
+        n = len(arrays["S"]) if "S" in arrays else 0
+        self._dp_split = self.dp is not None and phase == "train" and n and n % self.dp.size == 0
+        if self._dp_split:
+            arrays = {k: self.dp.rows(v) if v.ndim and len(v) == n else v
+                      for k, v in arrays.items()}
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-               for k, v in batch.items()
-               if k not in ("name", "sample_idx") and isinstance(v, np.ndarray)
-               and v.dtype.kind in "fiub"}
+               for k, v in arrays.items()}
         if "M" in dev:
             dev["S"] = dev["S"] * dev["M"]
             if "I" in dev:
@@ -338,14 +423,29 @@ class SinSKITModel:
         opt = self.opt
         f = lr_factor(opt.lr_policy, epoch - 1, opt) * self.lr_override
         if draws is None:
-            draws = self.draw(self._input["S"].shape[0], tuple(self._input["S"].shape[1:3]))
+            draws = self.draw(self._input["S"].shape[0] * self._ranks(),
+                              tuple(self._input["S"].shape[1:3]))
+        if self.dp is not None:
+            # the global batch's draws (drawn here or given), this rank's rows
+            draws = {k: v if k == "lpips_crop" else _rows(self.dp, v) for k, v in draws.items()}
         use_d3 = self.use_d3 and epoch >= opt.vision_aided_warmup_epoch
         self._losses, self._outputs = self._train_step(self._input, opt.lr * f,
                                                        opt.lr_G2 * f, draws, use_d3)
 
+    def _ranks(self) -> int:
+        """How many ranks share the training step: N under ``--mesh data:N``,
+        else 1.  Refuses a step on a batch that was not split."""
+        if self.dp is None:
+            return 1
+        if not self._dp_split:
+            raise ValueError(f"--mesh data:{self.dp.size}: the training batch of "
+                             f"{len(self._input['S'])} was not split over the ranks")
+        return self.dp.size
+
     def _update(self, name: str, loss: torch.Tensor, lr: float, frozen=()) -> None:
-        """Gradient of ``loss`` w.r.t. network ``name``'s parameters, then Adam;
-        the parameters named in ``frozen`` get a zero gradient (not computed)."""
+        """Gradient of ``loss`` w.r.t. network ``name``'s parameters, summed
+        over the data-parallel ranks, then Adam; the parameters named in
+        ``frozen`` get a zero gradient (not computed)."""
         params = dict(getattr(self, f"net{name}").named_parameters())
         live = [k for k in params if k not in frozen]
         if not (torch.is_tensor(loss) and loss.requires_grad) or not live:   # every term detached
@@ -355,6 +455,8 @@ class SinSKITModel:
         got = dict(zip(live, grads))
         grads = {k: torch.zeros_like(p) if got.get(k) is None else got[k]
                  for k, p in params.items()}
+        if self.dp is not None:
+            self.dp.sum_flat_(list(grads.values()))
         self.adam[name].step(params, grads, lr)
 
     def _train_step(self, batch: Dict[str, torch.Tensor], lr: float, lr_d2: float,
@@ -368,6 +470,13 @@ class SinSKITModel:
         mult = self.mult
         M_T = M if mult == 1 else resize_nearest(M, (h * mult, w * mult))
         losses: Dict[str, torch.Tensor] = {}
+        # on data-parallel ranks: the global batch size, and this rank's share
+        # of a mean over the global batch (its own samples' mean / ranks)
+        ranks = self._ranks()
+        n_all = n * ranks
+
+        def share(t):
+            return t if ranks == 1 else t / ranks
         # the canvas constants in the compute dtype, as the reference pre-casts them
         cd = self.dtype
         S_d, I_d, M_d = S.to(cd), I.to(cd), M.to(cd)
@@ -393,10 +502,11 @@ class SinSKITModel:
             # D1's last logit map, a visual
             pred_fake_I = (pred_fake[-1][-1] if isinstance(pred_fake, (list, tuple))
                            else pred_fake).detach()
-            l_fake = torch.mean(gan_loss(pred_fake, False, mode, real_lbl)) * opt.lambda_G1_GAN
-            l_real = torch.mean(gan_loss(self.netD(real_in), True, mode, real_lbl)) \
+            l_fake = share(torch.mean(gan_loss(pred_fake, False, mode, real_lbl))) \
                 * opt.lambda_G1_GAN
-            gp = self._penalty(self.netD, real_in, fake_in, draws, "gp1")
+            l_real = share(torch.mean(gan_loss(self.netD(real_in), True, mode, real_lbl))) \
+                * opt.lambda_G1_GAN
+            gp = share(self._penalty(self.netD, real_in, fake_in, draws, "gp1"))
             self._update("D", (l_fake + l_real + gp) * 0.5, lr)
             losses.update(D_fake_I=l_fake.detach(), D_real_I=l_real.detach(),
                           D_I_grad_penalty=_detached(gp))
@@ -450,19 +560,21 @@ class SinSKITModel:
 
         # ---- 4. D2 update ----
         if "D2" in self.model_names:
+            # the global batch's valid patch count
+            n_valid = None if ranks == 1 else self.dp.sum_(torch.sum(valid).reshape(1))[0]
             fake_cond = d2_cond(fake_T_patch_d, S_patch, fakeI_cond)
             real_cond = d2_cond(real_T, S_patch, realI_cond)
             pf = self.netD2(fake_cond)
-            l_fake = masked_mean(per_sample_gan_loss(pf, False, mode, real_lbl), valid) \
-                * opt.lambda_G2_GAN
+            l_fake = masked_mean(per_sample_gan_loss(pf, False, mode, real_lbl), valid,
+                                 n_valid) * opt.lambda_G2_GAN
             l_more = 0.0
             if opt.use_more_fakeT:
-                l_more = torch.mean(per_sample_gan_loss(self.netD2(more_cond), False, mode,
-                                                        real_lbl)) * opt.lambda_G2_GAN
+                l_more = share(torch.mean(per_sample_gan_loss(self.netD2(more_cond), False,
+                                                              mode, real_lbl))) * opt.lambda_G2_GAN
             pred_real_T = self.netD2(real_cond)
             l_real = masked_mean(per_sample_gan_loss(pred_real_T, True, mode, real_lbl),
-                                 valid) * opt.lambda_G2_GAN
-            gp = self._penalty(self.netD2, real_cond, fake_cond, draws, "gp2")
+                                 valid, n_valid) * opt.lambda_G2_GAN
+            gp = share(self._penalty(self.netD2, real_cond, fake_cond, draws, "gp2"))
             self._update("D2", (l_fake + l_more + l_real + gp) * 0.5, lr_d2)
             pred_real_T = _detached(pred_real_T)
             losses.update(D_fake_T_concat=l_fake.detach(), D_more_fake_T=_detached(l_more),
@@ -480,13 +592,13 @@ class SinSKITModel:
         aux: Dict[str, torch.Tensor] = {}
         if opt.lambda_G1_GAN > 0:
             g_in = torch.cat([S_d, fake_I], -1) if opt.use_cGAN else fake_I
-            aux["G_GAN"] = torch.mean(gan_loss(self.netD(g_in, update_stats=False), True,
-                                               mode, real_lbl)) * opt.lambda_G1_GAN
+            aux["G_GAN"] = share(torch.mean(gan_loss(self.netD(g_in, update_stats=False), True,
+                                                     mode, real_lbl))) * opt.lambda_G1_GAN
         if opt.lambda_G1_L1 > 0:
             # I in G's output dtype (fp32 for a G whose convs stay fp32 under
             # bf16, VisGel), as the reference casts it
-            aux["G_L1"] = torch.mean(torch.abs(fake_I - I.to(fake_I.dtype)),
-                                     dtype=torch.float32) * opt.lambda_G1_L1
+            aux["G_L1"] = share(torch.mean(torch.abs(fake_I - I.to(fake_I.dtype)),
+                                           dtype=torch.float32)) * opt.lambda_G1_L1
         if opt.lambda_G1_lpips > 0:
             lp_x, lp_y = fake_I, I_d
             if self._crop_active(h, w):
@@ -496,45 +608,53 @@ class SinSKITModel:
                 oy, ox = (int(v) for v in draws["lpips_crop"])
                 lp_x = lp_x[:, oy:oy + min(c, h), ox:ox + min(c, w)]
                 lp_y = lp_y[:, oy:oy + min(c, h), ox:ox + min(c, w)]
-            aux["G_lpips"] = torch.mean(self.lpips_net(lp_x, lp_y, y_no_grad=True, dtype=cd)) \
-                * opt.lambda_G1_lpips
+            aux["G_lpips"] = share(torch.mean(self.lpips_net(lp_x, lp_y, y_no_grad=True,
+                                                             dtype=cd))) * opt.lambda_G1_lpips
         f_T_patch = gather_patches_from_coords(fake_T, coords, 32, mult)
         if opt.lambda_G2_L1 > 0:
             l1map = torch.abs(f_T_patch.float() - real_T) * valid[:, None, None, None]
             # per-image patch SUM, batch MEAN (reference .sum(1).mean())
-            aux["G2_L1"] = torch.sum(torch.mean(l1map, dim=(1, 2, 3))) * opt.lambda_G2_L1 / n
+            aux["G2_L1"] = torch.sum(torch.mean(l1map, dim=(1, 2, 3))) * opt.lambda_G2_L1 \
+                / n_all
         if opt.lambda_G2_lpips > 0:
             lp = self.lpips_net(torch.cat([f_T_patch[..., 0:1], f_T_patch[..., 1:2]], 0),
                                 torch.cat([real_T[..., 0:1], real_T[..., 1:2]], 0),
                                 y_no_grad=True, dtype=cd)
-            aux["G2_lpips"] = (masked_patch_sum(lp[:k], valid) / max(n, 1)
-                               + masked_patch_sum(lp[k:], valid) / max(n, 1)) \
+            aux["G2_lpips"] = (masked_patch_sum(lp[:k], valid) / max(n_all, 1)
+                               + masked_patch_sum(lp[k:], valid) / max(n_all, 1)) \
                 * opt.lambda_G2_lpips
         if opt.lambda_G2_GAN > 0 and "D2" in self.model_names:
             t_for_gan = f_T_patch if opt.g2_gan_backprop else f_T_patch.detach()
             with torch.set_grad_enabled(bool(opt.g2_gan_backprop)):
                 pf = self.netD2(d2_cond(t_for_gan, S_patch, fakeI_cond), update_stats=False)
                 vec = per_sample_gan_loss(pf, True, mode, real_lbl) * opt.lambda_G2_GAN
-                aux["G2_GAN"] = masked_patch_sum(vec, valid) / n
+                aux["G2_GAN"] = masked_patch_sum(vec, valid) / n_all
                 if opt.lambda_G2_GAN_feat > 0 and opt.netD2 == "multiscale" \
                         and pred_real_T is not None and isinstance(pf, (list, tuple)) \
                         and len(pf[0]) > 1:
-                    aux["G2_GAN_feat"] = feature_matching_loss(
-                        pf, pred_real_T, opt.n_layers_D, opt.num_D_D2) * opt.lambda_G2_GAN_feat
+                    aux["G2_GAN_feat"] = share(feature_matching_loss(
+                        pf, pred_real_T, opt.n_layers_D, opt.num_D_D2)) * opt.lambda_G2_GAN_feat
         if use_d3:
             lf = d3_logits(self.clip, self.d3_heads, fake_I)
-            aux["G_D3"] = sum(torch.mean(softplus(-l)) for l in lf) * opt.lambda_G1_GAN
+            aux["G_D3"] = share(sum(torch.mean(softplus(-l)) for l in lf)) * opt.lambda_G1_GAN
             # D3's D objective, logged only, from the same fake pass
             d3_d = 0.0
             for a, b in zip(d3_real_logits, lf):
                 d3_d = d3_d + torch.mean(softplus(-a)) + torch.mean(softplus(b.detach()))
-            losses["D3_loss"] = d3_d * 0.5 * opt.lambda_G1_GAN
+            losses["D3_loss"] = share(d3_d) * 0.5 * opt.lambda_G1_GAN
         total = 0.0
         for v in aux.values():
             total = total + v
         self._update("G", total, lr)
         losses.update({key: v.detach() for key, v in aux.items()})
         losses["G_total"] = total.detach()
+        if ranks > 1:
+            # the ranks' shares summed: the global batch's losses, one collective
+            names = sorted(losses)
+            vals = self.dp.sum_(torch.stack([torch.as_tensor(losses[key], dtype=torch.float32,
+                                                             device=self.device)
+                                             for key in names]))
+            losses = dict(zip(names, vals.unbind()))
         outputs = {"fake_I": fake_I_d, "fake_T": fake_T_d, "aug_real_I": aug_real_I,
                    "aug_fake_I": aug_fake_I}
         if "D" in self.model_names:

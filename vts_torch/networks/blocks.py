@@ -150,7 +150,16 @@ class BatchNorm(nn.Module):
     at N(1, 0.02).  ``affine=False`` is SPADE's param-free norm
     (``BatchNorm(use_scale=False, use_bias=False)``): the buffers and no
     parameters.  Without autograd the normalization runs in place on its
-    one temporary (SPADE's 1536² eval forward holds 4.8 GB tensors)."""
+    one temporary (SPADE's 1536² eval forward holds 4.8 GB tensors).
+
+    ``group``: a :class:`~vts_torch.parallel.dist.DataGroup` of more than
+    one rank makes a training-mode pass normalize with the global batch's
+    statistics, as the reference's GSPMD step does under ``--mesh data:N``:
+    (Σx, Σx², count) in fp32 summed over the ranks in one collective, with
+    its gradient, then mean = Σx/count and var = max(Σx²/count − mean², 0);
+    the running buffers take those, the same on every rank."""
+
+    group = None
 
     def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5, affine: bool = True):
         super().__init__()
@@ -172,14 +181,21 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if not self.training:
             mean, var = self.mean, self.var
+        elif self.group is not None and self.group.size > 1:
+            c = xf.shape[-1]
+            sums = self.group.all_reduce(torch.cat([
+                torch.sum(xf, dim=(0, 1, 2)), torch.sum(xf * xf, dim=(0, 1, 2)),
+                xf.new_full((1,), xf.numel() // c)]))
+            mean = sums[:c] / sums[c * 2]
+            var = torch.clamp_min(sums[c:c * 2] / sums[c * 2] - mean * mean, 0.0)
         else:
             mean = torch.mean(xf, dim=(0, 1, 2))
             var = torch.clamp_min(torch.mean(xf * xf, dim=(0, 1, 2)) - mean * mean, 0.0)
-            if update_stats:
-                m = self.momentum
-                with torch.no_grad():
-                    self.mean.copy_(m * self.mean + (1 - m) * mean)
-                    self.var.copy_(m * self.var + (1 - m) * var)
+        if self.training and update_stats:
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
         mul = torch.rsqrt(var + self.eps)
         if self.scale is not None:
             mul = mul * self.scale

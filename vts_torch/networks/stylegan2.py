@@ -33,7 +33,10 @@ The maps are not parameters and are not saved.
 
 The minibatch stddev groups ``min(n, 4)`` samples in the reference's
 group-major order (``h[:k].reshape(group, -1, …)``, then each group's value
-repeated ``group`` times), which is not the original StyleGAN2's; kept.  The
+repeated ``group`` times), which is not the original StyleGAN2's; kept.  A
+D's ``group`` (a :class:`~vts_torch.parallel.dist.DataGroup` of more than
+one rank, ``--mesh data:N``) takes it over the global batch: every rank's
+features gathered, with their gradient, and this rank's rows kept.  The
 nets compute in fp32 whatever the compute dtype (the reference's take none)
 and hold no batch statistics.  Submodules and parameters carry the flax
 names (``ConvLayer_0``, ``ResBlock_3.ConvLayer_1.EqualConv_0``,
@@ -275,6 +278,16 @@ def _reset(net: nn.Module, gen: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
 
 
+def _minibatch_stddev(h: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C) features → (N, 1, 1, 1): the reference's grouped stddev."""
+    n = h.shape[0]
+    group = min(n, 4)
+    g = h[: (n // group) * group].reshape(group, -1, *h.shape[1:])
+    std = torch.sqrt(torch.var(g, dim=0, unbiased=False) + 1e-8)
+    mean_std = torch.mean(std, dim=(1, 2, 3), keepdim=True)
+    return torch.repeat_interleave(mean_std, group, dim=0)[:n]
+
+
 class _Numbered(nn.Module):
     def _add(self, kind: str, module: nn.Module) -> str:
         counts = self.__dict__.setdefault("_counts", {})
@@ -336,6 +349,8 @@ class StyleGAN2Discriminator(_Numbered):
     """Blur-downsampling D with minibatch stddev; ``input_size`` (H, W) is the
     size of the images it takes (the flattened head's width follows it)."""
 
+    group = None
+
     def __init__(self, in_nc: int, ndf: int = 64, tile: bool = False, crop_size: int = 256,
                  input_size: Tuple[int, int] = (256, 256)):
         super().__init__()
@@ -372,11 +387,11 @@ class StyleGAN2Discriminator(_Numbered):
         for name in self.layers:
             h = getattr(self, name)(h)
         n = h.shape[0]
-        group = min(n, 4)
-        g = h[: (n // group) * group].reshape(group, -1, *h.shape[1:])
-        std = torch.sqrt(torch.var(g, dim=0, unbiased=False) + 1e-8)
-        mean_std = torch.mean(std, dim=(1, 2, 3), keepdim=True)
-        mean_std = torch.repeat_interleave(mean_std, group, dim=0)[:n]
+        if self.group is not None and self.group.size > 1:
+            # the global batch's statistic, this rank's rows of it
+            mean_std = self.group.rows(_minibatch_stddev(self.group.gather_rows(h)))
+        else:
+            mean_std = _minibatch_stddev(h)
         h = torch.cat([h, mean_std.expand(n, h.shape[1], h.shape[2], 1)], dim=-1)
         h = getattr(self, self.final)(h).reshape(n, -1)
         for name in self.fc:

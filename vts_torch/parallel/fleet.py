@@ -1,5 +1,6 @@
 """The garment fleet (``vts_tpu/parallel/fleet.py``): G independent garments
-trained in one process on one card.
+trained in one process on one card; over several cards, one such process
+(a rank) per card, each on its block of the garments (:mod:`vts_torch.launch`).
 
 The reference stacks the garments' states on a leading axis and ``vmap``s
 its fused step over it.  Here each garment has a slot (:class:`GarmentSlot`:
@@ -23,7 +24,9 @@ fake T" offsets, the LPIPS crop, WGAN-GP's weights) come from its own
 ``torch.Generator`` seeded with ``--seed`` + g; with the default ``--seed``
 0, garment g's run is then the single run with ``--seed g``, draws included.
 ``step(..., draws=[...])`` injects them instead, as the single step's
-``optimize_parameters(draws=...)`` does.
+``optimize_parameters(draws=...)`` does.  A trainer of a block of garments
+(``first``: the block's first garment) seeds each by its place in the whole
+fleet, so a garment's run is the same on whichever rank it sits.
 
 The state functions work on the port's state dicts (flat name → tensor):
 :func:`stack_states` stacks G of them leaf-wise on a new axis 0, as the
@@ -37,6 +40,8 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import torch
+
+from ..platform import over_ranks, world
 
 NETS = ("G", "D", "D2")
 
@@ -79,18 +84,21 @@ class GarmentSlot:
 class FleetTrainer:
     """G garments' slots around one model; see the module docstring."""
 
-    def __init__(self, model, num_garments: int):
+    def __init__(self, model, num_garments: int, first: int = 0):
         self.model = model
         self.num_garments = num_garments
+        self.first = first
         self.slots: List[GarmentSlot] = []
         self.losses: List[Dict[str, torch.Tensor]] = []
 
     def init_states(self, seeds: Optional[List[int]] = None) -> List[GarmentSlot]:
         """The model's ``setup`` once (its frozen towers), then one slot per
-        seed (default 0 … G − 1): the model's networks copied and initialized
-        from that seed in place, with fresh Adam moments."""
+        seed (default the garments' places in the fleet, ``first`` … ``first``
+        + G − 1): the model's networks copied and initialized from that seed
+        in place, with fresh Adam moments."""
         model = self.model
-        seeds = list(range(self.num_garments)) if seeds is None else list(seeds)
+        seeds = list(range(self.first, self.first + self.num_garments)) if seeds is None \
+            else list(seeds)
         if len(seeds) != self.num_garments:
             raise ValueError(f"{len(seeds)} seeds for {self.num_garments} garments")
         model.setup()
@@ -102,7 +110,7 @@ class FleetTrainer:
             model.init_nets(seed)
             self.slots.append(GarmentSlot(
                 nets={name: getattr(model, f"net{name}") for name in NETS}, adam=model.adam,
-                generator=torch.Generator().manual_seed(int(model.opt.seed) + g)))
+                generator=torch.Generator().manual_seed(int(model.opt.seed) + self.first + g)))
         self.select(0)
         return self.slots
 
@@ -136,13 +144,20 @@ class FleetTrainer:
             self.losses.append(dict(model._losses))
         return self.losses
 
-    def mean_losses(self) -> Dict[str, float]:
+    def mean_losses(self, total: Optional[int] = None) -> Dict[str, float]:
         """The last step's losses, each averaged over the garments (one
-        device-to-host copy)."""
+        device-to-host copy).  On ranks, each holding its block of a fleet
+        of ``total``: over every rank's garments, each rank's block put in
+        a zero (total, losses) table that one sum over the ranks fills."""
         names = sorted(self.losses[0])
         dev = self.model.device
-        vals = torch.stack([torch.stack([torch.as_tensor(l[k], dtype=torch.float32, device=dev)
-                                         for l in self.losses]).mean() for k in names]).cpu()
+        table = torch.stack([torch.stack([torch.as_tensor(l[k], dtype=torch.float32, device=dev)
+                                          for k in names]) for l in self.losses])
+        if world() is not None:
+            full = table.new_zeros((total, len(names)))
+            full[self.first:self.first + self.num_garments] = table
+            table = over_ranks(full)
+        vals = table.mean(0).cpu()
         return {k: float(v) for k, v in zip(names, vals)}
 
     def save(self, g: int, ckpt_dir: str, tag: str = "latest") -> None:

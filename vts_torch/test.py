@@ -15,7 +15,10 @@ dataset), the mean of each metric over each material's samples goes to
 printed line per material.  An edited sketch (no visual image, no touch
 records) has no metrics: its gallery and raw tactile field are written and
 ``eval_metrics.pkl`` holds ``{}``, as in the reference.  On CUDA the run
-turns TF32 off (cuDNN convs and matmuls in full fp32).
+turns TF32 off (cuDNN convs and matmuls in full fp32).  With
+``--multihost`` the process joins its ranks first (as the reference's test
+driver runs ``apply_platform``): every process tests the whole set, and
+only rank 0 writes.
 
 Run:  python -m vts_torch.test --model sinskit|skit --epoch best \\
           --dataroot synthetic://smoke?size=1800 [--device cuda|cpu]
@@ -34,6 +37,7 @@ from .config import TestOptions
 from .data import create_dataset
 from .device import describe, resolve_device
 from .models import create_model
+from .platform import init_multihost, is_lead, leave
 from .utils.html import HTML
 from .utils.visualizer import save_images
 
@@ -77,6 +81,8 @@ def test(argv=None, opt=None) -> List[Dict[str, float]]:
     opt.serial_batches = True
     opt.no_flip = True
     opt.display_id = 0
+    joined = init_multihost(opt)
+    lead = is_lead()
     device = resolve_device(opt.device)
     print(f"[device] {opt.name} tests on {describe(device)}", flush=True)
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
@@ -87,7 +93,7 @@ def test(argv=None, opt=None) -> List[Dict[str, float]]:
         model = create_model(opt)
         web_dir = os.path.join(opt.results_dir, opt.name, f"{opt.phase}_{opt.epoch}")
         webpage = HTML(web_dir, f"Experiment = {opt.name}, Phase = {opt.phase}, "
-                                f"Epoch = {opt.epoch}")
+                                f"Epoch = {opt.epoch}") if lead else None
         all_metrics: List[Dict[str, float]] = []
         sample_material: List[int] = []
         for i, data in enumerate(dataset):
@@ -99,31 +105,37 @@ def test(argv=None, opt=None) -> List[Dict[str, float]]:
             model.set_input(data)
             model.test()
             metrics = model.compute_metrics(phase="test")
-            save_metrics(web_dir, metrics, index=i)
+            if lead:
+                save_metrics(web_dir, metrics, index=i)
             all_metrics.append(metrics)
             mat = data.get("material_index")
             sample_material.append(-1 if mat is None else int(np.asarray(mat).reshape(-1)[0]))
             visuals = model.get_current_visuals()
             name = getattr(dataset.dataset, "name", f"sample_{i}")
-            save_images(webpage, visuals, f"{name}_{i}.png", width=opt.display_winsize,
-                        patch_coords=np.asarray(data.get("full_T_coords",
-                                                         np.zeros((1, 0, 4))))[0],
-                        image_height=visuals["real_S"].shape[1],
-                        save_raw_arr_vis=opt.save_raw_arr_vis)
+            if lead:
+                save_images(webpage, visuals, f"{name}_{i}.png", width=opt.display_winsize,
+                            patch_coords=np.asarray(data.get("full_T_coords",
+                                                             np.zeros((1, 0, 4))))[0],
+                            image_height=visuals["real_S"].shape[1],
+                            save_raw_arr_vis=opt.save_raw_arr_vis)
             print(f"processed sample {i}: " +
                   " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
         if all_metrics:
             means = mean_metrics(all_metrics)
-            save_metrics(web_dir, means)
+            if lead:
+                save_metrics(web_dir, means)
             print("mean metrics: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())))
-        if any(m >= 0 for m in sample_material):
+        if lead and any(m >= 0 for m in sample_material):
             save_per_material(web_dir, all_metrics, sample_material,
                               getattr(dataset.dataset, "materials", []))
-        webpage.save()
+        if lead:
+            webpage.save()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        if joined:
+            leave()
     return all_metrics
 
 

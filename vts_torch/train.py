@@ -22,6 +22,18 @@ loggers (``plot_epoch_time``); with ``--display_id`` > 0 the live dashboard
 serves the run on 127.0.0.1 until training ends.  On CUDA the run turns
 TF32 off (cuDNN convs and matmuls in full fp32).
 
+``--mesh`` with a ``data`` axis of N > 1 (sinskit and skit; the baselines
+run their single-device step, as the reference's) starts N ranks on this
+machine (:func:`vts_torch.platform.spawn_ranks`): on the first N cards of
+the layout, or on the CPU N processes, after the whole spec is checked
+against the visible devices (a core each on the CPU); with
+``--multihost`` the processes are the ranks.  Each rank trains its block
+of every batch (:class:`~vts_torch.models.sinskit.SinSKITModel`).  Only
+rank 0 writes (``loss_log.txt``, the gallery, the dashboard,
+checkpoints) and validates; what validation decides (the best vote, the
+plateau's lr) it sends to the others.  Every rank computes the gallery's
+visuals, which run the global batch norms.
+
 Run:  python -m vts_torch.train --model sinskit --dataroot synthetic://demo \\
           --data_len 3 [--device cuda|cpu] ...
 """
@@ -37,8 +49,11 @@ import torch
 from .config import TrainOptions
 from .data import create_dataset
 from .device import describe, resolve_device
-from .models import create_model
+from .models import MODELS, create_model
 from .models.base import PlateauTracker
+from .models.sinskit import data_axis
+from .parallel.mesh import mesh_for_flag, visible_devices
+from .platform import agree, init_multihost, is_lead, leave, spawn_ranks, world
 from .utils.visualizer import Visualizer
 
 LOWER_BETTER = ("LPIPS", "AE", "MSE", "SIFID")
@@ -107,29 +122,71 @@ def apply_anneal(opt, spec: str) -> Dict[str, object]:
     return changed
 
 
+def rank_devices(opt):
+    """The devices of the data ranks this run starts, or None: ``--mesh``
+    with a ``data`` axis of N > 1 on a data-parallel model, outside ranks.
+    The whole spec is checked first against the visible devices, or under
+    ``--multihost`` against the ranks' (the reference's ``build_mesh``),
+    then the data axis (:func:`data_axis`)."""
+    if not opt.mesh or not MODELS[opt.model.lower()].data_parallel:
+        return None
+    ranks = world()
+    layout = mesh_for_flag(opt.mesh, ranks.devices if ranks is not None
+                           else visible_devices(resolve_device(opt.device).type))
+    if ranks is not None or data_axis(opt) <= 1:
+        return None
+    flat = layout.devices.reshape(-1)
+    return [flat[i] for i in layout.data_groups()[0]]
+
+
+def _rank_train(opt):
+    return _train_here(opt).get_current_losses()
+
+
 def train(argv=None, opt=None):
+    """Train; returns the model, or under ``--mesh data:N`` each rank's last
+    losses (:meth:`get_current_losses`), in rank order."""
     if opt is None:
         opt = TrainOptions().parse(argv)
+    joined = init_multihost(opt)
+    try:
+        devices = rank_devices(opt)
+        if devices is None:
+            return _train_here(opt)
+        # the CPU's threads shared out among its ranks
+        threads = max(1, torch.get_num_threads() // len(devices)) \
+            if devices[0].type == "cpu" else None
+        return spawn_ranks(_rank_train, (opt,), devices, threads=threads)
+    finally:
+        if joined:
+            leave()
+
+
+def _train_here(opt):
     device = resolve_device(opt.device)
     print(f"[device] {opt.name} trains on {describe(device)}", flush=True)
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    visualizer = Visualizer(opt)
+    visualizer = Visualizer(opt) if is_lead() else None
     try:
         return _train(opt, device, visualizer)
     finally:
-        visualizer.close()
+        if visualizer is not None:
+            visualizer.close()
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def _train(opt, device, visualizer):
+    lead = visualizer is not None          # rank 0, or the only process: it writes
     anneal_pending = bool(opt.anneal_epoch) and bool(opt.anneal_set)
     if anneal_pending:
         if opt.step_mode == "split":
             raise NotImplementedError("--anneal_epoch is implemented for the fused step only "
                                       "(as in the reference)")
-        apply_anneal(copy.copy(opt), opt.anneal_set)      # a bad spec fails before training
+        annealed = copy.copy(opt)
+        apply_anneal(annealed, opt.anneal_set)    # a bad spec fails before training,
+        data_axis(annealed)                       # and a batch the data ranks do not divide
     dataset = create_dataset(opt)
     print(f"The number of training images = {len(dataset.dataset)}")
     model = create_model(opt)
@@ -164,18 +221,20 @@ def _train(opt, device, visualizer):
             model.set_input(data)
             model.optimize_parameters(epoch)
             t_comp = (time.time() - t_comp_mark) / opt.batch_size
-            if total_iters % opt.print_freq == 0 or i == 0:
+            if lead and (total_iters % opt.print_freq == 0 or i == 0):
                 visualizer.print_current_losses(epoch, total_iters, model.get_current_losses(),
                                                 t_comp, t_data)
             if total_iters % opt.display_freq == 0 and not opt.no_html:
-                visualizer.display_current_results(model.get_current_visuals(), epoch)
-            if total_iters % opt.save_latest_freq == 0:
+                visuals = model.get_current_visuals()
+                if lead:
+                    visualizer.display_current_results(visuals, epoch)
+            if lead and total_iters % opt.save_latest_freq == 0:
                 print(f"saving the latest model (epoch {epoch}, total_iters {total_iters})")
                 model.save_networks("latest")
             t_data_mark = time.time()
 
-        if opt.val_for_each_epoch and (eval_batch is not None
-                                       or getattr(opt, "return_patch", False)):
+        if lead and opt.val_for_each_epoch and (eval_batch is not None
+                                                or getattr(opt, "return_patch", False)):
             if getattr(opt, "return_patch", False):
                 # a model trained on patches validates on the full view
                 if val_loader is None:
@@ -202,16 +261,20 @@ def _train(opt, device, visualizer):
                 lower = [v for k, v in metrics.items() if not k.startswith("metric_train_")
                          and any(t in k for t in LOWER_BETTER)]
                 model.lr_override = plateau.update(float(sum(lower)))
+        # the plateau's lr, as rank 0 decided it
+        model.lr_override = agree([model.lr_override])[0]
 
-        if epoch % opt.save_epoch_freq == 0:
-            print(f"saving the model at the end of epoch {epoch}, iters {total_iters}")
+        if lead:
+            if epoch % opt.save_epoch_freq == 0:
+                print(f"saving the model at the end of epoch {epoch}, iters {total_iters}")
+                model.save_networks("latest")
+                model.save_networks(str(epoch))
             model.save_networks("latest")
-            model.save_networks(str(epoch))
-        model.save_networks("latest")
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         epoch_time = time.time() - epoch_start
-        visualizer.plot_epoch_time(epoch, epoch_time)
+        if lead:
+            visualizer.plot_epoch_time(epoch, epoch_time)
         print(f"End of epoch {epoch} / {opt.n_epochs + opt.n_epochs_decay} \t "
               f"Time Taken: {epoch_time:.0f} sec")
         model.update_learning_rate(epoch)
