@@ -105,11 +105,13 @@ Phases, each of which must pass or the script exits non-zero:
      twins (sketch and mask mirrored, no visual image, no touch records);
      ``vts_torch.launch ours launch --mode process`` trains both at once on
      the card at the full-width defaults, cut in length only (1 epoch of 2
-     samples, D3 off); ``launch ours test`` (8 finite
-     metrics each), ``launch ours_edit test`` on the edited sketches (the
+     samples, D3 off); the launcher's ``ours test`` commands (8 finite
+     metrics each) and ``ours_edit test`` commands on the edited sketches,
+     each as ``vts_torch.launch.garment_command`` builds it, run in this
+     process (the
      gallery and the raw touch map at the canvas size, ``{}`` metrics, no
      per-material roll-up; fake_I moved by the edit beyond run-to-run
-     noise); every child reports running on cuda; the metric roll-up with
+     noise); every training child reports running on cuda; the roll-up with
      its MEAN row, ``launch ours compare``, the postprocess of each raw touch
      map in all five modes (1280×800 maps in [0, 1]; which CLAHE branch
      ran); a short 256² training run with ``--display_id 1 --display_port 0``
@@ -273,7 +275,30 @@ Phases, each of which must pass or the script exits non-zero:
      the ranks the same on both; (c) with two cards or more, over NCCL:
      ``vts_torch.train --mesh data:2`` (two ``[dist]`` lines naming nccl)
      and ``vts_torch.launch ours launch`` on two garments, one a card;
-     with one, ``[dist] nccl: 1 card visible, not run``;
+     with one, ``[dist] nccl: 1 card visible, not run``.  Remat is off
+     there (``DP_TRAIN``), as it was before phase 4n;
+ 4n. the run-time pipeline (:func:`pipeline_phase`): (a) the D3-active
+     Train configuration at ``data_len`` 1 with ``--steps_per_dispatch 2
+     --lpips_tap_cache true --d3_logit_cache true --cache_data_device
+     --device_sample_cache true --num_threads 4 --cache_dir <tmp>``, two
+     chunks of 2 steps (``optimize_parameters_chunk`` on batches through the
+     loader's device cache), against 4 plain steps from the same seed under
+     cuDNN's deterministic algorithms: losses, networks and Adam moments bit
+     for bit (where they are not, each network within 1e-4 of its move in
+     the 2-norm and the losses within rtol 1e-4); the first chunk launches
+     the tap cache's fill (3 K1 at the canvas LPIPS's y shapes) and two
+     steps of ``TAP_STEP`` (9 K1, 6 K1 dx, 3 K2, 1 K2 bwd), the second two
+     steps; no host sync inside the second chunk
+     (``torch.cuda.set_sync_debug_mode``; the first makes the model's
+     one-time uploads, printed);
+     each cache holds its one entry; (b) the anneal's second configuration
+     (bf16, batch 2, the full canvas, D3 active) with ``--remat_g`` and
+     ``--lpips_remat`` off/off, on/off and on/on: the first step bit for bit
+     the same in each, K1 3 launches more under ``--lpips_remat on`` (the
+     recomputed x branch), the wall of 3 more steps and their peak memory;
+     (c) the loader's per-batch wait over 4 samples of the Train
+     configuration at 0 and 4 threads, with no disk cache and with a cold
+     and a warm one;
   5. times (CUDA events, warm-up, median of >= 10 runs): each kernel and its
      plain version and library call at each path shape, the bound from the
      shapes (K1 and K1 dx against the TF32 tensor cores at three passes,
@@ -913,9 +938,9 @@ def edit_render_workflow(tmp, device, size=PADDED, query="", flags=(), train_fla
     two on-disk garments (synthA, synthB: S, I, M, touch records) and their
     edited twins (the sketch and mask mirrored, nothing else) written from
     the synthetic garment; ``launch ours launch --mode process`` (both
-    garments at once on the device), each again alone; ``launch ours test``
-    (8 finite metrics each); ``launch ours_edit test`` on the edited
-    sketches (a gallery and the raw touch map at the canvas size, ``{}``
+    garments at once on the device); the launcher's ``ours test`` commands
+    (8 finite metrics each) and ``ours_edit test`` commands on the edited
+    sketches, run in this process (a gallery and the raw touch map at the canvas size, ``{}``
     metrics, no per-material roll-up; fake_I moved by the edit beyond
     run-to-run noise); the metric roll-up with its MEAN row; ``launch ours
     compare``; ``postprocess`` on each raw touch map in every mode; a short
@@ -963,7 +988,25 @@ def edit_render_workflow(tmp, device, size=PADDED, query="", flags=(), train_fla
     for name in names:
         check(os.path.exists(os.path.join(ckpt, name, "best_net_G.msgpack")),
               f"{name}: no best_net_G.msgpack")
-    launch("test", "ours", mats, "test.log")
+    def launched_tests(method, res_dir, edit=False):
+        """The launcher's test children, run in this process: each garment's
+        command as ``vts_torch.launch`` builds it, through vts_torch.test
+        (two child processes cost 20-26 s more, in process start and set-up)."""
+        import types
+
+        from vts_torch.launch import garment_command
+        from vts_torch.test import test as run_test
+        args = types.SimpleNamespace(phase="test", epoch="best", extra=list(flags),
+                                     dataroot_template=root("{material}", edit),
+                                     checkpoints_dir=ckpt, results_dir=res_dir)
+        t0 = time.perf_counter()
+        for m in EDIT_MATERIALS:
+            cmd = garment_command(method, m, args)
+            check(cmd[1:3] == ["-m", "vts_torch.test"], f"the launcher's test child: {cmd}")
+            run_test(cmd[3:])
+        print(f"[workflow] {method} test, the launcher's {len(EDIT_MATERIALS)} commands in "
+              f"process: {time.perf_counter() - t0:.1f} s")
+    launched_tests("ours", res)
     for name in names:
         with open(os.path.join(res, name, "test_best", "eval_metrics.pkl"), "rb") as f:
             metrics = pickle.load(f)
@@ -971,7 +1014,7 @@ def edit_render_workflow(tmp, device, size=PADDED, query="", flags=(), train_fla
                                                     for k, v in sorted(metrics.items())))
         check(len(metrics) == 8 and all(math.isfinite(v) for v in metrics.values()),
               f"{name}: expected 8 finite metrics, got {metrics}")
-    launch("test", "ours_edit", mats, "test_edit.log", res=res_edit, edit=True)
+    launched_tests("ours_edit", res_edit, edit=True)
     topt = TestOptions().parse(["--name", names[0], "--epoch", "best", "--dataroot",
                                 root("synthA"), "--checkpoints_dir", ckpt, "--results_dir", res,
                                 *flags], quiet=True)
@@ -2724,9 +2767,12 @@ def cut_phase(tmp):
 # ------------------------------------------------------------------ 4m ---
 # several ranks: one data-parallel step over two ranks against the serial
 # step, and the fleet over ranks; on one card, two ranks share it over gloo
+# remat off as before remat was ported: its default, on at batch 2, is phase
+# 4n's and would add the canvas LPIPS's recomputed K1 launches to the ranks'
 DP_TRAIN = ["--model", "sinskit", "--name", "dp", "--device", "cuda",
             "--dataroot", f"synthetic://smoke?size={PADDED}", "--batch_size", "2",
-            "--data_len", "2", "--vision_aided_warmup_epoch", "1", "--no_html"]
+            "--data_len", "2", "--vision_aided_warmup_epoch", "1", "--no_html",
+            "--remat_g", "off", "--lpips_remat", "off"]
 DP_TIMED = 3
 FLEET_FULL = ["--model", "sinskit", "--name", "fleet_full", "--device", "cuda", "--data_len", "1",
               "--vision_aided_warmup_epoch", "1", "--no_html"]
@@ -2962,6 +3008,251 @@ def several_ranks(dirs, train_shapes, fleet, smi, devices=("cuda:0", "cuda:0")):
               FLEET_TEMPLATE, "--checkpoints_dir", dirs[1], "--results_dir", dirs[3], "--",
               "--data_len", "1", "--n_epochs", "1", "--n_epochs_decay", "0"],
              os.path.join(dirs[1], "fleet_nccl.log"), "cuda", 2)
+    return out
+
+
+# ------------------------------------------------------------------ 4n ---
+# The run-time pipeline: the Train configuration with D3 active at data_len 1
+# (the tap cache's case: every step has the one sample), chunked, with every
+# cache on, against plain steps from the same seed; the anneal's second
+# configuration (bf16, batch 2, the full canvas) with and without remat; the
+# loader's data time.
+PIPE_TRAIN = ["--model", "sinskit", "--name", "pipe", "--device", "cuda",
+              "--dataroot", f"synthetic://smoke?size={PADDED}", "--data_len", "1",
+              "--vision_aided_warmup_epoch", "1", "--no_html"]
+PIPE_FLAGS = ["--steps_per_dispatch", "2", "--lpips_tap_cache", "true",
+              "--d3_logit_cache", "true", "--cache_data_device", "--device_sample_cache",
+              "true", "--num_threads", "4"]
+# the canvas LPIPS's y branch: the K1 launches the tap cache takes out of the
+# step, made once when it fills, at the first three K1_TRAIN rows' shapes
+TAP_FILL = [r[:5] for r in K1_TRAIN[:3]]
+TAP_STEP = dict(PER_STEP, conv3x3_bias_relu=PER_STEP["conv3x3_bias_relu"] - len(TAP_FILL))
+# scripts/r5_anneal.sh's arm after its anneal (LANE_ARGS with LANE_ANNEAL
+# applied), D3 active: bf16, batch 2, the full canvas
+REMAT_TRAIN = ["--model", "sinskit", "--name", "remat", "--device", "cuda",
+               "--dataroot", f"synthetic://smoke?size={PADDED}", "--data_len", "2",
+               "--vision_aided_warmup_epoch", "1", "--no_html", "--dtype", "bfloat16",
+               "--batch_size", "2", "--lpips_crop", "0"]
+REMAT_ARMS = (("off", "off"), ("on", "off"), ("on", "on"))
+REMAT_TIMED = 3
+
+
+def stacked_chunk(model, loader, k, epoch):
+    """k batches of the loader through ``set_input``, stacked on a step axis as
+    the training driver stacks a chunk; their sample keys."""
+    inputs, keys = [], []
+    for i in range(k):
+        loader.set_epoch(epoch + i)
+        model.set_input(next(iter(loader)))
+        inputs.append(model._input)
+        keys.append(model._sample_key)
+    return {key: torch.stack([x[key] for x in inputs]) for key in inputs[0]}, keys
+
+
+def loader_waits(opt, passes=1):
+    """The wall (ms) of each ``next()`` of a fresh loader over its epoch, with
+    nothing done between batches, for ``passes`` epochs."""
+    from vts_torch.data import create_dataset
+    loader = create_dataset(opt)
+    waits = []
+    for p in range(passes):
+        loader.set_epoch(p + 1)
+        it = iter(loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                next(it)
+            except StopIteration:
+                break
+            waits.append((time.perf_counter() - t0) * 1e3)
+    return waits
+
+
+def pipeline_phase(tmp, dirs, smi):
+    """Phase 4n: (a) the chunked, cached Train steps against plain ones, bit
+    for bit, with the kernels' launches per chunk and no host sync inside;
+    (b) remat on and off at the anneal's second configuration, peak memory
+    and wall; (c) the loader's data time."""
+    import functools
+    import warnings
+
+    import vts_torch.models.sinskit as sinskit
+    from vts_torch.config import TrainOptions
+    from vts_torch.data import create_dataset
+    from vts_torch.models import create_model
+
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    real_clip = sinskit.init_clip_params
+    sinskit.init_clip_params = functools.lru_cache(real_clip)
+    try:
+        # (a) 4 plain steps, then 2 chunks of 2 with every cache on
+        opt = TrainOptions().parse(PIPE_TRAIN + dirs, quiet=True)
+        plain = create_model(opt)
+        plain.setup()
+        init = {f"{n}.{k}": v.detach().clone() for n, net in plain.nets().items()
+                for k, v in net.state_dict().items()}
+        batch = next(iter(create_dataset(opt)))
+        walls = []
+        for _ in range(4):
+            plain.set_input(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain.optimize_parameters(1)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        want = step_record(plain)
+        del plain
+        popt = TrainOptions().parse(PIPE_TRAIN + PIPE_FLAGS + dirs + [
+            "--cache_dir", os.path.join(tmp, "pipe_cache")], quiet=True)
+        loader = create_dataset(popt)
+        model = create_model(popt)
+        model.setup()
+        launches, chunk_walls, syncs, fill_shapes = [], [], [], None
+        for c in range(2):
+            stacked, keys = stacked_chunk(model, loader, int(popt.steps_per_dispatch), 1 + 2 * c)
+            torch.cuda.synchronize()
+            reset_counts()
+            with warnings.catch_warnings(record=True) as seen, RecordShapes() as rec:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    model.optimize_parameters_chunk(stacked, 1, sample_keys=keys)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                chunk_walls.append((time.perf_counter() - t0) * 1e3)
+            launches.append(read_counts())
+            syncs.append([f"{os.path.basename(w.filename)}:{w.lineno}" for w in seen
+                          if "synchroniz" in str(w.message)])
+            if c == 0:
+                fill_shapes = rec.k1[:len(TAP_FILL)]
+        got = step_record(model)
+        caches = {"tap (hits, misses)": model._tap_cache_stats,
+                  "d3 logits": len(model._d3_real_cache),
+                  "model samples": len(model._sample_dev_cache),
+                  "loader samples": len(loader.dev_cache),
+                  "disk": sorted(os.listdir(loader.dataset.cache_dir))}
+        del model, loader
+    finally:
+        sinskit.init_clip_params = real_clip
+        torch.backends.cudnn.deterministic = det
+    torch.cuda.empty_cache()
+    fill = {k: 0 for k in KERNELS}
+    fill["conv3x3_bias_relu"] = len(TAP_FILL)
+    want_launches = [{k: 2 * TAP_STEP[k] + fill[k] for k in KERNELS},
+                     {k: 2 * TAP_STEP[k] for k in KERNELS}]
+    print(f"[pipeline] {smi}: 2 chunks of 2 D3-active {CANVAS}² steps (data_len 1, "
+          f"{' '.join(PIPE_FLAGS)}): launches {launches[0]} (the tap fill's "
+          f"{len(TAP_FILL)} K1 at {fill_shapes} and 2 steps of {TAP_STEP}), then {launches[1]}; "
+          f"a plain step launches {PER_STEP}; caches {caches}")
+    check(launches == want_launches, f"the chunks launched {launches}, not {want_launches}")
+    check(fill_shapes == TAP_FILL, f"the tap fill ran K1 at {fill_shapes}")
+    check(caches["tap (hits, misses)"] == (1, 1) and caches["d3 logits"] == 1
+          and caches["model samples"] == 1 and caches["loader samples"] == 1
+          and caches["disk"] == ["sample_00000.npz"], f"the caches hold {caches}")
+    # the model's first chunk makes its one-time uploads (the positional
+    # encoding, built once per shape and kept on the card, and the like)
+    print(f"[pipeline] host syncs inside the chunks (torch.cuda.set_sync_debug_mode): "
+          f"{[len(s) for s in syncs]}; the first chunk's, the model's first step's one-time "
+          f"uploads: {syncs[0]}")
+    check(not syncs[1], f"the second chunk synchronized with the card at {syncs[1]}")
+    same = want["losses"] == got["losses"] and all(
+        torch.equal(want["state"][k], got["state"][k]) for k in want["state"]) and all(
+        torch.equal(want["mu"][n][k], got["mu"][n][k]) for n in want["mu"] for k in want["mu"][n])
+    print(f"[pipeline] the chunked, cached steps against 4 plain steps from the same seed under "
+          f"cuDNN's deterministic algorithms: losses, networks and Adam moments bit for bit "
+          f"{same}")
+    if not same:
+        # the rule where the kernels that ran differ: each network's parameters
+        # within 1e-4 of its move over the 4 steps in the 2-norm, losses rtol 1e-4
+        for net in ("G", "D", "D2"):
+            keys = [k for k in want["state"] if k.startswith(f"{net}.")]
+            move = math.sqrt(sum(((want["state"][k] - init[k].cpu()).double() ** 2).sum().item()
+                                 for k in keys))
+            diff = math.sqrt(sum(((got["state"][k] - want["state"][k]).double() ** 2).sum().item()
+                                 for k in keys))
+            print(f"[pipeline] {net}: |chunked - plain| / |plain's move| = {diff / move:.3e}")
+            check(diff <= 1e-4 * move, f"{net}: the chunked steps left the plain ones")
+        for k, v in want["losses"].items():
+            check(abs(got["losses"][k] - v) <= 1e-4 * abs(v) + 1e-7, f"loss {k} differs")
+    out["plain_ms"], out["chunk_ms"] = walls, chunk_walls
+    print(f"[time pipeline] {smi}: plain D3-active steps {', '.join(f'{w:.1f}' for w in walls)} "
+          f"ms; chunks of 2 (the first with the tap and logit fills) "
+          f"{', '.join(f'{w:.1f}' for w in chunk_walls)} ms")
+
+    # (b) remat at the anneal's second configuration
+    rows = {}
+    sinskit.init_clip_params = functools.lru_cache(real_clip)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat_g, lpips_remat in REMAT_ARMS:
+            ropt = TrainOptions().parse(REMAT_TRAIN + dirs + [
+                "--remat_g", remat_g, "--lpips_remat", lpips_remat], quiet=True)
+            m = create_model(ropt)
+            m.setup()
+            if not rows:
+                rbatch = next(iter(create_dataset(ropt)))
+                rdraws = m.draw(2)
+            m.set_input(rbatch)
+            reset_counts()
+            m.optimize_parameters(1, draws=rdraws)
+            torch.cuda.synchronize()
+            first = step_record(m)
+            counts = read_counts()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            rwalls = []
+            for _ in range(REMAT_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m.optimize_parameters(1, draws=rdraws)
+                torch.cuda.synchronize()
+                rwalls.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            rows[(remat_g, lpips_remat)] = dict(first=first, counts=counts, walls=rwalls,
+                                                peak=peak, base=base)
+            del m
+            torch.cuda.empty_cache()
+    finally:
+        sinskit.init_clip_params = real_clip
+        torch.backends.cudnn.deterministic = det
+    ref = rows[REMAT_ARMS[0]]
+    for arm, r in rows.items():
+        same = r["first"]["losses"] == ref["first"]["losses"] and all(
+            torch.equal(r["first"]["state"][k], ref["first"]["state"][k])
+            for k in ref["first"]["state"])
+        print(f"[time remat] {smi}: --remat_g {arm[0]} --lpips_remat {arm[1]}, bf16 batch 2 "
+              f"{CANVAS}² D3-active step: median {statistics.median(r['walls']):.1f} ms "
+              f"({', '.join(f'{w:.1f}' for w in r['walls'])}), peak "
+              f"{r['peak'] / 2 ** 30:.3f} GiB ({(r['peak'] - r['base']) / 2 ** 30:.3f} above the "
+              f"{r['base'] / 2 ** 30:.3f} held between steps); launches {r['counts']}; the "
+              f"first step bit for bit the no-remat one's: {same}")
+        check(same, f"remat {arm} changed the step")
+        extra_k1 = len(TAP_FILL) if arm[1] == "on" else 0
+        check(r["counts"]["conv3x3_bias_relu"] == ref["counts"]["conv3x3_bias_relu"] + extra_k1
+              and r["counts"]["conv3x3_dx"] == ref["counts"]["conv3x3_dx"],
+              f"remat {arm} launched {r['counts']}")
+    out["remat"] = {arm: (statistics.median(r["walls"]), r["peak"]) for arm, r in rows.items()}
+
+    # (c) the loader's data time at the Train configuration's samples
+    dl = ["--data_len", "4", "--name", "tdata"]
+    cache = ["--cache_dir", os.path.join(tmp, "tdata_cache")]
+    arms = (("0 threads, no disk cache", ["--num_threads", "0"], 1),
+            ("4 threads, no disk cache", ["--num_threads", "4"], 1),
+            ("4 threads, cold then warm disk cache", ["--num_threads", "4"] + cache, 2),
+            ("0 threads, warm disk cache", ["--num_threads", "0"] + cache, 1))
+    out["t_data"] = {}
+    for label, flags, passes in arms:
+        waits = loader_waits(TrainOptions().parse(PIPE_TRAIN + dirs + dl + flags, quiet=True),
+                             passes)
+        out["t_data"][label] = waits
+        print(f"[time data] {label}: per-batch wait with nothing between batches, ms: "
+              f"{', '.join(f'{w:.1f}' for w in waits)}; mean "
+              + " then ".join(f"{statistics.mean(waits[i:i + 4]):.1f}"
+                              for i in range(0, len(waits), 4)))
     return out
 
 
@@ -3884,6 +4175,12 @@ def main() -> int:
     several_ranks(dirs, train_shapes, fl, smi)
     ranks_s = time.time() - t0
     print(f"[ranks] phase 4m took {ranks_s:.1f} s")
+
+    # --------------------------------------------------------------- 4n ---
+    print(f"[phase] phase 4n (the run-time pipeline) from {time.time() - t_start:.1f} s")
+    t0 = time.time()
+    pipeline_phase(tmp, dirs, smi)
+    print(f"[pipeline] phase 4n took {time.time() - t0:.1f} s")
 
     # ---------------------------------------------------------------- 5 ---
     print(f"[phase] phase 5 (times) from {time.time() - t_start:.1f} s; the card: {card_state()} "

@@ -18,7 +18,10 @@ JAX compile:
     the reference's bad specs, and also on a bad ``lpips_fold_axis`` or
     ``lpips_head``, which the reference applies;
   * a CPU training run at batch 2 with ``--lpips_crop 128`` crosses an
-    ``--anneal_set "lpips_crop=0,batch_size=1"`` switch.
+    ``--anneal_set "lpips_crop=0,batch_size=1"`` switch;
+  * a value outside the reference's ``choices`` of ``--remat_g``,
+    ``--lpips_remat``, ``--lpips_head``, ``--lpips_fold_axis``,
+    ``--lpips_conv`` or ``--step_mode`` is the same argparse error in both.
 """
 
 import argparse
@@ -334,6 +337,23 @@ def test_multihost_flags_parse_and_join_nothing_without_multihost(tmp_path, monk
         with pytest.raises(ValueError, match="--multihost: set --coordinator_address"):
             init_multihost(opt)
         assert world() is None
+
+
+@pytest.mark.parametrize("flag,bad", [
+    ("--remat_g", "True"), ("--lpips_remat", "yes"), ("--lpips_head", "fused"),
+    ("--lpips_fold_axis", "h"), ("--lpips_conv", "cudnn"), ("--step_mode", "fast")])
+def test_pipeline_and_layout_flags_refuse_what_the_reference_refuses(flag, bad, tmp_path,
+                                                                    capsys):
+    """A value outside the reference's ``choices`` is an argparse error in
+    both packages, with the same message."""
+    from vts_tpu.config import TrainOptions as JaxTrainOptions
+    errors = []
+    for parse in (lambda a: JaxTrainOptions().parse(a, quiet=True),
+                  lambda a: _port("train").parse(a + ["--device", "cpu"], quiet=True)):
+        with pytest.raises(SystemExit):
+            parse(["--checkpoints_dir", str(tmp_path), flag, bad])
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1].split("error: ")[1])
+    assert errors[0] == errors[1] and f"invalid choice: '{bad}'" in errors[0]
 
 
 @pytest.mark.parametrize("phase", ["train", "test"])

@@ -8,7 +8,9 @@ code — against ``vts_tpu`` on the CPU, at 256² with ngf/ndf 4:
     every level fails in both packages (the level-2 map has 4·ngf channels,
     the style 8·ngf), and so it must here;
   * the skit dataset against JAX's on two materials: ``material_index``, the
-    round-robin order, ``style_image`` and every other key, bit for bit;
+    round-robin order, ``style_image`` and every other key, bit for bit, but
+    ``sample_idx``: the item's own index in the port, the garment's sample
+    index in the reference;
   * one skitG training step against ``SinSKITModel._train_step`` (shared,
     module scope), the style code entering both as ``batch["style_code"]``
     (the port's own encoding of the batch's style image), so that JAX
@@ -114,8 +116,11 @@ def test_skit_dataset_matches_jax(env):  # noqa: F811
         assert set(got) == set(want)
         assert got["material_index"].dtype == np.int32 and int(got["material_index"]) == i % 2
         assert got["style_image"].shape == (224, 224, 3)
+        # sample_idx, the per-sample caches' key, is the item's own index in
+        # the port; the reference repeats each garment's (its garments collide)
+        assert int(got["sample_idx"]) == i and int(want["sample_idx"]) == i // 2
         for k in want:
-            if isinstance(want[k], np.ndarray) or np.isscalar(want[k]):
+            if k != "sample_idx" and (isinstance(want[k], np.ndarray) or np.isscalar(want[k])):
                 np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]),
                                               err_msg=f"item {i} {k}")
     assert not np.array_equal(ds[0]["style_image"], ds[1]["style_image"])

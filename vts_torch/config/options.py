@@ -46,27 +46,41 @@ three things:
     ``--display_port`` and ``--use_wandb``; ``--suffix`` renames the run as
     ``<name>_<suffix.format(**opt)>``; ``--max_dataset_size`` caps the
     epoch; ``--lpips_weights``/``--inception_weights`` load the perceptual
-    towers; in training also ``--dtype``, ``--lpips_crop``,
-    ``--anneal_epoch``/``--anneal_set`` and ``--mesh``, whose refusals are
-    the reference's, made where it makes them, at the model's set-up (and
-    by the training driver before it starts ranks), each naming the flag:
-    an unknown axis, too few devices, a batch the ``data`` axis does not
+    towers; the run-time pipeline: the loader's ``--num_threads``,
+    ``--cache_data_device`` and ``--cache_dir`` (:mod:`vts_torch.data`),
+    the model's ``--device_sample_cache``, ``--lpips_tap_cache``,
+    ``--d3_logit_cache``, ``--remat_g``, ``--lpips_remat`` and
+    ``--lpips_head`` (:mod:`vts_torch.models.sinskit`,
+    :mod:`vts_torch.losses.lpips`); in training also ``--dtype``,
+    ``--lpips_crop``, ``--anneal_epoch``/``--anneal_set``,
+    ``--steps_per_dispatch`` and ``--mesh``, whose refusals are the
+    reference's, made where it makes them, at the model's set-up (and by
+    the training driver before it starts ranks), each naming the flag: an
+    unknown axis, too few devices, a batch the ``data`` axis does not
     divide, ``--steps_per_dispatch`` > 1 with one);
-  * it is accepted and has no effect, because it changes no math on one
-    device: the TPU layout and cache flags (``--canvas_fold``,
-    ``--lpips_fold``, ``--lpips_fold_axis``, ``--lpips_conv``,
-    ``--lpips_head``, ``--step_mode``, ``--remat_g``, ``--lpips_remat``,
-    ``--steps_per_dispatch``, ``--device_sample_cache``,
-    ``--cache_data_device``, ``--lpips_tap_cache``, ``--d3_logit_cache``,
-    ``--platform``), the loader's ``--num_threads`` and ``--cache_dir``,
-    ``--verbose``, the sinskit flags under ``--model pix2pix`` and
-    ``pix2pixhd`` (their steps read none of them), and flags the reference
-    declares but never reads for this model (``--easy_label``, ``--load_iter``, ``--direction``, ``--load_size``,
-    ``--no_flip``, ``--use_eval_mode``, ``--padded_size``, ...).  The test
-    phase's ``--dtype`` and ``--lpips_crop`` are of this kind: the eval
-    forward is fp32 whatever ``--dtype`` says, as in the reference; so are
-    the training-only flags that the test parser declares too (the D, loss
-    and schedule flags);
+  * it is accepted and has no effect, for a stated reason.  The TPU's
+    layouts of the same math: ``--canvas_fold``, ``--lpips_fold`` and
+    ``--lpips_fold_axis`` (space-to-depth folds that fill the TPU's 128
+    lanes), ``--step_mode split`` (one jit a stage, so that XLA lays each
+    out on its own: the port's eager step already runs stage by stage),
+    ``--lpips_conv`` (Pallas or XLA for the LPIPS convs: K1 always takes
+    VGG convs 1-3 here), ``--platform`` (JAX's backend; the port's is
+    ``--device``).  Logging: ``--verbose``.  The sinskit flags under
+    ``--model pix2pix`` and ``pix2pixhd`` (their steps read none of them).
+    Flags the reference declares but never reads for this model
+    (``--easy_label``, ``--load_iter``, ``--direction``, ``--load_size``,
+    ``--no_flip``, ``--use_eval_mode``, ``--padded_size``,
+    ``--model_phase``, ``--save_S_patch``, ``--save_T_concat_tensor``,
+    ``--separate_val_set``, ``--evaluation_freq``, ``--validation_freq``,
+    ``--save_by_iter``, ``--gan_mode_override``, ``--train_for_each_epoch``,
+    ``--update_fixed_epoch``).  The test phase's ``--dtype`` and
+    ``--lpips_crop`` are of this kind: the eval forward is fp32 whatever
+    ``--dtype`` says, as in the reference; so are the training-only flags
+    that the test parser declares too (the D, loss, cache and remat flags),
+    and the test driver's ``--num_threads`` and ``--cache_data_device``
+    (it loads in its own thread, as the reference's, and visits each sample
+    once).  The layout flags take the reference's ``choices``, so that a
+    value it refuses is an argparse error here too;
   * it raises ``NotImplementedError`` naming the flag when set to what the
     port does not run: a ``--model`` other than sinskit, skit, pix2pix,
     pix2pixhd and spade, a ``--dataset_mode`` other than singleskit, skit,
@@ -266,24 +280,50 @@ def _common(p: argparse.ArgumentParser, train: bool) -> None:
     a("--num_touch_patch_for_logging", type=int, default=10 if train else 100)
     a("--save_raw_arr_vis", type=str2bool, default=False)
     a("--scale_nz", type=float, default=0.25)
+    # the run-time pipeline: the loader, the sample caches, rematerialization
+    # and the LPIPS head (as vts_tpu/config/options.py and models/sinskit.py)
+    a("--num_threads", type=int, default=0,
+      help="host threads that build the batches (0: in the training loop's thread)")
+    a("--cache_data_device", action="store_true",
+      help="keep each sample on the device after its first visit (the loader's cache)")
+    a("--cache_dir", type=str, default="",
+      help="on-disk sample cache (empty: <dataroot>/.vts_cache; none for synthetic://)")
+    a("--device_sample_cache", type=str2bool, default=False,
+      help="keep each training sample's device tensors after its first set_input "
+           "(at most max(data_len, 32) entries)")
+    a("--lpips_tap_cache", type=str2bool, default=False,
+      help="compute the real canvas's VGG taps once a sample, not every step "
+           "(full-canvas LPIPS; refused at data_len > 1)")
+    a("--d3_logit_cache", type=str2bool, default=False,
+      help="compute D3's CLIP logits of each real image once (not under --train_d3_heads)")
+    a("--remat_g", type=str, default="auto", choices=["auto", "on", "off"],
+      help="recompute G's forward in the backward (auto: on at batch > 1)")
+    a("--lpips_remat", type=str, default="auto",
+      choices=["auto", "on", "off", "True", "False", "1", "0"],
+      help="recompute the canvas LPIPS's x branch in the backward (auto: on at batch > 1; "
+           "True/1 mean on, False/0 auto)")
+    a("--lpips_head", type=str, default="composed", choices=["composed", "factored"],
+      help="the LPIPS head: normalize, difference, lin head; or the same sum from three "
+           "channel reductions")
     # accepted for command-line compatibility with vts_tpu; no effect here
     p.add_argument("--no_flip", type=str2bool, nargs="?", const=True, default=True,
                    help="accepted; no effect in the port (singleskit never flips)")
+    a("--lpips_fold_axis", type=str, default="w", choices=["hw", "w"],
+      help="accepted; no effect in the port (a TPU lane layout)")
+    a("--lpips_conv", type=str, default="xla", choices=["xla", "pallas"],
+      help="accepted; no effect in the port (K1 takes VGG convs 1-3 always)")
+    a("--step_mode", type=str, default="fused", choices=["fused", "split"],
+      help="accepted; no effect in the port (the step runs stage by stage as it is)")
     _no_effect(p, (
         ("--easy_label", str, "experiment_name"), ("--platform", str, ""),
         ("--direction", str, "AtoB"),
-        ("--num_threads", int, 0), ("--cache_data_device", bool, False),
-        ("--load_size", int, 286), ("--cache_dir", str, ""),
+        ("--load_size", int, 286),
         ("--verbose", bool, False), ("--load_iter", int, 0),
         ("--model_phase", str, "train" if train else "eval"),
         ("--padded_size", int, 1800), ("--save_S_patch", str2bool, not train),
-        ("--save_T_concat_tensor", str2bool, False), 
+        ("--save_T_concat_tensor", str2bool, False),
         ("--separate_val_set", str2bool, False), ("--canvas_fold", int, 8),
-        ("--lpips_fold", int, 2), ("--lpips_fold_axis", str, "w"),
-        ("--lpips_head", str, "composed"), ("--lpips_conv", str, "xla"),
-        ("--step_mode", str, "fused"), ("--remat_g", str, "auto"),
-        ("--lpips_remat", str, "auto"), ("--device_sample_cache", str2bool, False),
-        ("--lpips_tap_cache", str2bool, False), ("--d3_logit_cache", str2bool, False)))
+        ("--lpips_fold", int, 2)))
 
 
 def _test_parser() -> argparse.ArgumentParser:
@@ -321,10 +361,13 @@ def _train_parser() -> argparse.ArgumentParser:
     # logging and checkpoints
     a("--save_latest_freq", type=int, default=100)
     a("--save_epoch_freq", type=int, default=50)
+    a("--steps_per_dispatch", type=int, default=1,
+      help="train k steps a dispatch, with no host sync inside and the losses logged "
+           "at its end (the baselines step one at a time)")
     _no_effect(p, (
         ("--evaluation_freq", int, 5000), ("--validation_freq", int, 100),
         ("--save_by_iter", bool, False), ("--gan_mode_override", str, ""),
-        ("--steps_per_dispatch", int, 1), ("--train_for_each_epoch", str2bool, True),
+        ("--train_for_each_epoch", str2bool, True),
         ("--update_fixed_epoch", int, 0)))
     return p
 

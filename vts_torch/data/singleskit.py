@@ -21,8 +21,18 @@ generator seeded per (seed, index), so a sample is the same every epoch.
 
 ``synthetic://`` dataroots are built in memory (:mod:`.synthetic`); an
 on-disk dataroot is decoded with PIL, imported only then, as is PIL for a
-resize (a zoom, a crop larger than the image).  The reference's on-disk
-sample cache is not ported.
+resize (a zoom, a crop larger than the image).
+
+The on-disk sample cache is the reference's: sample ``index`` is built once
+and written to ``<cache>/{phase}_len{data_len}_crop{crop_size}_m{mult}_seed
+{seed}/sample_{index:05d}.npz`` (through a ``.tmp.npz`` and an atomic
+rename), then read from there; a file that cannot be read is deleted and
+rebuilt.  ``<cache>`` is ``--cache_dir``, else ``<dataroot>/.vts_cache``; a
+``synthetic://`` dataroot, which has no directory here, is cached only under
+``--cache_dir``.  The files are the reference's own, so either package reads
+the other's.  As there, the key names only the options above: a cache
+written under other sample options (patch counts, preprocess, center) is
+read as it is, so give such runs another ``--cache_dir``.
 """
 
 from __future__ import annotations
@@ -109,13 +119,36 @@ class SingleSkitDataset:
         zoom_max = 1.0 / float(opt.random_scale_max) if self.is_train else 1.0
         self.zoom_levels = np.random.default_rng(self.seed + 7919).uniform(
             zoom_max, 1.0, size=(self.data_len, 2))
+        cache = getattr(opt, "cache_dir", "") or (
+            "" if opt.dataroot.startswith("synthetic://")
+            else os.path.join(opt.dataroot, ".vts_cache"))
+        phase = "train" if self.is_train else "test"
+        self.cache_dir = os.path.join(
+            cache, f"{phase}_len{self.data_len}_crop{opt.crop_size}_m{self.mult}_seed{self.seed}"
+        ) if cache else None
 
     def __len__(self) -> int:
         return self.data_len
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
-        sample = self.build_sample(index)
+        sample = self.cached_sample(index) if self.cache_dir else self.build_sample(index)
         sample["sample_idx"] = np.int64(index)
+        return sample
+
+    def cached_sample(self, index: int) -> Dict[str, np.ndarray]:
+        """Sample ``index`` from the disk cache, built and written on a miss."""
+        path = os.path.join(self.cache_dir, f"sample_{index:05d}.npz")
+        if os.path.exists(path):
+            try:
+                with np.load(path, allow_pickle=False) as z:
+                    return {k: z[k] for k in z.files}
+            except Exception:
+                os.remove(path)
+        sample = self.build_sample(index)
+        os.makedirs(self.cache_dir, exist_ok=True)
+        tmp = path + ".tmp.npz"
+        np.savez(tmp, **sample)
+        os.replace(tmp, path)
         return sample
 
     def build_sample(self, index: int) -> Dict[str, np.ndarray]:

@@ -14,7 +14,12 @@ holds any, else the garment's own visual image as uint8 (``((I·0.5 + 0.5)
 ·255)``, truncated); either resized to ``--style_image_size``² by PIL's
 ``Image.resize`` at its default resampling, then mapped to [-1, 1].  An
 edited sketch's item (no I) without ``--style_image_dir`` has no
-``style_image``, as in the reference.
+``style_image``, as in the reference.  Under ``--cache_dir`` each garment
+keeps its disk cache in ``<cache_dir>/<material>`` (the reference puts all
+in one directory under one key, where the garments' samples collide).  For
+the same reason an item's ``sample_idx``, the key of the model's
+per-sample caches, is its own ``index`` here, where the reference's is the
+garment's sample index, which every garment numbers from 0.
 """
 
 from __future__ import annotations
@@ -54,6 +59,11 @@ class SkitDataset:
             else:
                 sub_opt.dataroot = os.path.join(
                     base, f"{opt.dataroot_prefix}{m}{opt.dataroot_suffix}")
+            if getattr(opt, "cache_dir", ""):
+                # a garment's own directory: the reference's sample key
+                # names no garment, so one --cache_dir would serve every
+                # garment the first one's samples
+                sub_opt.cache_dir = os.path.join(opt.cache_dir, m)
             self.datasets.append(SingleSkitDataset(sub_opt))
         self.data_len = int(opt.data_len) * len(materials)
         style_dir = opt.style_image_dir
@@ -73,6 +83,7 @@ class SkitDataset:
         mat, inner = index % n, index // n
         sample = dict(self.datasets[mat][inner % len(self.datasets[mat])])
         sample["material_index"] = np.int32(mat)
+        sample["sample_idx"] = np.int64(index)
         size = int(self.opt.style_image_size)
         if self.style_paths:
             img = Image.open(self.style_paths[index % len(self.style_paths)]).convert("RGB")

@@ -2,26 +2,39 @@
 
 Counterpart of ``vts_tpu/losses/lpips.py`` at fold 1: the scaling layer
 folded into conv1_1 (``_scale_folded_conv1``, with the 1-channel weight
-collapse for gx/gy patches), ``vgg16_taps`` with reshape + max pools, the
-composed head (normalize → diff → 1×1 lin head, eps added to the norm),
-and either one 2N batch for (x, y) or, with ``y_no_grad`` (the training
+collapse for gx/gy patches), ``vgg16_taps`` with reshape + max pools, and
+either one 2N batch for (x, y) or, with ``y_no_grad`` (the training
 losses), a separate y forward under ``torch.no_grad()`` so that no backward
-is built or paid for the constant y.  VGG convs 1-3 (conv1_2 64→64,
-conv2_1 64→128, conv2_2 128→128) run through kernel K1
-(:mod:`vts_torch.ops.conv3x3`), whose backward is the K1 dx kernel; the
-other ten are ``F.conv2d`` on NCHW views of the NHWC activations, as they
-are XLA convs in the reference.  The pools are reshape + ``amax``, whose
-gradient is split evenly among tied maxima as ``jnp.max``'s is (ties are
-common here: masked canvases and patches are zero outside the mask, and the
-folded conv1_1 bias makes a zero region a constant activation).  The TPU
-layout work of the reference (folds, custom VJPs, tap caches, the factored
-head) is not ported.
+is built or paid for the constant y.  :func:`lpips_y_taps` computes y's
+taps once, and ``LPIPS.forward(..., y_taps=)`` takes them in place of the y
+forward (the ``--lpips_tap_cache`` of the training step: the real canvas
+never changes).  VGG convs 1-3 (conv1_2 64→64, conv2_1 64→128, conv2_2
+128→128) run through kernel K1 (:mod:`vts_torch.ops.conv3x3`), whose
+backward is the K1 dx kernel; the other ten are ``F.conv2d`` on NCHW views
+of the NHWC activations, as they are XLA convs in the reference.  The pools
+are reshape + ``amax``, whose gradient is split evenly among tied maxima as
+``jnp.max``'s is (ties are common here: masked canvases and patches are
+zero outside the mask, and the folded conv1_1 bias makes a zero region a
+constant activation).
+
+The head (``head_mode``): ``composed`` normalizes each tap by its channel
+norm (eps added to the norm), takes the difference and the 1×1 lin head of
+its square; ``factored`` (``--lpips_head factored``) computes the same sum
+as rx²·Σ lin·x² + ry²·Σ lin·y² − 2·rx·ry·Σ lin·x·y with rx = 1/(‖x‖ + eps)
+per pixel: three channel reductions and per-pixel fp32 scalars, no
+normalized tap and no difference tensor.  The channel reductions are the
+reference's custom VJPs as ``torch.autograd.Function``s (``_SumSqC``,
+``_LinSqHead``, ``_WSumSqC``, ``_WDotC``): each accumulates in fp32 and
+saves only its tap-dtype inputs, so no fp32 copy of a tap is kept for the
+backward.  The TPU's space-to-depth folds (``--lpips_fold``,
+``--lpips_fold_axis``) and the Pallas/XLA conv choice (``--lpips_conv``)
+re-lay the same sums for the TPU's lanes and are not ported.
 
 ``dtype=torch.bfloat16`` (the ``--dtype bfloat16`` training losses) runs the
 backbone as the reference's ``lpips(dtype=bf16)`` does: the inputs and the
 conv weights and biases in bf16 (K1 sums in fp32 and rounds once), the taps
-and the head's normalize and difference in bf16, the channel sums of the
-head accumulated in fp32.  ``dtype=None`` is fp32 throughout.
+and the composed head's normalize and difference in bf16, the channel sums
+of the head accumulated in fp32.  ``dtype=None`` is fp32 throughout.
 
 Weights: ``init_lpips_params(seed)`` rebuilds the reference's deterministic
 fallback parameters bit for bit (numpy ``default_rng``), and
@@ -188,34 +201,126 @@ class LPIPS(nn.Module):
         return taps
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, y_no_grad: bool = False,
-                dtype: torch.dtype = None) -> torch.Tensor:
+                dtype: torch.dtype = None, y_taps: Tuple[torch.Tensor, ...] = None,
+                head_mode: str = "composed") -> torch.Tensor:
         """(N,) fp32 distances.  ``y_no_grad``: run y as its own forward under
         ``torch.no_grad()`` (values are the same; the backbone has no
         cross-sample ops).  ``dtype``: the backbone's compute dtype (fp32 if
-        None)."""
+        None).  ``y_taps``: y's taps from :func:`lpips_y_taps` at the same
+        dtype and size, in place of the y forward (y is then not read; they
+        imply ``y_no_grad``).  ``head_mode``: ``composed`` or ``factored``."""
+        if head_mode not in ("composed", "factored"):
+            raise ValueError(f"head_mode must be composed or factored, got {head_mode!r}")
         dt = dtype or torch.float32
         x = x.to(dt)
-        y = y.to(dt)
-        if y_no_grad:
+        if y_taps is not None:
+            if not y_no_grad:
+                raise ValueError("y_taps implies y_no_grad=True; pass y instead if "
+                                 "gradients through the reference are needed")
+            tx = self.vgg16_taps(x)
+            ty = [t.detach() for t in y_taps]
+            if [tuple(t.shape) for t in ty] != [tuple(t.shape) for t in tx] \
+                    or any(t.dtype != a.dtype for t, a in zip(ty, tx)):
+                raise ValueError("y_taps shapes don't match this call's x taps — recompute "
+                                 "them with lpips_y_taps at the same (dtype, H, W)")
+        elif y_no_grad:
             tx = self.vgg16_taps(x)
             with torch.no_grad():
-                ty = self.vgg16_taps(y)
+                ty = self.vgg16_taps(y.to(dt))
         else:
             n = x.shape[0]
-            both = self.vgg16_taps(torch.cat([x, y], dim=0))
+            both = self.vgg16_taps(torch.cat([x, y.to(dt)], dim=0))
             tx, ty = [t[:n] for t in both], [t[n:] for t in both]
         total = 0.0
         for i, (a, b) in enumerate(zip(tx, ty)):
-            d = (_normalize(a) - _normalize(b)).float()
-            val = torch.sum(d * d * getattr(self, f"lin{i}"), dim=-1)
+            lin = getattr(self, f"lin{i}")
+            if head_mode == "factored":
+                ra = 1.0 / (torch.sqrt(_SumSqC.apply(a)) + 1e-10)
+                rb = 1.0 / (torch.sqrt(_SumSqC.apply(b)) + 1e-10)
+                val = (torch.square(ra) * _WSumSqC.apply(a, lin)
+                       + torch.square(rb) * _WSumSqC.apply(b, lin)
+                       - (2.0 * ra * rb) * _WDotC.apply(a, b, lin))[..., 0]
+            else:
+                val = _LinSqHead.apply(_normalize(a) - _normalize(b), lin)
             total = total + torch.mean(val, dim=(1, 2))
         return total
+
+
+def lpips_y_taps(net: LPIPS, y: torch.Tensor, dtype: torch.dtype = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The VGG taps of a constant reference image y, without gradient, for
+    ``net(x, None, y_no_grad=True, dtype=dtype, y_taps=...)``: the same
+    arrays the y forward of that call computes (``dtype`` as there; K1 on a
+    CUDA tensor)."""
+    with torch.no_grad():
+        return tuple(net.vgg16_taps(y.to(dtype or torch.float32)))
+
+
+class _SumSqC(torch.autograd.Function):
+    """Σ_c t², fp32 accumulation, (N, H, W, C) → (N, H, W, 1); saves t in its
+    own dtype, not an fp32 copy (the reference's ``_sumsq_c``)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.save_for_backward(t)
+        tf = t.float()
+        return torch.sum(tf * tf, dim=-1, keepdim=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        t, = ctx.saved_tensors
+        return (2.0 * g * t.float()).to(t.dtype)
+
+
+class _LinSqHead(torch.autograd.Function):
+    """Σ_c lin_c·δ_c², fp32 accumulation, (N, H, W, C) → (N, H, W); saves δ in
+    its own dtype (the reference's ``_lin_sq_head``; lin is frozen)."""
+
+    @staticmethod
+    def forward(ctx, delta, lin):
+        ctx.save_for_backward(delta, lin)
+        d = delta.float()
+        return torch.sum(d * d * lin.float(), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        delta, lin = ctx.saved_tensors
+        return ((2.0 * g[..., None]) * lin.float() * delta.float()).to(delta.dtype), None
+
+
+class _WSumSqC(torch.autograd.Function):
+    """Σ_c lin_c·t_c², fp32 accumulation, → (N, H, W, 1) (``_wsumsq_c``)."""
+
+    @staticmethod
+    def forward(ctx, t, lin):
+        ctx.save_for_backward(t, lin)
+        tf = t.float()
+        return torch.sum(tf * tf * lin.float(), dim=-1, keepdim=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        t, lin = ctx.saved_tensors
+        return ((2.0 * g) * lin.float() * t.float()).to(t.dtype), None
+
+
+class _WDotC(torch.autograd.Function):
+    """Σ_c lin_c·x_c·y_c, fp32 accumulation, → (N, H, W, 1) (``_wdot_c``)."""
+
+    @staticmethod
+    def forward(ctx, x, y, lin):
+        ctx.save_for_backward(x, y, lin)
+        return torch.sum(x.float() * y.float() * lin.float(), dim=-1, keepdim=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, lin = ctx.saved_tensors
+        gl = g * lin.float()
+        gx = (gl * y.float()).to(x.dtype) if ctx.needs_input_grad[0] else None
+        gy = (gl * x.float()).to(y.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gy, None
 
 
 def _normalize(t: torch.Tensor) -> torch.Tensor:
     """Channel normalize with eps added to the norm: x / (||x|| + 1e-10), the
     norm from an fp32 sum of squares, the product in t's dtype."""
-    tf = t.float()
-    ss = torch.sum(tf * tf, dim=-1, keepdim=True)
-    return t * (1.0 / (torch.sqrt(ss) + 1e-10)).to(t.dtype)
-
+    return t * (1.0 / (torch.sqrt(_SumSqC.apply(t)) + 1e-10)).to(t.dtype)

@@ -42,10 +42,12 @@ class Adam:
              lr: float) -> None:
         self.count += 1
         dev = next(iter(self.mu.values())).device
-        c = torch.tensor(self.count, dtype=torch.int32, device=dev)
-        bc1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32, device=dev) ** c
-        bc2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32, device=dev) ** c
-        lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
+        # scalars filled on the device: a copy from the host would wait for
+        # the stream, and a chunk of steps (--steps_per_dispatch) syncs nowhere
+        c = torch.full((), self.count, dtype=torch.int32, device=dev)
+        bc1 = 1.0 - torch.full((), self.b1, dtype=torch.float32, device=dev) ** c
+        bc2 = 1.0 - torch.full((), self.b2, dtype=torch.float32, device=dev) ** c
+        lr_t = torch.full((), lr, dtype=torch.float32, device=dev)
         for k, p in params.items():
             g = grads[k].float()
             mu = self.mu[k].mul_(self.b1).add_((1 - self.b1) * g)

@@ -51,6 +51,9 @@ class Pix2PixModel(SinSKITModel):
     pred_fake_T_full_visual = False
     # the reference's baselines never split their step (vts_tpu/models/pix2pix.py:111-125)
     data_parallel = False
+    # nor chunk it: a chunk of steps is one optimize_parameters a step
+    # (vts_tpu/models/sinskit.py:969-977)
+    supports_chunk = False
     masked_stacks = ("",)               # the reference masks T_images, not val_T_images
     d_kind = "basic"                    # the kind of D and D2
 

@@ -76,22 +76,44 @@ to the global batch's: each network's are summed over the ranks in one
 collective before Adam, and the logged losses are the global ones.  The
 baselines (pix2pix, pix2pixHD, SPADE) never split, as in the reference.
 
+The reference's run-time pipeline, each exact (the dataset's samples are
+the same every epoch, so per-sample results can be kept): under
+``--device_sample_cache`` :meth:`set_input` keeps a training batch's device
+tensors by its ``sample_idx`` (at most max(data_len, 32), with one warning
+at the cap); ``--lpips_tap_cache`` keeps the real canvas's LPIPS taps for
+the sample at hand (one entry; not under ``--lpips_crop``, refused at
+``data_len`` > 1 and switched off after 8 misses that outnumber the hits,
+as the reference's), so that the step runs the canvas LPIPS's x branch
+only; ``--d3_logit_cache`` keeps D3's logits of each real image (not under
+``--train_d3_heads``); ``--remat_g`` and ``--lpips_remat`` (``auto``: at a
+global batch above 1) recompute G's forward and the canvas LPIPS's x branch
+in the backward (``torch.utils.checkpoint``; the recomputed G pass leaves
+the batch norms' running statistics alone); ``--lpips_head`` picks the
+LPIPS head (:mod:`vts_torch.losses.lpips`).
+:meth:`optimize_parameters_chunk` runs a chunk of steps
+(``--steps_per_dispatch``) back to back, exactly as many sequential steps,
+with no host sync: the draws go to the device through pinned memory and
+the last step's losses stay there.
+
 The settings not ported yet are refused by the options
 (:mod:`vts_torch.config.options`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..data.coords import patch_offsets
 from ..device import resolve_device
 from ..losses.gan import feature_matching_loss, gan_loss, gradient_penalty
 from ..losses.gan_masked import masked_mean, masked_patch_sum, per_sample_gan_loss
-from ..losses.lpips import LPIPS, init_lpips_params, load_lpips_weights
+from ..losses.lpips import LPIPS, init_lpips_params, load_lpips_weights, lpips_y_taps
 from ..losses.vision_aided import D3Heads, d3_logits, init_d3_head_params, softplus
 from ..metrics.evaluate import DEFAULT_EVAL_METRICS, compute_evaluation_metrics
 from ..metrics.evaluate_batch import compute_evaluation_metrics_batched
@@ -172,6 +194,46 @@ def _rows(group: DataGroup, draws):
     return group.rows(draws)
 
 
+def _on_device(draws, device: torch.device):
+    """A step's draws (nested lists and dicts of CPU tensors, and ints) on the
+    device, each through pinned memory without waiting for the stream."""
+    if isinstance(draws, (list, tuple)):
+        return type(draws)(_on_device(d, device) for d in draws)
+    if isinstance(draws, dict):
+        return {k: _on_device(d, device) for k, d in draws.items()}
+    if torch.is_tensor(draws) and draws.device != device:
+        return draws.pin_memory().to(device, non_blocking=True)
+    return draws
+
+
+@contextlib.contextmanager
+def _held_stats(net: torch.nn.Module):
+    """While it is open, ``net``'s batch norms leave their running statistics
+    alone: the recomputed forward of a rematerialized G."""
+    norms = [m for m in net.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.hold_stats = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.hold_stats = False
+
+
+def remat_on(mode, n: int, flag: str) -> bool:
+    """Whether ``--remat_g``/``--lpips_remat`` ``mode`` recomputes at global
+    batch n: ``on``, or ``auto`` at n > 1 (the reference's rule; for
+    ``--lpips_remat`` True/1 are ``on`` and False/0 ``auto``, anything else a
+    ``ValueError``)."""
+    if flag == "lpips_remat":
+        mode = {True: "on", False: "auto", "True": "on", "False": "auto", "1": "on",
+                "0": "auto"}.get(mode, mode)
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"--lpips_remat: unrecognized value {mode!r} "
+                             "(use auto|on|off, or 1/True ≡ on, 0/False ≡ auto)")
+    return mode == "on" or (mode == "auto" and n > 1)
+
+
 class SinSKITModel:
     """Lifecycle as in the reference: setup → set_input → optimize_parameters
     / test → get_current_losses / compute_metrics → save/load_networks."""
@@ -182,6 +244,9 @@ class SinSKITModel:
     pred_fake_T_full_visual = True
     # the touch-patch stacks (by prefix) that set_input masks by their object masks
     masked_stacks = ("", "val_")
+    # optimize_parameters_chunk runs a chunk's steps back to back with the
+    # chunk's caches; False: one optimize_parameters a step (the baselines)
+    supports_chunk = True
 
     def __init__(self, opt):
         lpc = int(opt.lpips_crop)
@@ -254,6 +319,18 @@ class SinSKITModel:
         self._losses: Dict[str, torch.Tensor] = {}
         self.metrics: Dict[str, float] = {}
         self.dp: Optional[DataGroup] = None   # --mesh data:N: this rank's data group
+        # the per-sample caches, keyed by the batch's sample indices (the
+        # samples are the same every epoch): --device_sample_cache's inputs,
+        # --lpips_tap_cache's one entry with its (hits, misses), and
+        # --d3_logit_cache's logits
+        self._sample_key = None
+        self._sample_dev_cache: Dict = {}
+        self._sample_cache_capped = False
+        self._tap_cache_kv = (None, None)
+        self._tap_cache_stats = (0, 0)
+        self._tap_cache_checked = False
+        self._tap_cache_disabled = False
+        self._d3_real_cache: Dict = {}
 
     # ------------------------------------------------------------------
     def nets(self) -> Dict[str, torch.nn.Module]:
@@ -354,23 +431,38 @@ class SinSKITModel:
         return self._pe_cache[(n, h, w)]
 
     # ------------------------------------------------------------------
-    def set_input(self, batch: Dict[str, np.ndarray], phase: str = "train") -> None:
-        """Batch of numpy arrays → device tensors; S and I are masked by M, the
-        patch stacks fold (N, K, …) → (N·K, …) (coords keep (N, K, 8)) and the
-        tactile patches of :attr:`masked_stacks` are masked by their object
-        masks.  On data-parallel ranks a training batch whose N the ranks
-        divide is cut to this rank's block of samples (the reference shards
-        it; anything else, the validation sample among it, stays whole)."""
+    def set_input(self, batch: Dict, phase: str = "train") -> None:
+        """Batch of numpy arrays (or of tensors already on the device, from the
+        loader's ``--cache_data_device``, taken as they are) → device tensors;
+        S and I are masked by M, the patch stacks fold (N, K, …) → (N·K, …)
+        (coords keep (N, K, 8)) and the tactile patches of
+        :attr:`masked_stacks` are masked by their object masks.  On
+        data-parallel ranks a training batch whose N the ranks divide is cut
+        to this rank's block of samples (the reference shards it; anything
+        else, the validation sample among it, stays whole).  The batch's
+        ``sample_idx`` keys the per-sample caches; under
+        ``--device_sample_cache`` a training batch seen before is taken from
+        the cache (at most max(data_len, 32) batches, with one warning when
+        it is full)."""
+        idx = batch.get("sample_idx")
+        self._sample_key = None if idx is None else tuple(np.asarray(idx).ravel().tolist())
+        cached = self.opt.device_sample_cache and self._sample_key is not None \
+            and phase == "train"
+        if cached and (self._sample_key, phase) in self._sample_dev_cache:
+            dev, self._dp_split = self._sample_dev_cache[(self._sample_key, phase)]
+            self._input = dict(dev)
+            self.data_phase = phase
+            return
         arrays = {k: v for k, v in batch.items()
-                  if k not in ("name", "sample_idx") and isinstance(v, np.ndarray)
-                  and v.dtype.kind in "fiub"}
+                  if k not in ("name", "sample_idx") and (torch.is_tensor(v) or (
+                      isinstance(v, np.ndarray) and v.dtype.kind in "fiub"))}
         n = len(arrays["S"]) if "S" in arrays else 0
         self._dp_split = self.dp is not None and phase == "train" and n and n % self.dp.size == 0
         if self._dp_split:
             arrays = {k: self.dp.rows(v) if v.ndim and len(v) == n else v
                       for k, v in arrays.items()}
-        dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-               for k, v in arrays.items()}
+        dev = {k: (v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v)))
+               .to(self.device) for k, v in arrays.items()}
         if "M" in dev:
             dev["S"] = dev["S"] * dev["M"]
             if "I" in dev:
@@ -383,6 +475,18 @@ class SinSKITModel:
                 dev[f"{pre}T_images"] = dev[f"{pre}T_images"] * dev[f"{pre}I_masks"]
         self._input = dev
         self.data_phase = phase
+        if cached:
+            # keys are sample-index tuples: shuffled batches above 1 make new
+            # ones every epoch, so the cache stops at the dataset's size
+            cap = max(int(self.opt.data_len or 0), 32)
+            if len(self._sample_dev_cache) < cap:
+                self._sample_dev_cache[(self._sample_key, phase)] = (dict(dev), self._dp_split)
+            elif not self._sample_cache_capped:
+                warnings.warn(
+                    f"--device_sample_cache hit its {cap}-entry cap (batched + shuffled sample "
+                    "tuples?); further samples are not cached. Use the loader's "
+                    "--cache_data_device for shuffled batch_size > 1 runs.")
+                self._sample_cache_capped = True
 
     # ------------------------------------------------------------------
     def _crop_active(self, h: int, w: int) -> bool:
@@ -420,6 +524,42 @@ class SinSKITModel:
     def optimize_parameters(self, epoch: int = 1, draws: Optional[Dict] = None) -> None:
         """One training step at the lr of ``epoch``, with D3 from
         ``--vision_aided_warmup_epoch`` on."""
+        self._step(epoch, draws, self._lpips_taps_cached())
+
+    def optimize_parameters_chunk(self, stacked: Dict[str, torch.Tensor], epoch: int = 1,
+                                  sample_keys=None, draws=None) -> int:
+        """k training steps, one a slice of ``stacked`` (each input with a
+        leading step axis of k), exactly k :meth:`optimize_parameters` calls:
+        the same draws in the same order (``draws``: a list of k, else the
+        model's generator).  No step waits for the device, and the last
+        step's losses stay on it.  ``sample_keys``: each step's sample key as
+        :meth:`set_input` saw it; they key the D3 logit cache a step, and the
+        real canvas's LPIPS taps ride along the whole chunk when every step
+        has one sample.  A model without ``supports_chunk`` steps through
+        :meth:`optimize_parameters`.  Returns k."""
+        k = int(next(iter(stacked.values())).shape[0])
+
+        def take(i):
+            self._input = {key: v[i] for key, v in stacked.items()}
+            self._sample_key = sample_keys[i] if sample_keys else None
+        taps = None
+        if self.supports_chunk and sample_keys and sample_keys[0] is not None \
+                and all(key == sample_keys[0] for key in sample_keys):
+            take(0)
+            taps = self._lpips_taps_cached()
+        for i in range(k):
+            take(i)
+            step_draws = None if draws is None else draws[i]
+            if self.supports_chunk:
+                self._step(epoch, step_draws, taps)
+            else:
+                self.optimize_parameters(epoch, draws=step_draws)
+        return k
+
+    def _step(self, epoch: int, draws: Optional[Dict], y_taps) -> None:
+        """One training step on :attr:`_input` with the canvas LPIPS's cached
+        real taps ``y_taps`` (or None); its draws go to the device without a
+        sync."""
         opt = self.opt
         f = lr_factor(opt.lr_policy, epoch - 1, opt) * self.lr_override
         if draws is None:
@@ -428,9 +568,77 @@ class SinSKITModel:
         if self.dp is not None:
             # the global batch's draws (drawn here or given), this rank's rows
             draws = {k: v if k == "lpips_crop" else _rows(self.dp, v) for k, v in draws.items()}
+        if self.device.type == "cuda":
+            draws = _on_device(draws, self.device)
         use_d3 = self.use_d3 and epoch >= opt.vision_aided_warmup_epoch
-        self._losses, self._outputs = self._train_step(self._input, opt.lr * f,
-                                                       opt.lr_G2 * f, draws, use_d3)
+        d3_real = self._d3_real_logits_cached() if use_d3 and opt.d3_logit_cache else None
+        self._losses, self._outputs = self._train_step(
+            self._input, opt.lr * f, opt.lr_G2 * f, draws, use_d3, y_taps=y_taps,
+            d3_real_logits=d3_real)
+
+    def _d3_real_logits_cached(self):
+        """D3's logits of the real image, computed once a sample (the crops are
+        the same every epoch and the heads frozen); None under
+        ``--train_d3_heads``, where they would follow the heads."""
+        if self.opt.train_d3_heads:
+            return None
+        key = self._sample_key
+        if key in self._d3_real_cache:
+            return self._d3_real_cache[key]
+        with torch.no_grad():
+            logits = tuple(d3_logits(self.clip, self.d3_heads, self._input["I"]))
+        if key is not None:
+            self._d3_real_cache[key] = logits
+        return logits
+
+    def _lpips_taps_cached(self):
+        """The real canvas's LPIPS taps for the step (``--lpips_tap_cache``), or
+        None: one entry, for the sample at hand, computed on a miss.  Not
+        under ``--lpips_crop`` or without the canvas LPIPS, nor without a
+        sample key.  Declined from the first step when ``data_len`` > 1
+        (every step then brings another sample), and switched off after 8
+        misses that outnumber the hits; either with the reference's message
+        on stdout and as a warning."""
+        opt = self.opt
+        if not opt.lpips_tap_cache or int(opt.lpips_crop) or opt.lambda_G1_lpips <= 0 \
+                or self._tap_cache_disabled:
+            return None
+        if not self._tap_cache_checked:
+            self._tap_cache_checked = True
+            dl = int(opt.data_len or 1)
+            if dl > 1:
+                self._tap_cache_off(
+                    f"--lpips_tap_cache: data_len={dl} cycles samples every step — the 1-entry "
+                    "tap cache cannot hit; leaving it OFF from step 0 (the step recomputes the "
+                    "real canvas's VGG taps in-graph, values unchanged)")
+                return None
+        key = self._sample_key
+        if key is None:
+            return None
+        (ck, cv), (hits, misses) = self._tap_cache_kv, self._tap_cache_stats
+        if ck != key:
+            misses += 1
+            if misses >= 8 and misses > hits:
+                self._tap_cache_stats = (hits, misses)
+                self._tap_cache_off(
+                    f"--lpips_tap_cache: {misses} misses vs {hits} hits — the dataset cycles "
+                    "samples faster than the 1-entry tap cache can help; disabling it (the step "
+                    "recomputes the real canvas's VGG taps in-graph, values unchanged). Use "
+                    "the cache only with data_len small enough that consecutive steps share a "
+                    "sample.")
+                return None
+            cv = lpips_y_taps(self.lpips_net, self._input["I"], dtype=self.dtype)
+            self._tap_cache_kv = (key, cv)
+        else:
+            hits += 1
+        self._tap_cache_stats = (hits, misses)
+        return cv
+
+    def _tap_cache_off(self, msg: str) -> None:
+        print(f"[sinskit] {msg}")
+        warnings.warn(msg)
+        self._tap_cache_disabled = True
+        self._tap_cache_kv = (None, None)
 
     def _ranks(self) -> int:
         """How many ranks share the training step: N under ``--mesh data:N``,
@@ -460,7 +668,7 @@ class SinSKITModel:
         self.adam[name].step(params, grads, lr)
 
     def _train_step(self, batch: Dict[str, torch.Tensor], lr: float, lr_d2: float,
-                    draws: Dict, use_d3: bool = False):
+                    draws: Dict, use_d3: bool = False, y_taps=None, d3_real_logits=None):
         opt = self.opt
         mode = opt.gan_mode
         real_lbl = 0.8 if opt.smooth_GAN_label else 1.0
@@ -485,7 +693,16 @@ class SinSKITModel:
         pe = self._pe(n, h, w)
         x_in = torch.cat([S, pe], dim=-1) if pe is not None else S
         style = self._style_code(batch)
-        fake_I, fake_T = self._split_g_out(self.netG(x_in, style), M_d, M_T.to(cd))
+        M_Td = M_T.to(cd)
+        if remat_on(opt.remat_g, n_all, "remat_g"):
+            # --remat_g: G's activations are recomputed in its backward; the
+            # recomputation leaves the batch norms' running statistics alone
+            fake_I, fake_T = checkpoint(
+                lambda x: self._split_g_out(self.netG(x, style), M_d, M_Td), x_in,
+                use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(), _held_stats(self.netG)))
+        else:
+            fake_I, fake_T = self._split_g_out(self.netG(x_in, style), M_d, M_Td)
         fake_I_d, fake_T_d = fake_I.detach(), fake_T.detach()
         if opt.use_diffaug:
             aug_real_I = diffaug.diff_augment(I_d, opt.diffaugment, draws=draws["aug_real"]) * M_d
@@ -584,7 +801,7 @@ class SinSKITModel:
 
         # ---- 5. D3's real logits (frozen heads); the fake ones come from the
         # one CLIP pass of the G loss ----
-        if use_d3:
+        if use_d3 and d3_real_logits is None:
             with torch.no_grad():
                 d3_real_logits = d3_logits(self.clip, self.d3_heads, I)
 
@@ -608,8 +825,18 @@ class SinSKITModel:
                 oy, ox = (int(v) for v in draws["lpips_crop"])
                 lp_x = lp_x[:, oy:oy + min(c, h), ox:ox + min(c, w)]
                 lp_y = lp_y[:, oy:oy + min(c, h), ox:ox + min(c, w)]
-            aux["G_lpips"] = share(torch.mean(self.lpips_net(lp_x, lp_y, y_no_grad=True,
-                                                             dtype=cd))) * opt.lambda_G1_lpips
+            # y_taps: --lpips_tap_cache's taps of the real canvas (never a crop's)
+            taps, lp_kw = y_taps, dict(y_no_grad=True, dtype=cd, head_mode=opt.lpips_head)
+            if remat_on(opt.lpips_remat, n_all, "lpips_remat"):
+                # --lpips_remat: only the x branch is recomputed in the
+                # backward; y's taps are computed once, without gradient
+                if taps is None:
+                    taps = lpips_y_taps(self.lpips_net, lp_y, dtype=cd)
+                lp = checkpoint(lambda a: self.lpips_net(a, None, y_taps=taps, **lp_kw), lp_x,
+                                use_reentrant=False)
+            else:
+                lp = self.lpips_net(lp_x, lp_y, y_taps=taps, **lp_kw)
+            aux["G_lpips"] = share(torch.mean(lp)) * opt.lambda_G1_lpips
         f_T_patch = gather_patches_from_coords(fake_T, coords, 32, mult)
         if opt.lambda_G2_L1 > 0:
             l1map = torch.abs(f_T_patch.float() - real_T) * valid[:, None, None, None]
@@ -619,7 +846,7 @@ class SinSKITModel:
         if opt.lambda_G2_lpips > 0:
             lp = self.lpips_net(torch.cat([f_T_patch[..., 0:1], f_T_patch[..., 1:2]], 0),
                                 torch.cat([real_T[..., 0:1], real_T[..., 1:2]], 0),
-                                y_no_grad=True, dtype=cd)
+                                y_no_grad=True, dtype=cd, head_mode=opt.lpips_head)
             aux["G2_lpips"] = (masked_patch_sum(lp[:k], valid) / max(n_all, 1)
                                + masked_patch_sum(lp[k:], valid) / max(n_all, 1)) \
                 * opt.lambda_G2_lpips

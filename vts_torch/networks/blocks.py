@@ -160,6 +160,9 @@ class BatchNorm(nn.Module):
     the running buffers take those, the same on every rank."""
 
     group = None
+    # True while a rematerialized forward recomputes a pass (``--remat_g``):
+    # the running statistics were folded in once already
+    hold_stats = False
 
     def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5, affine: bool = True):
         super().__init__()
@@ -191,7 +194,7 @@ class BatchNorm(nn.Module):
         else:
             mean = torch.mean(xf, dim=(0, 1, 2))
             var = torch.clamp_min(torch.mean(xf * xf, dim=(0, 1, 2)) - mean * mean, 0.0)
-        if self.training and update_stats:
+        if self.training and update_stats and not self.hold_stats:
             m = self.momentum
             with torch.no_grad():
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

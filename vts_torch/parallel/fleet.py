@@ -139,7 +139,9 @@ class FleetTrainer:
         self.losses = []
         for g, batch in enumerate(batches):
             self.select(g)
-            model.set_input({k: batch[k] for k in keys})
+            # no sample key: the per-sample caches are the single model's
+            # (the reference's fleet step takes none either)
+            model.set_input({k: batch[k] for k in keys if k != "sample_idx"})
             model.optimize_parameters(epoch, draws=None if draws is None else draws[g])
             self.losses.append(dict(model._losses))
         return self.losses

@@ -2,7 +2,8 @@
 
 Deterministic single-sample evaluation, as in the reference: whatever was
 passed, the driver runs at batch 1, in order (``serial_batches``), with no
-flip, no loader threads and no dashboard.  It loads the tagged generator
+flip, no loader threads, no device cache of the samples (each is visited
+once) and no dashboard.  It loads the tagged generator
 checkpoint, runs the fp32 eval forward per sample (``--dtype bfloat16``
 does not change it: the reference's eval forward is fp32 too), computes
 the 8 metrics and pickles them to
@@ -77,6 +78,7 @@ def test(argv=None, opt=None) -> List[Dict[str, float]]:
     if opt is None:
         opt = TestOptions().parse(argv)
     opt.num_threads = 0
+    opt.cache_data_device = False       # each sample is visited once
     opt.batch_size = 1
     opt.serial_batches = True
     opt.no_flip = True

@@ -17,7 +17,14 @@ sum of the lower-is-better validation metrics drives a
 :class:`~vts_torch.models.base.PlateauTracker`).  With ``--anneal_epoch`` and
 ``--anneal_set``, the options named there change once, at the start of that
 epoch (``[anneal]`` line): the step reads them anew every time, and the
-loader takes the new batch size.  Each epoch's wall time goes to the
+loader takes the new batch size (from its device cache under
+``--cache_data_device``, with no new upload).  ``--steps_per_dispatch`` k > 1
+collects k batches and trains them as one chunk
+(:meth:`~vts_torch.models.sinskit.SinSKITModel.optimize_parameters_chunk`:
+k sequential steps that never wait for the device); the loss line, the
+gallery and the ``latest`` checkpoint due within a chunk come after it, and
+an epoch's last, partial chunk is trained at the epoch's end.  Each epoch's
+wall time goes to the
 loggers (``plot_epoch_time``); with ``--display_id`` > 0 the live dashboard
 serves the run on 127.0.0.1 until training ends.  On CUDA the run turns
 TF32 off (cuDNN convs and matmuls in full fp32).
@@ -197,6 +204,37 @@ def _train(opt, device, visualizer):
     val_loader = None
     t_start = time.time()
     first = True
+    # --steps_per_dispatch: the inputs and sample keys of the chunk being
+    # collected, and what fell due within it (the loss line, the gallery,
+    # the latest checkpoint), done once it has trained
+    chunk, chunk_keys = [], []
+    due = {"print": False, "display": False, "save": False}
+    t_comp_mark = t_data = 0.0
+
+    def flush(epoch):
+        if not chunk:
+            return
+        if len(chunk) == 1:
+            model._input, model._sample_key = chunk[0], chunk_keys[0]
+            model.optimize_parameters(epoch)
+        else:
+            stacked = {key: torch.stack([c[key] for c in chunk]) for key in chunk[0]}
+            model.optimize_parameters_chunk(stacked, epoch, sample_keys=list(chunk_keys))
+        t_comp = (time.time() - t_comp_mark) / (opt.batch_size * len(chunk))
+        chunk.clear()
+        chunk_keys.clear()
+        if lead and due["print"]:
+            visualizer.print_current_losses(epoch, total_iters, model.get_current_losses(),
+                                            t_comp, t_data)
+        if due["display"] and not opt.no_html:
+            visuals = model.get_current_visuals()
+            if lead:
+                visualizer.display_current_results(visuals, epoch)
+        if lead and due["save"]:
+            print(f"saving the latest model (epoch {epoch}, total_iters {total_iters})")
+            model.save_networks("latest")
+        due.update(print=False, display=False, save=False)
+
     for epoch in range(opt.epoch_count, opt.n_epochs + opt.n_epochs_decay + 1):
         epoch_start = time.time()
         if anneal_pending and epoch >= opt.anneal_epoch:
@@ -217,21 +255,18 @@ def _train(opt, device, visualizer):
                     model.load_networks(opt.epoch)
                 first = False
             total_iters += opt.batch_size
-            t_comp_mark = time.time()
+            if not chunk:
+                t_comp_mark = time.time()
             model.set_input(data)
-            model.optimize_parameters(epoch)
-            t_comp = (time.time() - t_comp_mark) / opt.batch_size
-            if lead and (total_iters % opt.print_freq == 0 or i == 0):
-                visualizer.print_current_losses(epoch, total_iters, model.get_current_losses(),
-                                                t_comp, t_data)
-            if total_iters % opt.display_freq == 0 and not opt.no_html:
-                visuals = model.get_current_visuals()
-                if lead:
-                    visualizer.display_current_results(visuals, epoch)
-            if lead and total_iters % opt.save_latest_freq == 0:
-                print(f"saving the latest model (epoch {epoch}, total_iters {total_iters})")
-                model.save_networks("latest")
+            due["print"] |= total_iters % opt.print_freq == 0 or i == 0
+            due["display"] |= total_iters % opt.display_freq == 0
+            due["save"] |= total_iters % opt.save_latest_freq == 0
+            chunk.append(model._input)
+            chunk_keys.append(model._sample_key)
+            if len(chunk) >= opt.steps_per_dispatch:
+                flush(epoch)
             t_data_mark = time.time()
+        flush(epoch)                        # the epoch's last, partial chunk
 
         if lead and opt.val_for_each_epoch and (eval_batch is not None
                                                 or getattr(opt, "return_patch", False)):
